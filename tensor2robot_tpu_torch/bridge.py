@@ -1,0 +1,117 @@
+"""Weight bridge: a flax variables tree <-> the port's ``state_dict``.
+
+The flax tree is nested dicts of arrays or tensors, as ``load_variables``
+of either package returns it: ``{"params": ..., "batch_stats": ...}``. A
+leaf at ``<collection>/<scope...>/<name>`` maps to the state_dict key
+``<scope...>.<torch name>``:
+
+    params/<scope>/kernel   4-d HWIO conv kernel -> weight, OIHW
+    params/<scope>/kernel   2-d (in, out) Dense  -> weight, (out, in)
+    params/<scope>/scale    norm scale           -> weight
+    params/<scope>/bias                          -> bias
+    batch_stats/<scope>/mean                     -> running_mean
+    batch_stats/<scope>/var                      -> running_var
+
+Both directions raise on any leaf they cannot map, and the flax->torch
+direction also on any key of the module that no leaf fills: nothing is
+skipped.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import torch
+from torch import nn
+
+from tensor2robot_tpu_torch.export.variables_io import to_tensor
+
+_STATS = {"mean": "running_mean", "var": "running_var"}
+_STATS_BACK = {v: k for k, v in _STATS.items()}
+
+
+def _leaves(tree: Mapping[str, Any], prefix=()):
+  for key, value in tree.items():
+    if isinstance(value, Mapping):
+      yield from _leaves(value, prefix + (key,))
+    else:
+      yield prefix + (key,), value
+
+
+def _to_torch(collection: str, path, leaf) -> tuple:
+  """(state_dict key, tensor) of one flax leaf; raises if unmapped."""
+  *scope, name = path
+  tensor = to_tensor(leaf)
+  where = "/".join((collection,) + tuple(path))
+  if not scope:
+    raise KeyError(f"Flax leaf {where!r} has no module scope.")
+  if collection == "params" and name == "kernel" and tensor.dim() == 4:
+    name, tensor = "weight", tensor.permute(3, 2, 0, 1)
+  elif collection == "params" and name == "kernel" and tensor.dim() == 2:
+    name, tensor = "weight", tensor.t()
+  elif collection == "params" and name == "scale":
+    name = "weight"
+  elif collection == "params" and name == "bias":
+    pass
+  elif collection == "batch_stats" and name in _STATS:
+    name = _STATS[name]
+  else:
+    raise KeyError(f"Flax leaf {where!r} has no mapping to a state_dict key.")
+  return ".".join(scope + [name]), tensor
+
+
+def variables_to_state_dict(variables: Mapping[str, Any],
+                            module: nn.Module) -> Dict[str, torch.Tensor]:
+  """The flax variables tree as a state_dict for `module`, on the CPU.
+
+  Every key of ``module.state_dict()`` must be filled, with its shape, and
+  every leaf of the tree must land on one; tensors take the module's dtype.
+  """
+  expected = module.state_dict()
+  out: Dict[str, torch.Tensor] = {}
+  for collection, tree in variables.items():
+    if not isinstance(tree, Mapping):
+      raise KeyError(f"Flax collection {collection!r} is not a tree.")
+    for path, leaf in _leaves(tree):
+      key, tensor = _to_torch(collection, path, leaf)
+      if key not in expected:
+        raise KeyError(
+            f"Flax leaf {'/'.join((collection,) + path)!r} maps to {key!r}, "
+            f"which {type(module).__name__} does not have.")
+      if tuple(tensor.shape) != tuple(expected[key].shape):
+        raise ValueError(
+            f"{key!r}: flax gives shape {tuple(tensor.shape)}, the module "
+            f"has {tuple(expected[key].shape)}.")
+      out[key] = tensor.to(expected[key].dtype).contiguous()
+  missing = sorted(set(expected) - set(out))
+  if missing:
+    raise KeyError(f"Flax variables leave module keys unfilled: {missing}")
+  return out
+
+
+def state_dict_to_variables(
+    state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+  """Inverse of `variables_to_state_dict`: nested dicts of CPU tensors."""
+  tree: Dict[str, Any] = {}
+  for key, tensor in state_dict.items():
+    *scope, name = key.split(".")
+    tensor = tensor.detach().cpu()
+    if name == "weight" and tensor.dim() == 4:
+      collection, leaf, tensor = "params", "kernel", tensor.permute(2, 3, 1, 0)
+    elif name == "weight" and tensor.dim() == 2:
+      collection, leaf, tensor = "params", "kernel", tensor.t()
+    elif name == "weight" and tensor.dim() == 1:
+      collection, leaf = "params", "scale"
+    elif name == "bias":
+      collection, leaf = "params", "bias"
+    elif name in _STATS_BACK:
+      collection, leaf = "batch_stats", _STATS_BACK[name]
+    else:
+      raise KeyError(f"state_dict key {key!r} has no flax counterpart.")
+    if not scope:
+      raise KeyError(f"state_dict key {key!r} has no module scope.")
+    node = tree.setdefault(collection, {})
+    for part in scope:
+      node = node.setdefault(part, {})
+    node[leaf] = tensor.contiguous()
+  return tree

@@ -1,0 +1,205 @@
+"""Vision layers: conv towers + spatial softmax for robot cameras.
+
+Counterpart of ``tensor2robot_tpu/layers/vision_layers.py``. The public
+layout stays the JAX package's: images and feature maps are (B, H, W, C).
+Inside, convolutions run on the (B, C, H, W) view of the same memory, so
+no layout copy is made either way.
+
+Numerics follow flax: parameters stay in float32; ``Conv`` and ``Dense``
+cast their input, kernel and bias to the compute dtype; normalisation
+computes in float32 and returns the compute dtype; convolutions pad as
+XLA's "SAME" does, with the odd pixel at the high end.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tensor2robot_tpu_torch.ops.spatial_softmax import (
+    spatial_softmax as fused_spatial_softmax,
+)
+
+# flax's defaults: BatchNorm epsilon 1e-5; GroupNorm epsilon 1e-6, where
+# torch's GroupNorm default is 1e-5.
+_BATCH_NORM_EPSILON = 1e-5
+_GROUP_NORM_EPSILON = 1e-6
+
+
+def same_padding(size: Sequence[int], kernel: int,
+                 stride: int) -> Tuple[int, int, int, int]:
+  """XLA "SAME" padding of an (H, W) input, in ``F.pad`` order.
+
+  The total pad is split with ``lo = total // 2``, so a stride-2 3x3 conv on
+  an even size pads (0, 1): torch's symmetric ``padding=1`` would shift
+  every output by one pixel.
+  """
+  pads = []
+  for n in reversed(tuple(size)):  # F.pad lists the last dim first
+    out = -(-n // stride)
+    total = max((out - 1) * stride + kernel - n, 0)
+    pads += [total // 2, total - total // 2]
+  return tuple(pads)
+
+
+class Conv(nn.Conv2d):
+  """flax ``nn.Conv`` with "SAME" padding, on (B, C, H, W) activations."""
+
+  def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+               stride: int = 1, dtype: torch.dtype = torch.bfloat16):
+    super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                     padding=0)
+    self.compute_dtype = dtype
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    dtype = self.compute_dtype
+    x = F.pad(x.to(dtype),
+              same_padding(x.shape[-2:], self.kernel_size[0], self.stride[0]))
+    return F.conv2d(x, self.weight.to(dtype), self.bias.to(dtype),
+                    self.stride)
+
+
+class Dense(nn.Linear):
+  """flax ``nn.Dense``: input, kernel and bias cast to the compute dtype."""
+
+  def __init__(self, in_features: int, out_features: int,
+               dtype: torch.dtype = torch.bfloat16):
+    super().__init__(in_features, out_features)
+    self.compute_dtype = dtype
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    dtype = self.compute_dtype
+    return F.linear(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
+
+
+class BatchNorm(nn.Module):
+  """flax ``nn.BatchNorm`` with running averages (the PREDICT/EVAL form)."""
+
+  def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+    super().__init__()
+    self.weight = nn.Parameter(torch.ones(channels))
+    self.bias = nn.Parameter(torch.zeros(channels))
+    self.register_buffer("running_mean", torch.zeros(channels))
+    self.register_buffer("running_var", torch.ones(channels))
+    self.compute_dtype = dtype
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return F.batch_norm(
+        x.float(), self.running_mean, self.running_var, self.weight,
+        self.bias, training=False, eps=_BATCH_NORM_EPSILON,
+    ).to(self.compute_dtype)
+
+
+class GroupNormAuto(nn.Module):
+  """GroupNorm with num_groups = gcd(32, channels).
+
+  The child's name mirrors flax's auto-named ``GroupNorm_0``, so the
+  weight bridge maps both trees path for path.
+  """
+
+  def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+    super().__init__()
+    self.GroupNorm_0 = nn.GroupNorm(
+        math.gcd(32, channels), channels, eps=_GROUP_NORM_EPSILON)
+    self.compute_dtype = dtype
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return self.GroupNorm_0(x.float()).to(self.compute_dtype)
+
+
+def make_norm(kind: str, dtype: torch.dtype) -> Callable[[int], nn.Module]:
+  """Returns channels -> norm layer for `kind` in {'batch', 'group', 'none'}.
+
+  'batch' is the reference's choice; 'group' is batch-independent; 'none'
+  disables normalisation.
+  """
+  if kind == "batch":
+    return lambda channels: BatchNorm(channels, dtype)
+  if kind == "group":
+    return lambda channels: GroupNormAuto(channels, dtype)
+  if kind == "none":
+    return lambda channels: nn.Identity()
+  raise ValueError(
+      f"Unknown norm kind {kind!r}; have 'batch', 'group', 'none'.")
+
+
+def normalize_image(image: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+  """Camera image -> model-ready [0, 1] activations in `dtype`.
+
+  Accepts already-scaled float images or raw uint8 ones.
+  """
+  if not image.is_floating_point():
+    return image.to(dtype) * (1.0 / 255.0)
+  return image.to(dtype)
+
+
+def spatial_softmax(features: torch.Tensor,
+                    temperature: float = 1.0) -> torch.Tensor:
+  """(B, H, W, C) -> (B, 2C) expected coordinates, x then y (ops kernel)."""
+  return fused_spatial_softmax(features, temperature)
+
+
+class ImagesToFeatures(nn.Module):
+  """Conv tower: camera image -> spatial feature map.
+
+  A VGG-ish stack of 3x3 convs with stride-2 downsamples, norm and relu.
+  Images and the returned map are (B, H, W, C); the map is a view of the
+  last conv's (B, C, H, W) output.
+  """
+
+  def __init__(self, in_channels: int = 3,
+               filters: Sequence[int] = (32, 64, 64, 128),
+               strides: Sequence[int] = (2, 2, 2, 1), norm: str = "batch",
+               dtype: torch.dtype = torch.bfloat16):
+    super().__init__()
+    if len(filters) != len(strides):
+      raise ValueError(
+          f"filters ({len(filters)}) and strides ({len(strides)}) must have "
+          "equal length.")
+    self.norm = norm
+    self.compute_dtype = dtype
+    self.num_layers = len(filters)
+    make = make_norm(norm, dtype)
+    for i, (width, stride) in enumerate(zip(filters, strides)):
+      self.add_module(f"conv{i}", Conv(in_channels, width, 3, stride, dtype))
+      self.add_module(f"bn{i}", make(width))
+      in_channels = width
+
+  def forward(self, images: torch.Tensor, train: bool = False):
+    if train and self.norm == "batch":
+      raise NotImplementedError(
+          "Train-mode BatchNorm (batch statistics and their running-average "
+          "update) is not ported yet; serve in PREDICT or EVAL mode.")
+    x = normalize_image(images, self.compute_dtype).permute(0, 3, 1, 2)
+    for i in range(self.num_layers):
+      x = getattr(self, f"conv{i}")(x)
+      x = getattr(self, f"bn{i}")(x)
+      x = torch.relu(x)
+    return x.permute(0, 2, 3, 1)
+
+
+class ImageFeaturesToPose(nn.Module):
+  """Spatial-softmax keypoints -> MLP -> pose vector (head in float32)."""
+
+  def __init__(self, in_channels: int, pose_dim: int = 2,
+               hidden_sizes: Sequence[int] = (64, 64),
+               dtype: torch.dtype = torch.bfloat16):
+    super().__init__()
+    self.num_hidden = len(hidden_sizes)
+    width_in = 2 * in_channels
+    for i, width in enumerate(hidden_sizes):
+      self.add_module(f"fc{i}", Dense(width_in, width, dtype))
+      width_in = width
+    # Head in float32: small, and keeps regression targets full-precision.
+    self.pose = Dense(width_in, pose_dim, torch.float32)
+
+  def forward(self, feature_map: torch.Tensor, train: bool = False):
+    del train  # no train/eval asymmetry in the head
+    x = spatial_softmax(feature_map)
+    for i in range(self.num_hidden):
+      x = torch.relu(getattr(self, f"fc{i}")(x))
+    return self.pose(x)

@@ -1,0 +1,121 @@
+"""ExportedModelPredictor: serve a native export directory on the GPU.
+
+Counterpart of ``tensor2robot_tpu/predictors/exported_model_predictor.py``:
+poll an export root for the newest version, block-with-timeout until the
+first export exists, predict on numpy dicts, hot-reload newer versions.
+
+A native export's ``serving_fn.bin`` is StableHLO, which only JAX runs.
+This predictor instead rebuilds the network from the model's Python code,
+as the JAX ``CheckpointPredictor`` does, and serves the export's
+``variables.npz`` through the weight bridge. When the export carries its
+spec asset (``t2r_assets.json``), its feature keys, shapes and dtypes must
+match the model's PREDICT feature spec.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import numpy as np
+import torch
+
+from tensor2robot_tpu_torch import Device, bridge, modes, resolve_device
+from tensor2robot_tpu_torch.export import export_utils, variables_io
+from tensor2robot_tpu_torch.models.abstract_model import AbstractT2RModel
+from tensor2robot_tpu_torch.predictors.abstract_predictor import (
+    AbstractPredictor,
+)
+from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+
+
+def _to_numpy(tensor: torch.Tensor) -> np.ndarray:
+  if tensor.dtype == torch.bfloat16:  # numpy has no bfloat16
+    tensor = tensor.float()
+  return tensor.detach().cpu().numpy()
+
+
+class ExportedModelPredictor(AbstractPredictor):
+  """Polls export_root and serves the newest export's variables."""
+
+  def __init__(self, model: AbstractT2RModel, export_root: str,
+               device: Device = None):
+    """Args:
+      model: the model whose network the export's variables fill.
+      export_root: directory of numeric version subdirectories.
+      device: where to serve; the GPU unless 'cpu' is asked for.
+    """
+    self._model = model
+    self._export_root = export_root
+    self._device = resolve_device(device)
+    self._feature_spec = ts.flatten_spec_structure(
+        model.get_feature_specification(modes.PREDICT))
+    self._variables = None
+    self._version = -1
+
+  @property
+  def device(self) -> torch.device:
+    return self._device
+
+  # --- loading -------------------------------------------------------------
+
+  def restore(self, timeout_s: float = 0.0,
+              raise_on_timeout: bool = False) -> bool:
+    newest = self._poll_newer_version(self._export_root, timeout_s)
+    if newest is None:
+      return self._timeout_unloaded(
+          f"a native export under {self._export_root}", timeout_s,
+          raise_on_timeout)
+    export_dir = os.path.join(self._export_root, str(newest))
+    if os.path.exists(os.path.join(export_dir, export_utils.SPEC_ASSET_NAME)):
+      self._check_spec_assets(export_dir)
+    tree = variables_io.load_variables(
+        os.path.join(export_dir, export_utils.VARIABLES_NPZ))
+    state = bridge.variables_to_state_dict(tree, self._model.module)
+    self._variables = {k: v.to(self._device) for k, v in state.items()}
+    self._version = newest
+    return True
+
+  def _check_spec_assets(self, export_dir: str) -> None:
+    exported, _, extra = export_utils.read_spec_assets(export_dir)
+    keys = list(extra.get("feature_keys", exported.keys()))
+    if sorted(keys) != sorted(self._feature_spec.keys()):
+      raise ValueError(
+          f"Export {export_dir} takes features {keys}; the model takes "
+          f"{list(self._feature_spec.keys())}.")
+    for key in keys:
+      want, got = self._feature_spec[key], exported[key]
+      if (want.shape, want.dtype) != (got.shape, got.dtype):
+        raise ValueError(
+            f"Export {export_dir} declares feature {key!r} as {got!r}; the "
+            f"model takes {want!r}.")
+
+  def init_randomly(self) -> None:
+    """Serves freshly initialised weights (seed 0) as version 0."""
+    self._variables = self._model.init_variables(
+        torch.Generator().manual_seed(0), device=self._device)
+    self._version = 0
+
+  # --- serving -------------------------------------------------------------
+
+  def predict(
+      self, features: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    self.assert_is_loaded()
+    flat = self._validate_features(features)
+    inputs = ts.TensorSpecStruct(
+        (key, torch.from_numpy(np.ascontiguousarray(value)).to(self._device))
+        for key, value in flat.items())
+    outputs = self._model.predict_fn(self._variables, inputs)
+    return {k: _to_numpy(v) for k, v in
+            export_utils.normalize_serving_outputs(outputs).items()}
+
+  def get_feature_specification(self) -> ts.TensorSpecStruct:
+    return self._feature_spec
+
+  @property
+  def model_version(self) -> int:
+    return self._version
+
+  def close(self) -> None:
+    self._variables = None
+    self._version = -1  # assert_is_loaded fails cleanly after close()

@@ -6,6 +6,7 @@ leaf at ``<collection>/<scope...>/<name>`` maps to the state_dict key
 ``<scope...>.<torch name>``:
 
     params/<scope>/kernel   4-d HWIO conv kernel -> weight, OIHW
+    params/<scope>/kernel   3-d (k, in, out) conv -> weight, (out, in, k)
     params/<scope>/kernel   2-d (in, out) Dense  -> weight, (out, in)
     params/<scope>/scale    norm scale           -> weight
     params/<scope>/bias                          -> bias
@@ -47,6 +48,8 @@ def _to_torch(collection: str, path, leaf) -> tuple:
     raise KeyError(f"Flax leaf {where!r} has no module scope.")
   if collection == "params" and name == "kernel" and tensor.dim() == 4:
     name, tensor = "weight", tensor.permute(3, 2, 0, 1)
+  elif collection == "params" and name == "kernel" and tensor.dim() == 3:
+    name, tensor = "weight", tensor.permute(2, 1, 0)
   elif collection == "params" and name == "kernel" and tensor.dim() == 2:
     name, tensor = "weight", tensor.t()
   elif collection == "params" and name == "scale":
@@ -98,6 +101,8 @@ def state_dict_to_variables(
     tensor = tensor.detach().cpu()
     if name == "weight" and tensor.dim() == 4:
       collection, leaf, tensor = "params", "kernel", tensor.permute(2, 3, 1, 0)
+    elif name == "weight" and tensor.dim() == 3:
+      collection, leaf, tensor = "params", "kernel", tensor.permute(2, 1, 0)
     elif name == "weight" and tensor.dim() == 2:
       collection, leaf, tensor = "params", "kernel", tensor.t()
     elif name == "weight" and tensor.dim() == 1:

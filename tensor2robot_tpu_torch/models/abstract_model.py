@@ -40,8 +40,8 @@ def flax_default_init_(module: nn.Module,
   """
   with torch.no_grad():
     for layer in module.modules():
-      if isinstance(layer, (nn.Conv2d, nn.Linear)):
-        fan_in = layer.weight[0].numel()
+      if isinstance(layer, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+        fan_in = layer.weight[0].numel()  # in_channels x kernel size
         std = math.sqrt(1.0 / fan_in) / _TRUNCATED_NORMAL_STDDEV_FACTOR
         nn.init.trunc_normal_(layer.weight, 0.0, std, -2.0 * std, 2.0 * std,
                               generator=generator)

@@ -22,7 +22,7 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PACKAGE_DIR), "build",
                           "torch_kernels")
-KERNEL_SOURCES = ("spatial_softmax",)
+KERNEL_SOURCES = ("spatial_softmax", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,126 @@
+"""Optimizer factories.
+
+Counterpart of ``tensor2robot_tpu/utils/optimizers.py``, where each factory
+returns a zero-argument callable that builds an optax transformation. Here
+each returns a constructor: ``params -> torch.optim.Optimizer``, with the
+same names, defaults and update rules as the optax one:
+
+- Adam adds eps after the square root of the bias-corrected second moment,
+  as ``optax.adam`` (and ``torch.optim.Adam``) do;
+- RMSprop adds eps inside the square root, as ``optax.rmsprop`` does by
+  default (``torch.optim.RMSprop`` adds it outside), so it has its own class;
+- a piecewise-constant schedule ``[(boundary, scale), ...]`` multiplies the
+  rate by every scale whose boundary the update count has reached, as
+  ``optax.piecewise_constant_schedule``. It is a ``LambdaLR`` that advances
+  after each ``step()`` by itself, as an optax schedule lives inside its
+  transformation.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Optional, Sequence, Tuple
+
+import torch
+
+OptimizerFn = Callable[[Iterable], torch.optim.Optimizer]
+BoundariesAndScales = Optional[Sequence[Tuple[int, float]]]
+
+
+def _with_schedule(optimizer: torch.optim.Optimizer,
+                   boundaries_and_scales: BoundariesAndScales):
+  if not boundaries_and_scales:
+    return optimizer
+  if any(scale < 0 for _, scale in boundaries_and_scales):
+    raise ValueError(
+        f"schedule scales must be non-negative; got {boundaries_and_scales}.")
+  steps = sorted(boundaries_and_scales)
+
+  def factor(count: int) -> float:
+    value = 1.0
+    for boundary, scale in steps:
+      if count >= boundary:
+        value *= scale
+    return value
+
+  scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
+  optimizer.register_step_post_hook(lambda *_: scheduler.step())
+  return optimizer
+
+
+class RMSprop(torch.optim.Optimizer):
+  """optax.rmsprop: nu = decay nu + (1 - decay) g^2; the update is
+  lr g / sqrt(nu + eps), then an optional momentum trace."""
+
+  def __init__(self, params, lr: float, decay: float, eps: float,
+               momentum: float):
+    super().__init__(params, dict(lr=lr, decay=decay, eps=eps,
+                                  momentum=momentum))
+
+  @torch.no_grad()
+  def step(self, closure=None):
+    loss = None
+    if closure is not None:
+      with torch.enable_grad():
+        loss = closure()
+    for group in self.param_groups:
+      for p in group["params"]:
+        if p.grad is None:
+          continue
+        state = self.state[p]
+        if not state:
+          state["nu"] = torch.zeros_like(p)
+          state["trace"] = torch.zeros_like(p)
+        nu = state["nu"]
+        nu.mul_(group["decay"]).addcmul_(p.grad, p.grad,
+                                         value=1 - group["decay"])
+        update = p.grad * torch.rsqrt(nu + group["eps"]) * group["lr"]
+        trace = state["trace"]
+        trace.mul_(group["momentum"]).add_(update)
+        p.sub_(trace)
+    return loss
+
+
+def create_adam_optimizer(
+    learning_rate: float = 1e-4,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    boundaries_and_scales: BoundariesAndScales = None,
+) -> OptimizerFn:
+  """Adam (the reference's default optimizer family)."""
+  return lambda params: _with_schedule(
+      torch.optim.Adam(params, lr=learning_rate, betas=(b1, b2), eps=eps),
+      boundaries_and_scales)
+
+
+def create_momentum_optimizer(
+    learning_rate: float = 1e-2,
+    momentum: float = 0.9,
+    nesterov: bool = False,
+    boundaries_and_scales: BoundariesAndScales = None,
+) -> OptimizerFn:
+  return lambda params: _with_schedule(
+      torch.optim.SGD(params, lr=learning_rate, momentum=momentum,
+                      nesterov=nesterov),
+      boundaries_and_scales)
+
+
+def create_sgd_optimizer(
+    learning_rate: float = 1e-2,
+    boundaries_and_scales: BoundariesAndScales = None,
+) -> OptimizerFn:
+  return lambda params: _with_schedule(
+      torch.optim.SGD(params, lr=learning_rate), boundaries_and_scales)
+
+
+def create_rmsprop_optimizer(
+    learning_rate: float = 1e-3,
+    decay: float = 0.9,
+    momentum: float = 0.0,
+    eps: float = 1e-10,
+    boundaries_and_scales: BoundariesAndScales = None,
+) -> OptimizerFn:
+  return lambda params: _with_schedule(
+      RMSprop(params, lr=learning_rate, decay=decay, eps=eps,
+              momentum=momentum),
+      boundaries_and_scales)

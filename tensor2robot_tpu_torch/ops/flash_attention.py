@@ -15,6 +15,20 @@ plain version on the card. Its gradient is first order only, as the JAX
 The kernels' limits are the card's, not the TPU's: they stream key and
 query tiles and mask the ragged tail, so every T >= 1 runs; the head dim
 is a multiple of 8 up to 128; float32 and bfloat16, with float32 sums.
+
+The dtype picks the kernel. bfloat16 runs K2 and K4 on the tensor cores
+(wgmma), which round the probabilities P (and K4's dS) to bfloat16 before
+their second product, where the plain versions keep float32; they read
+rows in 16-byte pieces, so ``_tensor_core_operand`` hands them a
+contiguous copy of any operand laid out otherwise. float32 runs all three
+on the CUDA cores, whose float32 products keep the 1e-4 float32 tolerance
+that a TF32 tensor-core product would miss. K3 (dq) runs on the CUDA cores
+in both dtypes. The CUDA-core forward and dk/dv kernels still take
+bfloat16, but no wrapper sends it to them: that form exists only as the
+yardstick ``chip_smoke.py`` times the tensor-core kernels against.
+``flash_attention.launches`` counts each kernel apart:
+``forward``, ``dq`` and ``dkv`` the CUDA-core kernels, ``forward_tc`` and
+``dkv_tc`` the tensor-core ones.
 """
 
 from __future__ import annotations
@@ -173,17 +187,40 @@ def _check_rows(q, lse, delta) -> None:
           f"{q.device}; got {rows.dtype} {tuple(rows.shape)}.")
 
 
+def _tensor_core_operand(x: torch.Tensor) -> torch.Tensor:
+  """``x`` if the tensor-core kernels can read it in place, else a copy.
+
+  They copy 16-byte pieces of each row, so they need a last-dim stride of
+  1, a 16-byte-aligned base and strides of whole 16 bytes (8 elements) in
+  every other dim of size above 1. Any other layout (a stride-0 ``dout``
+  from ``out.sum()``, a transposed view, an odd offset) gets an explicit
+  contiguous copy here; the call never goes to a plain version.
+  """
+  in_place = x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
+      stride % 8 == 0 for size, stride in zip(x.shape[:-1], x.stride()[:-1])
+      if size > 1)
+  return x if in_place else x.clone(memory_format=torch.contiguous_format)
+
+
 def flash_forward(q, k, v, causal: bool,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-  """K2's wrapper: (out in q's dtype, (B, H, T) float32 lse)."""
+  """K2's wrapper: (out in q's dtype, (B, H, T) float32 lse).
+
+  bfloat16 on the card runs the tensor-core kernel, on operands that
+  ``_tensor_core_operand`` passes or copies; float32 the CUDA-core one."""
   _check(q, k, v)
   if q.device.type == "cpu":
     return flash_forward_reference(q, k, v, causal, scale)
   b, t, h, _ = q.shape
   out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
   lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-  _launch("t2r_flash_forward", "forward", q, k, v, causal, scale, o=out,
-          lse=lse)
+  if q.dtype == torch.bfloat16:
+    q, k, v = (_tensor_core_operand(x) for x in (q, k, v))
+    _launch("t2r_flash_forward_tc", "forward_tc", q, k, v, causal, scale,
+            o=out, lse=lse)
+  else:
+    _launch("t2r_flash_forward", "forward", q, k, v, causal, scale, o=out,
+            lse=lse)
   return out, lse
 
 
@@ -202,15 +239,23 @@ def flash_dq(q, k, v, dout, lse, delta, causal: bool,
 
 def flash_dkv(q, k, v, dout, lse, delta, causal: bool,
               scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-  """K4's wrapper: (dk, dv) in the input dtype."""
+  """K4's wrapper: (dk, dv) in the input dtype.
+
+  bfloat16 on the card runs the tensor-core kernel, on operands that
+  ``_tensor_core_operand`` passes or copies; float32 the CUDA-core one."""
   _check(q, k, v, dout)
   _check_rows(q, lse, delta)
   if q.device.type == "cpu":
     return flash_dkv_reference(q, k, v, dout, lse, delta, causal, scale)
   dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
   dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-  _launch("t2r_flash_dkv", "dkv", q, k, v, causal, scale, dout=dout, dk=dk,
-          dv=dv, lse=lse, delta=delta)
+  if q.dtype == torch.bfloat16:
+    q, k, v, dout = (_tensor_core_operand(x) for x in (q, k, v, dout))
+    _launch("t2r_flash_dkv_tc", "dkv_tc", q, k, v, causal, scale, dout=dout,
+            dk=dk, dv=dv, lse=lse, delta=delta)
+  else:
+    _launch("t2r_flash_dkv", "dkv", q, k, v, causal, scale, dout=dout, dk=dk,
+            dv=dv, lse=lse, delta=delta)
   return dk, dv
 
 
@@ -283,5 +328,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   return flash_forward(q, k, v, causal, scale)[0]
 
 
-# Kernel launches by kernel; the plain versions count none.
-flash_attention.launches = {"forward": 0, "dq": 0, "dkv": 0}
+# Kernel launches by kernel (CUDA cores: forward, dq, dkv; tensor cores:
+# forward_tc, dkv_tc); the plain versions count none.
+flash_attention.launches = {"forward": 0, "dq": 0, "dkv": 0,
+                            "forward_tc": 0, "dkv_tc": 0}

@@ -3,12 +3,16 @@
 The port's plain versions (what a CPU tensor takes) must agree with the JAX
 Pallas kernels, run here in interpret mode, and with the JAX reference, on
 the shapes and tolerances of tests/test_ops.py: forward out and lse (K2),
-dq (K3), dk and dv (K4). The CUDA kernels run only on a GPU: the tests
-marked `cuda` hold each against its plain version there and skip on a
-machine without one.
+dq (K3), dk and dv (K4). The bfloat16 K2 and K4 run on the tensor cores,
+which round P (and K4's dS) to bfloat16 before the second product:
+TestTensorCoreNumerics rounds at the same points on the CPU and holds the
+result to the bfloat16 tolerance that chip_smoke.py holds the kernels to.
+The CUDA kernels run only on a GPU: the tests marked `cuda` hold each
+against its plain version there and skip on a machine without one.
 """
 
 import importlib
+import math
 
 import numpy as np
 import pytest
@@ -25,6 +29,8 @@ GRAD_ATOL = 5e-5
 # bfloat16 outputs: both sides sum in float32 and round once; one bf16 ulp
 # is 2^-8 of the value, and |out| < 2 here.
 BF16_ATOL = 2e-2
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+HEAD_DIMS = [16, 64, 128]
 
 
 @pytest.fixture(scope="module")
@@ -49,6 +55,67 @@ def _lse_rows(jax_lse, b, h):
   """The JAX (B*H, T, 1) lse as the port's (B, H, T)."""
   lse = np.asarray(jax_lse)
   return lse.reshape(b, h, lse.shape[1])
+
+
+def _bf16(x):
+  """x rounded to bfloat16, kept in float32."""
+  return x.to(torch.bfloat16).float()
+
+
+def _tensor_core_forward(q, k, v, causal, scale, dropped_keys=None):
+  """What the tensor-core K2 computes, in float32 on the CPU: the online
+  softmax over 64-key tiles, each tile's P rounded to bf16 before P V.
+  `dropped_keys` (a slice) plants a fault: those keys take no weight."""
+  s = fa._scores(q, k, causal, scale)  # (B, H, T, T)
+  if dropped_keys is not None:
+    s[..., dropped_keys] = -math.inf
+  m = torch.full(s.shape[:-1] + (1,), -math.inf)
+  l = torch.zeros_like(m)
+  acc = torch.zeros(s.shape[:-1] + (q.shape[-1],))
+  for k0 in range(0, s.shape[-1], 64):
+    tile = s[..., k0:k0 + 64]
+    m_new = torch.maximum(m, tile.amax(dim=-1, keepdim=True))
+    shift = torch.where(m_new == -math.inf, torch.zeros_like(m_new), m_new)
+    correction = torch.exp(m - shift)
+    e = torch.exp(tile - shift)
+    l = l * correction + e.sum(dim=-1, keepdim=True)
+    acc = acc * correction + torch.einsum(
+        "bhqk,bkhd->bhqd", _bf16(e), v.float()[:, k0:k0 + 64])
+    m = m_new
+  lse = torch.where(m == -math.inf, torch.zeros_like(m), m) + torch.log(
+      l.clamp_min(1e-37))
+  out = acc / torch.where(l == 0, torch.ones_like(l), l)
+  return out.permute(0, 2, 1, 3).to(q.dtype), lse[..., 0]
+
+
+def _tensor_core_dkv(q, k, v, dout, lse, delta, causal, scale):
+  """What the tensor-core K4 computes, in float32 on the CPU: P and dS
+  rounded to bf16 before dv = P^T dout and dk = dS^T q * scale."""
+  p, ds = fa._probabilities_and_ds(q, k, v, dout, lse, delta, causal, scale)
+  dk = torch.einsum("bhqk,bqhd->bkhd", _bf16(ds), q.float()) * scale
+  dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), dout.float())
+  return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bf16_limit(want):
+  """The largest |got - want| of a bf16 flash output, element by element:
+  1e-5 + 2^-5 rms(row) + 2^-7 |want| over rows of D, as chip_smoke.py's
+  flash_limit (the reason for each term is written there)."""
+  w = want.float()
+  rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
+  return 1e-5 + 2 ** -5 * rms + 2 ** -7 * w.abs()
+
+
+def _assert_bf16_within(got, want, name):
+  diff = (got.float() - want.float()).abs()
+  share = float((diff / _bf16_limit(want)).max())
+  assert share <= 1.0, (f"{name}: max err {float(diff.max())}, {share} "
+                        "times its limit at worst")
+
+
+def _assert_lse_within(got, want, name):
+  torch.testing.assert_close(got.float(), want.float(), **LSE_TOL,
+                             msg=lambda m: f"{name}: {m}")
 
 
 class TestAgainstJax:
@@ -151,7 +218,157 @@ class TestAgainstJax:
                                  atol=GRAD_ATOL)
 
 
+class TestTensorCoreNumerics:
+  """The tensor-core kernels' rounding, rebuilt on the CPU, against the
+  JAX Pallas kernels (interpret mode) and the float32 plain versions."""
+
+  @pytest.mark.parametrize("d", HEAD_DIMS)
+  @pytest.mark.parametrize("t", LENGTHS)
+  @pytest.mark.parametrize("causal", [False, True])
+  def test_rounded_forward_holds_the_bf16_tolerance(self, jax_fa, t, causal,
+                                                    d):
+    jax, jfa = jax_fa
+    q, k, v = (x.to(torch.bfloat16) for x in _torch(
+        *_inputs(t, d=d, seed=20 + t + d, count=3)))
+    scale = 1.0 / np.sqrt(d)
+    out, lse = _tensor_core_forward(q, k, v, causal, scale)
+    want_out, want_lse = fa.flash_forward_reference(q, k, v, causal, scale)
+    _assert_bf16_within(out, want_out, "out vs the plain version")
+    _assert_lse_within(lse, want_lse, "lse vs the plain version")
+    bf16 = jax.numpy.bfloat16
+    pallas_out, pallas_lse = jfa._pallas_forward(
+        *(jax.numpy.asarray(x.float().numpy(), bf16) for x in (q, k, v)),
+        causal, scale, with_residuals=True)
+    _assert_bf16_within(
+        out, torch.from_numpy(np.asarray(pallas_out, np.float32)),
+        "out vs the Pallas kernel")
+    _assert_lse_within(
+        lse, torch.from_numpy(_lse_rows(pallas_lse, 2, 2).copy()),
+        "lse vs the Pallas kernel")
+
+  @pytest.mark.parametrize("d", HEAD_DIMS)
+  @pytest.mark.parametrize("t", LENGTHS)
+  @pytest.mark.parametrize("causal", [False, True])
+  def test_rounded_dkv_holds_the_bf16_tolerance(self, jax_fa, t, causal, d):
+    # The same residuals (the plain forward's out and lse) through both
+    # backwards.
+    jax, jfa = jax_fa
+    q, k, v, dout = (x.to(torch.bfloat16) for x in _torch(
+        *_inputs(t, d=d, seed=40 + t + d)))
+    scale = 1.0 / np.sqrt(d)
+    out, lse = fa.flash_forward_reference(q, k, v, causal, scale)
+    delta = fa.flash_delta(out, dout)
+    got = _tensor_core_dkv(q, k, v, dout, lse, delta, causal, scale)
+    want = fa.flash_dkv_reference(q, k, v, dout, lse, delta, causal, scale)
+    bf16 = jax.numpy.bfloat16
+    jq, jk, jv, jdo, jout = (jax.numpy.asarray(x.float().numpy(), bf16)
+                             for x in (q, k, v, dout, out))
+    _, *pallas = jfa._pallas_backward(
+        jq, jk, jv, jout, jax.numpy.asarray(lse.numpy().reshape(4, t, 1)),
+        jdo, causal, scale)
+    for name, a, b, c in zip(("dk", "dv"), got, want, pallas):
+      _assert_bf16_within(a, b, f"{name} vs the plain version")
+      _assert_bf16_within(a, torch.from_numpy(np.asarray(c, np.float32)),
+                          f"{name} vs the Pallas kernel")
+
+  @pytest.mark.parametrize("fault", [
+      "key tile dropped", "next stage's v", "late rows 10% off",
+      "query tile dropped", "next stage's dout"])
+  @pytest.mark.parametrize("causal", [False, True])
+  def test_bf16_limit_catches_planted_faults(self, fault, causal):
+    # The limit is tight enough to catch a kernel that is slightly wrong:
+    # each fault, planted in the rounding helpers, exceeds it somewhere,
+    # while the same helpers without it hold (the tests above).
+    q, k, v, dout = (x.to(torch.bfloat16) for x in _torch(
+        *_inputs(256, d=64, seed=50)))
+    scale = 1.0 / 8.0
+    out, lse = fa.flash_forward_reference(q, k, v, causal, scale)
+    delta = fa.flash_delta(out, dout)
+    want = {"out": out}
+    want["dk"], want["dv"] = fa.flash_dkv_reference(q, k, v, dout, lse,
+                                                    delta, causal, scale)
+    # One 64-row tile, its neighbour: the next stage of the ring.
+    tile, nxt = slice(128, 192), slice(192, 256)
+    if fault == "key tile dropped":
+      got = {"out": _tensor_core_forward(q, k, v, causal, scale,
+                                         dropped_keys=tile)[0]}
+    elif fault == "next stage's v":
+      v = v.clone()
+      v[:, tile] = v[:, nxt]
+      got = {"out": _tensor_core_forward(q, k, v, causal, scale)[0]}
+    elif fault == "late rows 10% off":
+      good = _tensor_core_forward(q, k, v, causal, scale)[0]
+      got = {"out": torch.cat([good[:, :192], good[:, 192:] * 1.1], dim=1)}
+    elif fault == "query tile dropped":
+      dout, delta = dout.clone(), delta.clone()
+      dout[:, tile] = 0.0
+      delta[..., tile] = 0.0
+      got = dict(zip(("dk", "dv"), _tensor_core_dkv(
+          q, k, v, dout, lse, delta, causal, scale)))
+    else:
+      dout = dout.clone()
+      dout[:, tile] = dout[:, nxt]
+      got = dict(zip(("dk", "dv"), _tensor_core_dkv(
+          q, k, v, dout, lse, delta, causal, scale)))
+    exceeded = [name for name, x in got.items()
+                if bool(((x.float() - want[name].float()).abs()
+                         > _bf16_limit(want[name])).any())]
+    assert exceeded, f"{fault} stays within the bf16 limit"
+
+
+def _layouts():
+  """(name, bf16 tensor, whether the tensor-core kernels read it in place)."""
+  x = torch.from_numpy(_inputs(40, d=48, seed=30, count=1)[0]).to(
+      torch.bfloat16)
+  wide = x[:, :, :1, :]  # (2, 40, 1, 48): rows of 96 bytes
+  return [
+      ("contiguous", x[..., :16].contiguous(), True),
+      ("column slice 16 bytes in", wide[..., 8:24], True),
+      ("column slice 8 bytes in", wide[..., 4:20], False),
+      ("row stride of 20 elements", x[..., :20].contiguous()[..., :16],
+       False),
+      ("stride 0", torch.ones((), dtype=torch.bfloat16).expand(2, 40, 2, 16),
+       False),
+      ("time and head dim transposed",
+       x[:, :16, :1, :16].contiguous().transpose(1, 3), False),
+      ("size-1 head dim of any stride",
+       torch.zeros(2, 40, 16, dtype=torch.bfloat16).as_strided(
+           (2, 40, 1, 16), (640, 16, 3, 1)), True),
+  ]
+
+
 class TestContract:
+
+  @pytest.mark.parametrize("index", range(len(_layouts())),
+                           ids=[name for name, _, _ in _layouts()])
+  def test_tensor_core_operand_layout_rule(self, index):
+    # bf16 operands of the tensor-core kernels: read in place when rows
+    # are 16-byte pieces, else one contiguous copy (never a plain version).
+    _, x, in_place = _layouts()[index]
+    got = fa._tensor_core_operand(x)
+    assert (got is x) == in_place
+    torch.testing.assert_close(got, x, rtol=0, atol=0)
+    assert got.stride(-1) == 1 and got.data_ptr() % 16 == 0
+    assert all(stride % 8 == 0 for size, stride in zip(got.shape[:-1],
+                                                       got.stride()[:-1])
+               if size > 1)
+
+  def test_cpu_bfloat16_takes_the_plain_versions(self):
+    # A stride-0 dout (what out.sum() gives) and all: the CPU runs the
+    # plain versions as they are, without the tensor cores' rounding.
+    q, k, v = (x.to(torch.bfloat16) for x in _torch(
+        *_inputs(40, seed=31, count=3)))
+    dout = torch.ones((), dtype=torch.bfloat16).expand(q.shape)
+    before = dict(fa.flash_attention.launches)
+    out, lse = fa.flash_forward(q, k, v, True, 0.25)
+    want_out, want_lse = fa.flash_forward_reference(q, k, v, True, 0.25)
+    delta = fa.flash_delta(out, dout)
+    for got, want in zip(
+        (out, lse, *fa.flash_dkv(q, k, v, dout, lse, delta, True, 0.25)),
+        (want_out, want_lse,
+         *fa.flash_dkv_reference(q, k, v, dout, lse, delta, True, 0.25))):
+      torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert fa.flash_attention.launches == before
 
   def test_default_scale_is_inverse_sqrt_head_dim(self):
     q, k, v = _torch(*_inputs(40, d=32, seed=7, count=3))
@@ -226,38 +443,71 @@ def cuda_device():
   return torch.device("cuda")
 
 
+def _moved(before):
+  return {name: count - before[name]
+          for name, count in fa.flash_attention.launches.items()}
+
+
+# The counts one forward + dq + dkv moves, by dtype.
+_TENSOR_CORES = {"forward": 0, "dq": 1, "dkv": 0, "forward_tc": 1,
+                 "dkv_tc": 1}
+_CUDA_CORES = {"forward": 1, "dq": 1, "dkv": 1, "forward_tc": 0,
+               "dkv_tc": 0}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 2048, 1, 64), (2, 256, 4, 64),
-                                   (2, 40, 2, 8), (1, 1030, 1, 128),
+                                   (2, 40, 2, 8), (2, 40, 2, 64),
+                                   (1, 1030, 1, 128), (2, 1030, 1, 64),
+                                   (2, 300, 2, 16), (2, 300, 2, 128),
                                    (3, 1, 2, 16)])
+@pytest.mark.parametrize("dout_layout", ["contiguous", "offset", "stride0"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernels_match_plain_versions(cuda_device, shape, causal,
-                                           dtype):
+def test_cuda_kernels_match_plain_versions(cuda_device, shape, dout_layout,
+                                           causal, dtype):
+  # bf16 K2 and K4 on the tensor cores, float32 on the CUDA cores, K3 on
+  # the CUDA cores in both. dout as a column slice 16 bytes into wider
+  # rows (the tensor cores read it in place) or with stride 0 (they get a
+  # copy first).
   torch.backends.cuda.matmul.allow_tf32 = False
+  b, t, h, d = shape
   q, k, v, dout = (x.to(cuda_device, dtype) for x in _torch(
-      *_inputs(shape[1], b=shape[0], h=shape[2], d=shape[3], seed=12)))
-  scale = 1.0 / np.sqrt(shape[3])
-  # float32: sums in another order; bfloat16: one rounding of a float32
-  # result, up to one ulp (2^-8 relative) apart.
-  tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
-         else dict(rtol=2 ** -7, atol=1e-2))
+      *_inputs(t, b=b, h=h, d=d, seed=12)))
+  if dout_layout == "offset":
+    offset = 16 // dout.element_size()
+    wide = torch.zeros(b, t, h, d + 2 * offset, dtype=dtype,
+                       device=cuda_device)
+    wide[..., offset:offset + d] = dout
+    dout = wide[..., offset:offset + d]
+    assert fa._tensor_core_operand(dout) is dout
+  elif dout_layout == "stride0":
+    dout = torch.ones((), dtype=dtype, device=cuda_device).expand(shape)
+  scale = 1.0 / np.sqrt(d)
+
+  def assert_within(got, want):
+    # float32: sums in another order; bfloat16: chip_smoke.py's limit.
+    if dtype == torch.float32:
+      torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+      _assert_bf16_within(got, want, "bf16 kernel vs its plain version")
+
   before = dict(fa.flash_attention.launches)
   out, lse = fa.flash_forward(q, k, v, causal, scale)
   want_out, want_lse = fa.flash_forward_reference(q, k, v, causal, scale)
-  torch.testing.assert_close(out, want_out, **tol)
-  torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+  assert_within(out, want_out)
+  torch.testing.assert_close(lse, want_lse, **LSE_TOL)
   delta = fa.flash_delta(out, dout)
-  torch.testing.assert_close(
-      fa.flash_dq(q, k, v, dout, lse, delta, causal, scale),
-      fa.flash_dq_reference(q, k, v, dout, lse, delta, causal, scale), **tol)
+  assert_within(fa.flash_dq(q, k, v, dout, lse, delta, causal, scale),
+                fa.flash_dq_reference(q, k, v, dout, lse, delta, causal,
+                                      scale))
   for got, want in zip(
       fa.flash_dkv(q, k, v, dout, lse, delta, causal, scale),
       fa.flash_dkv_reference(q, k, v, dout, lse, delta, causal, scale)):
-    torch.testing.assert_close(got, want, **tol)
+    assert_within(got, want)
   torch.cuda.synchronize()
-  assert fa.flash_attention.launches == {
-      name: count + 1 for name, count in before.items()}
+  assert _moved(before) == (_CUDA_CORES if dtype == torch.float32
+                            else _TENSOR_CORES)
 
 
 @pytest.mark.cuda

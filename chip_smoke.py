@@ -5,9 +5,10 @@
 
 Run from the repository root, on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit. It builds every kernel from ``csrc/`` and holds each
-against its plain PyTorch version: K1 (spatial softmax) and K2-K4 (flash
-attention forward, dq, dk+dv; bfloat16 K2 and K4 on the tensor cores,
-float32 and K3 on the CUDA cores). Then it drives both slices:
+against its plain PyTorch version: K1 (spatial softmax; a channel-group
+kernel for channel-contiguous maps, a warp-per-channel kernel for other
+layouts) and K2-K4 (flash attention forward, dq, dk+dv; bfloat16 on the
+tensor cores, float32 on the CUDA cores). Then it drives both slices:
 
 - slice 1 serves the pose_env regression model (BASELINE config #1 at its
   published width: 64x64 RGB, convs 3->32->48->64, a 16x16x64 map,
@@ -75,12 +76,13 @@ FLASH_LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 # root mean square over it. The three terms:
 # - 2^-7 |want|: both sides sum in float32 and round once to bf16, so
 #   they may sit one ulp (at most 2^-7 of the value) apart.
-# - 2^-5 rms(row): the tensor-core kernels (K2, K4) round each term of P,
-#   and of K4's dS, to bf16 before the second product, where the plain
+# - 2^-5 rms(row): the tensor-core kernels (K2-K4) round each term of P,
+#   and of dS, to bf16 before the product that follows, where the plain
 #   versions keep float32. Each term of out = sum P v / l, dv = sum P^T
-#   dout and dk = sum dS^T q * scale moves by up to 2^-8 of itself, with
-#   no common sign, so an output moves by about 2^-8 / sqrt(3) of the
-#   root sum of its terms' squares: for random inputs, 2^-8.8 of its row's
+#   dout, dq = sum dS k * scale and dk = sum dS^T q * scale moves by up
+#   to 2^-8 of itself, with no common sign, so an output moves by about
+#   2^-8 / sqrt(3) of the root sum of its terms' squares: for random
+#   inputs, 2^-8.8 of its row's
 #   rms. The largest of a million such errors lies near 5.5 of those,
 #   2^-6.3 of the rms; 2^-5 leaves a factor 2.5. The limit follows each
 #   row's own scale, so a kernel that drops one of 32 key tiles, or is
@@ -190,8 +192,26 @@ def nchw_view(x):
   return x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
 
 
+def spatial_softmax_map(torch, x, layout: str):
+  """A (B, H, W, C) map with x's values in the named memory layout:
+  "nhwc" contiguous, "nchw" the NCHW view, "slice_even" / "slice_odd"
+  the channels of a wider map from channel 8 / 1 (pixel stride C + 9, an
+  8- or 1-element base offset)."""
+  if layout == "nchw":
+    return nchw_view(x)
+  if layout.startswith("slice"):
+    b, h, w, c = x.shape
+    offset = 8 if layout == "slice_even" else 1
+    wide = torch.zeros((b, h, w, c + 9), dtype=x.dtype, device=x.device)
+    wide[..., offset:offset + c] = x
+    return wide[..., offset:offset + c]
+  return x
+
+
 def check_spatial_softmax(torch, ss, dev, seed: int) -> list:
-  """Holds the kernel against its plain version on every listed case."""
+  """Holds each kernel against its plain version on every listed case,
+  and checks that the layout took the kernel it should: the channel-group
+  kernel for channel-contiguous maps, the warp kernel for the NCHW view."""
   rng = np.random.default_rng(seed)
   cases = []
   for shape in [(1, 16, 16, 64), (64, 16, 16, 64), (2, 8, 8, 16),
@@ -201,14 +221,25 @@ def check_spatial_softmax(torch, ss, dev, seed: int) -> list:
         cases.append((shape, dtype, layout, 1.0))
   cases.append(((2, 6, 6, 4), torch.float32, "nhwc", 0.5))
   cases.append(((64, 16, 16, 64), torch.bfloat16, "nchw", 0.5))
+  cases.append(((64, 16, 16, 64), torch.bfloat16, "nhwc", 0.5))
+  for dtype in (torch.float32, torch.bfloat16):
+    for layout in ("slice_even", "slice_odd"):
+      cases.append(((3, 16, 16, 64), dtype, layout, 1.0))
+      cases.append(((2, 9, 11, 65), dtype, layout, 1.0))
+  cases.append(((2, 9, 11, 65), torch.bfloat16, "nhwc", 1.0))
   results = []
   for shape, dtype, layout, temperature in cases:
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-    x = x.to(dev, dtype)
-    if layout == "nchw":
-      x = nchw_view(x)
+    x = spatial_softmax_map(torch, x.to(dev, dtype), layout)
+    kernel = "warp" if layout == "nchw" else "channels"
+    before = dict(ss.spatial_softmax.launches_by_kernel)
     got = ss.spatial_softmax(x, temperature)
     torch.cuda.synchronize()
+    moved = {name: count - before[name]
+             for name, count in ss.spatial_softmax.launches_by_kernel.items()}
+    if moved != {"warp": 0, "channels": 0, kernel: 1}:
+      raise AssertionError(f"spatial_softmax {shape} {layout} launched "
+                           f"{moved}; want the {kernel} kernel once")
     want = ss.spatial_softmax_reference(x, temperature)
     if got.dtype != dtype or got.shape != (shape[0], 2 * shape[3]):
       raise AssertionError(f"spatial_softmax {shape}: got {got.dtype} "
@@ -216,10 +247,30 @@ def check_spatial_softmax(torch, ss, dev, seed: int) -> list:
     err = float((got.float() - want.float()).abs().max())
     atol = F32_ATOL if dtype == torch.float32 else BF16_ATOL
     results.append({"shape": list(shape), "dtype": str(dtype)[6:],
-                    "layout": layout, "temperature": temperature,
-                    "max_abs_err": err, "atol": atol})
+                    "layout": layout, "kernel": kernel,
+                    "temperature": temperature, "max_abs_err": err,
+                    "atol": atol})
     if not err <= atol:
       raise AssertionError(f"spatial_softmax disagrees: {results[-1]}")
+
+  # The plain version's rules for -inf and NaN, through both kernels:
+  # channel 0 is -inf on half its rows (they take no weight), channel 1
+  # is -inf everywhere and channel 2 holds one NaN (both give NaN).
+  for layout, kernel in (("nhwc", "channels"), ("nchw", "warp")):
+    x = torch.from_numpy(rng.standard_normal((2, 8, 8, 5)).astype(
+        np.float32)).to(dev)
+    x[:, :4, :, 0] = -np.inf
+    x[:, :, :, 1] = -np.inf
+    x[1, 3, 5, 2] = np.nan
+    x = spatial_softmax_map(torch, x, layout)
+    if ss._kernel_for(x.shape, x.stride()) != kernel:
+      raise AssertionError(f"spatial_softmax {layout} would not take the "
+                           f"{kernel} kernel")
+    torch.testing.assert_close(
+        ss.spatial_softmax(x), ss.spatial_softmax_reference(x), rtol=0,
+        atol=F32_ATOL, equal_nan=True)
+    results.append({"case": "inf_and_nan", "layout": layout,
+                    "kernel": kernel})
 
   # A sharp peak at (row 2, col 5) of an 8x8 map (tests/test_ops.py).
   peak = torch.full((1, 8, 8, 1), -10.0, device=dev)
@@ -250,7 +301,9 @@ def check_spatial_softmax(torch, ss, dev, seed: int) -> list:
 
 def time_spatial_softmax(torch, ss, feature_map) -> list:
   """Kernel vs plain version on the feature map the conv tower gives it
-  (its memory layout included), at batch 1 and 64, bf16 and f32."""
+  (its memory layout included), at batch 1 and 64, bf16 and f32.
+  ``earlier_ms`` times the warp-per-(b, c) kernel, which served this map
+  before the channel-group kernel, on the same map."""
   rows = []
   for batch in (1, BATCH):
     for dtype in (torch.bfloat16, torch.float32):
@@ -264,8 +317,10 @@ def time_spatial_softmax(torch, ss, feature_map) -> list:
       rows.append({
           "shape": list(x.shape), "strides": list(x.stride()),
           "dtype": str(dtype)[6:],
+          "kernel": ss._kernel_for(x.shape, x.stride()),
           "max_abs_err": float((got.float() - want.float()).abs().max()),
           "ms": device_ms(torch, lambda: ss.spatial_softmax(x)),
+          "earlier_ms": device_ms(torch, lambda: ss._launch(x, 1.0, "warp")),
           "plain_ms": device_ms(
               torch, lambda: ss.spatial_softmax_reference(x)),
           "call_ms": host_ms(torch, lambda: ss.spatial_softmax(x)),
@@ -304,11 +359,13 @@ def attention_inputs(torch, dev, shape, dtype, layout, seed: int):
 
 
 def kernels_of(torch, dtype) -> dict:
-  """The launch counts one forward + dq + dkv moves: bfloat16 runs K2 and
-  K4 on the tensor cores, float32 on the CUDA cores; K3 the CUDA cores."""
+  """The launch counts one forward + dq + dkv moves: bfloat16 runs K2-K4
+  on the tensor cores, float32 on the CUDA cores."""
   if dtype == torch.bfloat16:
-    return {"forward": 0, "dq": 1, "dkv": 0, "forward_tc": 1, "dkv_tc": 1}
-  return {"forward": 1, "dq": 1, "dkv": 1, "forward_tc": 0, "dkv_tc": 0}
+    return {"forward": 0, "dq": 0, "dkv": 0, "forward_tc": 1, "dq_tc": 1,
+            "dkv_tc": 1}
+  return {"forward": 1, "dq": 1, "dkv": 1, "forward_tc": 0, "dq_tc": 0,
+          "dkv_tc": 0}
 
 
 def flash_errors(torch, fa, q, k, v, dout, causal: bool) -> dict:
@@ -357,9 +414,10 @@ def flash_errors(torch, fa, q, k, v, dout, causal: bool) -> dict:
 
 def check_flash_attention(torch, fa, dev, seed: int) -> list:
   """Holds K2, K3 and K4 against their plain versions on every listed
-  case, in float32 (TF32 off, the CUDA-core kernels) and bfloat16 (K2 and
-  K4 on the tensor cores); then the autograd function against autograd of
-  the plain reference, and its first-order rule."""
+  case, in float32 (TF32 off, the CUDA-core kernels) and bfloat16 (the
+  tensor cores); then the autograd function against autograd of the plain
+  reference, and its first-order rule. The last entry is the largest
+  bf16 limit_share of each output over all cases."""
   path = (SNAIL_BATCH, SNAIL_SEQ, 1, SNAIL_KEY)
   cases = [(path, "contiguous"), (path, "strided"), (path, "dout_offset"),
            ((2, 2048, 4, 64), "contiguous"), ((2, 300, 1, 32), "strided"),
@@ -411,16 +469,19 @@ def check_flash_attention(torch, fa, dev, seed: int) -> list:
   else:
     raise AssertionError("a second-order gradient through flash_attention "
                          "did not raise")
+  bf16 = [r["limit_share"] for r in results if r.get("dtype") == "bfloat16"]
+  results.append({"case": "bf16_max_limit_share", **{
+      name: max(shares[name] for shares in bf16) for name in bf16[0]}})
   return results
 
 
 def time_flash_attention(torch, fa, dev, seed: int) -> dict:
   """K2, K3 and K4 at the path's shape (bf16, causal) beside their plain
-  versions, their bounds, and PyTorch's SDPA as a yardstick. K2's and K4's
-  ``earlier_ms`` times the CUDA-core kernels that the tensor-core ones
-  replaced on the path, on the same bfloat16 inputs; their ``stream_ms``
-  times back-to-back wrapper calls without a CUDA graph, so the host's
-  work per call shows where it exceeds the kernel's."""
+  versions, their bounds, and PyTorch's SDPA as a yardstick. Each
+  ``earlier_ms`` times the CUDA-core kernel that the tensor-core one
+  replaced on the path, on the same bfloat16 inputs; ``stream_ms`` times
+  back-to-back wrapper calls without a CUDA graph, so the host's work per
+  call shows where it exceeds the kernel's."""
   b, t, h, d = SNAIL_BATCH, SNAIL_SEQ, 1, SNAIL_KEY
   q, k, v, dout = attention_inputs(torch, dev, (b, t, h, d), torch.bfloat16,
                                    "contiguous", seed)
@@ -457,11 +518,16 @@ def time_flash_attention(torch, fa, dev, seed: int) -> dict:
   # the tensor cores, so this is the only use of their bf16 forward and
   # dk/dv.
   earlier_out, earlier_lse = torch.empty_like(q), torch.empty_like(lse)
+  earlier_dq_out = torch.empty_like(q)
   earlier_dk, earlier_dv = torch.empty_like(k), torch.empty_like(v)
 
   def earlier_forward():
     fa._launch("t2r_flash_forward", "forward", q, k, v, True, scale,
                o=earlier_out, lse=earlier_lse)
+
+  def earlier_dq():
+    fa._launch("t2r_flash_dq", "dq", q, k, v, True, scale, dout=dout,
+               dq=earlier_dq_out, lse=lse, delta=delta)
 
   def earlier_dkv():
     fa._launch("t2r_flash_dkv", "dkv", q, k, v, True, scale, dout=dout,
@@ -469,6 +535,9 @@ def time_flash_attention(torch, fa, dev, seed: int) -> dict:
 
   def forward():
     fa.flash_forward(q, k, v, True, scale)
+
+  def dq():
+    fa.flash_dq(*args)
 
   def dkv():
     fa.flash_dkv(*args)
@@ -485,8 +554,10 @@ def time_flash_attention(torch, fa, dev, seed: int) -> dict:
           "max_abs_err": max(errors["out"], errors["lse"]),
           **bound(2, 4, 1)},
       "dq": {
-          "kernel": "flash_dq_kernel",
-          "ms": device_ms(torch, lambda: fa.flash_dq(*args), inner=20),
+          "kernel": "flash_dq_tc_kernel",
+          "ms": device_ms(torch, dq, inner=20),
+          "stream_ms": stream_ms(torch, dq),
+          "earlier_ms": device_ms(torch, earlier_dq, inner=20),
           "plain_ms": device_ms(
               torch, lambda: fa.flash_dq_reference(*args), inner=20),
           "library_ms": sdpa_both_ms - sdpa_ms,
@@ -687,7 +758,8 @@ def main(argv=None) -> int:
   _build.build_all()
   emit("build", seconds=time.perf_counter() - start,
        libraries=list(_build.KERNEL_SOURCES),
-       ptxas={k: [line for line in v.splitlines() if "ptxas info" in line]
+       ptxas={k: [line for line in v.splitlines()
+                  if "ptxas info" in line or "warning" in line]
               for k, v in _build.build_logs.items()})
 
   emit("kernel_checks", spatial_softmax=check_spatial_softmax(
@@ -708,15 +780,20 @@ def main(argv=None) -> int:
     if not predictor.restore() or predictor.device.type != "cuda":
       raise AssertionError("the predictor did not load the export on cuda")
     ss.spatial_softmax.launches = 0
+    for name in ss.spatial_softmax.launches_by_kernel:
+      ss.spatial_softmax.launches_by_kernel[name] = 0
     start = time.perf_counter()
     result = evaluate_policy(predictor, num_episodes=EPISODES,
                              seed=args.seed)
     served = predictor.predict({"image": images})["inference_output"]
     seconds = time.perf_counter() - start
     launches = ss.spatial_softmax.launches
-    if launches != EPISODES + 1:
-      raise AssertionError(f"spatial_softmax launched {launches} times for "
-                           f"{EPISODES + 1} predicts")
+    by_kernel = dict(ss.spatial_softmax.launches_by_kernel)
+    if launches != EPISODES + 1 or by_kernel != {"warp": 0,
+                                                 "channels": launches}:
+      raise AssertionError(f"spatial_softmax launched {by_kernel} for "
+                           f"{EPISODES + 1} predicts; want the channel "
+                           "kernel once each")
     if served.shape != (BATCH, 2) or not np.isfinite(served).all():
       raise AssertionError(f"served outputs {served.shape} not finite")
     on_cpu = ExportedModelPredictor(model, root, device="cpu")
@@ -730,7 +807,7 @@ def main(argv=None) -> int:
     batch_ms = host_ms(torch, lambda: predictor.predict({"image": images}))
     emit("slice", compute_dtype="bfloat16", requests=EPISODES + 1,
          images=EPISODES + BATCH, seconds=seconds, eval=result,
-         spatial_softmax_launches=launches, max_abs_err_vs_cpu=bf16_err,
+         spatial_softmax_launches=by_kernel, max_abs_err_vs_cpu=bf16_err,
          atol=SERVE_BF16_ATOL, request_ms_batch1=request_ms,
          request_ms_batch64=batch_ms)
 
@@ -770,17 +847,24 @@ def main(argv=None) -> int:
   emit("kernel_timing", spatial_softmax=timing)
   flash_timing = time_flash_attention(torch, fa, dev, args.seed + 3)
   emit("kernel_timing", flash_attention=flash_timing)
-  # The batch predict's call: batch 64 in the default bfloat16.
-  main_row = next(row for row in timing
-                  if row["shape"][0] == BATCH and row["dtype"] == "bfloat16")
+  # The batch predict's call: batch 64 in the default bfloat16 (and the
+  # batch-1 request's time beside it).
+  main_row, batch1_row = (
+      next(row for row in timing
+           if row["shape"][0] == batch and row["dtype"] == "bfloat16")
+      for batch in (BATCH, 1))
   print(json.dumps({"kernels": [{
       "name": "spatial_softmax",
       "route": "cuda",
       "source": "tensor2robot_tpu_torch/csrc/spatial_softmax.cu",
       "replaces": "tensor2robot_tpu/ops/spatial_softmax.py:50",
       "launches": launches,
+      "launches_by_kernel": by_kernel,
+      "kernel": main_row["kernel"],
       "max_abs_err": main_row["max_abs_err"],
       "ms": main_row["ms"],
+      "earlier_ms": main_row["earlier_ms"],
+      "batch1_ms": batch1_row["ms"],
       "plain_ms": main_row["plain_ms"],
       "bound_ms": main_row["bound_ms"],
       "bound_by": main_row["bound_by"],
@@ -800,7 +884,7 @@ def main(argv=None) -> int:
       **({"library_covers": "dq, dk and dv (K3 + K4)"}
          if name != "forward" else {}),
   } for name, counter, line in (("forward", "forward_tc", 69),
-                                ("dq", "dq", 181),
+                                ("dq", "dq_tc", 181),
                                 ("dkv", "dkv_tc", 216))]}),
         flush=True)
   print(smi, flush=True)

@@ -14,8 +14,8 @@ JSON line with:
   step (kernels, copies and memsets), the device's idle share of the
   profiled wall time (the profiler slows the host, so this share is high)
   and of the unprofiled step time, the kernel launches per step, the
-  device time of the attention kernels (the port's ``flash_*`` kernels),
-  and the kernels with the most device time.
+  device time of the attention kernels (the port's ``flash_*`` kernels), in
+  all and by kernel, and the kernels with the most device time.
 
 The chrome traces go to ``--out``. Run from the repository root.
 """
@@ -26,6 +26,7 @@ import argparse
 import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,23 +42,27 @@ _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 def _trace_summary(trace_path: str, steps: int, wall_ms: float) -> dict:
   with open(trace_path) as f:
     events = json.load(f)["traceEvents"]
-  device_us = flash_us = 0.0
+  device_us = 0.0
   launches = 0
   by_kernel = collections.Counter()
+  flash = collections.Counter()
   for event in events:
     category = event.get("cat", "")
     if category in _DEVICE_CATEGORIES and "dur" in event:
       name = event.get("name", "?")
       device_us += float(event["dur"])
       by_kernel[name[:80]] += float(event["dur"])
-      if "flash_" in name:
-        flash_us += float(event["dur"])
+      kernel = re.search(r"flash_\w+", name)
+      if kernel:
+        flash[kernel.group(0)] += float(event["dur"])
     if category == "kernel":
       launches += 1
   device_ms = device_us / 1e3
   return {
       "device_ms_per_step": device_ms / steps,
-      "flash_kernel_ms_per_step": flash_us / 1e3 / steps,
+      "flash_kernel_ms_per_step": sum(flash.values()) / 1e3 / steps,
+      "flash_ms_per_step_by_kernel": {
+          name: us / 1e3 / steps for name, us in flash.items()},
       "kernels_per_step": launches / steps,
       "device_idle_share": (1.0 - device_ms / wall_ms) if device_us else None,
       "top_device_ms_per_step": {

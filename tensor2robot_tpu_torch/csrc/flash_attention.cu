@@ -4,7 +4,9 @@
 //   K2 _kernel      (out and the per-row logsumexp):
 //        flash_forward_tc_kernel (bfloat16, tensor cores),
 //        flash_forward_kernel    (float32, CUDA cores)
-//   K3 _kernel_dq   (dq): flash_dq_kernel (both dtypes, CUDA cores)
+//   K3 _kernel_dq   (dq):
+//        flash_dq_tc_kernel      (bfloat16, tensor cores),
+//        flash_dq_kernel         (float32, CUDA cores)
 //   K4 _kernel_dkv  (dk and dv):
 //        flash_dkv_tc_kernel     (bfloat16, tensor cores),
 //        flash_dkv_kernel        (float32, CUDA cores)
@@ -24,32 +26,33 @@
 // 64-row tiles of the other side, staged in shared memory, with the online
 // softmax (forward) or the saved logsumexp (backward) rebuilding the
 // probabilities tile by tile; causal loops stop at (or start from) the
-// diagonal. K4 gives every key tile to one block, so dk and dv need no
-// atomics and are deterministic. Rows past T and head dims past D are
-// zero-filled in shared memory and masked, so any T >= 1 and any D that is
-// a multiple of 8 up to 128 runs (D pads to 64 or 128 in shared memory).
+// diagonal. K3 gives every query tile and K4 every key tile to one block,
+// so dq, dk and dv need no atomics and are deterministic. Rows past T and
+// head dims past D are zero-filled in shared memory and masked, so any
+// T >= 1 and any D that is a multiple of 8 up to 128 runs (D pads to 64 or
+// 128 in shared memory).
 //
-// The bfloat16 kernels (K2, K4) run every product on the tensor cores:
-// one warpgroup (128 threads) per 64-row tile issues wgmma.mma_async
-// m64nNk16 bf16 -> f32, with operands in shared memory in wgmma's
-// 128-byte-swizzled layout, or, for the second product of each pair (P V
-// in K2, P^T dO and dS^T Q in K4), the bf16 probabilities straight from
-// the accumulator registers of the first. The softmax, its rescaling and
-// dS stay in registers. Tiles move as bf16 by 16-byte cp.async into a ring
-// of two stages, the next tile loading while this one is multiplied, so
-// the operands need a last-dim stride of 1 and 16-byte-aligned rows (the
-// wrapper copies any other layout first). K2 launches the longest causal
-// rows first and K4 the longest key columns first, so the 32-tile blocks
-// do not form the last wave. They round P (and K4 dS) to bf16 before the
-// second product, where the plain versions keep float32.
+// The bfloat16 kernels (K2, K3, K4) run every product on the tensor
+// cores: one warpgroup (128 threads) per 64-row tile issues
+// wgmma.mma_async m64nNk16 bf16 -> f32, with operands in shared memory in
+// wgmma's 128-byte-swizzled layout, or, for the product that follows a
+// score tile (P V in K2, dS K in K3, P^T dO and dS^T Q in K4), the bf16
+// probabilities straight from the accumulator registers. The softmax, its
+// rescaling and dS stay in registers. Tiles move as bf16 by 16-byte
+// cp.async into a ring of two stages, the next tile loading while this one
+// is multiplied, so the operands need a last-dim stride of 1 and
+// 16-byte-aligned rows (the wrapper copies any other layout first). K2 and
+// K3 launch the longest causal rows first and K4 the longest key columns
+// first, so the 32-tile blocks do not form the last wave. They round P
+// (and dS) to bf16 before that product, where the plain versions keep
+// float32.
 //
-// The float32 kernels (and K3) use the CUDA cores: each of 256 threads
-// owns a 4 x 4 patch of a score tile and multiplies with float32 FMAs,
-// with tiles staged as float32. A TF32 tensor-core product would miss the
-// 1e-4 float32 tolerance. K3's tensor-core version comes next, from the
-// same building blocks. The CUDA-core forward and dk/dv still take
-// bfloat16 only as the yardstick chip_smoke.py times the tensor-core
-// kernels against; the wrapper never sends bfloat16 there.
+// The float32 kernels use the CUDA cores: each of 256 threads owns a
+// 4 x 4 patch of a score tile and multiplies with float32 FMAs, with tiles
+// staged as float32. A TF32 tensor-core product would miss the 1e-4
+// float32 tolerance. They still take bfloat16, but only as the yardstick
+// chip_smoke.py times the tensor-core kernels against; the wrappers never
+// send bfloat16 there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -248,8 +251,9 @@ flash_forward_kernel(const FlashParams p) {
   }
 }
 
-// K3. One block per (b*h, query tile): dq = sum over key tiles of
-// (P * (dout v^T - delta)) k * scale, with P = exp(q k^T * scale - lse).
+// K3 on the CUDA cores. One block per (b*h, query tile): dq = sum over key
+// tiles of (P * (dout v^T - delta)) k * scale, with P = exp(q k^T * scale
+// - lse).
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const FlashParams p) {
@@ -961,6 +965,112 @@ flash_dkv_tc_kernel(const FlashParams p) {
   store_tile<DP>(p.dv, b, h, key0, seq, dim, dv, one);
 }
 
+// K3 on the tensor cores. One warpgroup per (b*h, query tile), longest
+// causal rows first (as K2). The Q and dO tiles stage once; per key tile,
+//   S = Q K^T and dP = dO V^T by wgmma from shared memory, both K-major,
+//   in one commit group;  P = exp2(S scale - lse);  dS = P (dP - delta)
+//   in the accumulator registers;  dQ += dS K,
+// dS rounded to bf16 in registers as the A operand and K read MN-major.
+// Each thread keeps the lse and delta of its two rows in registers. The
+// next key and value tiles load while this one is multiplied.
+template <int DP>
+__global__ void __launch_bounds__(kWarpgroup)
+flash_dq_tc_kernel(const FlashParams p) {
+  constexpr int kTile = kBlock * DP * 2;
+  extern __shared__ uint8_t tc_smem[];
+  const uint32_t qs = (smem_address(tc_smem) + 1023) & ~1023u;
+  const uint32_t dos = qs + kTile;
+  const uint32_t ks = dos + kTile;     // two stages
+  const uint32_t vs = ks + 2 * kTile;  // two stages
+  const int warp = threadIdx.x / 32;
+  const int t4 = threadIdx.x % 4;
+  const int64_t bh = blockIdx.x;
+  const int64_t b = bh / p.heads;
+  const int64_t h = bh - b * p.heads;
+  const int seq = static_cast<int>(p.seq);
+  const int dim = static_cast<int>(p.dim);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlock;
+  const int row0 = q0 + 16 * warp + threadIdx.x % 32 / 4;  // and row0 + 8
+  const float scale = p.scale * kLog2e;  // scores in the log2 domain
+  const int k_end = p.causal ? min(seq, q0 + kBlock) : seq;
+  const int tiles = (k_end + kBlock - 1) / kBlock;
+
+  stage_tile<DP>(qs, p.q, b, h, q0, seq, dim);
+  stage_tile<DP>(dos, p.dout, b, h, q0, seq, dim);
+  stage_tile<DP>(ks, p.k, b, h, 0, seq, dim);
+  stage_tile<DP>(vs, p.v, b, h, 0, seq, dim);
+  commit_copies();
+  // Rows past T have zero Q and dO, so their dS is 0 whatever lse is.
+  float lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse[r] = row < seq ? p.lse[bh * seq + row] * kLog2e : 0.f;
+    delta[r] = row < seq ? p.delta[bh * seq + row] : 0.f;
+  }
+
+  float dq[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+  for (int j = 0; j < tiles; ++j) {
+    const int k0 = j * kBlock;
+    const uint32_t stage = (j % 2) * kTile;
+    if (j + 1 < tiles) {
+      stage_tile<DP>(ks + kTile - stage, p.k, b, h, k0 + kBlock, seq, dim);
+      stage_tile<DP>(vs + kTile - stage, p.v, b, h, k0 + kBlock, seq, dim);
+    }
+    commit_copies();
+    wait_copies_but_newest();
+    __syncthreads();
+
+    float s[32], ds[32];  // S, and dP, then dS
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = ds[i] = 0.f;
+    pin(s);
+    pin(ds);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      mma_ss(s, k_major(qs, kk), k_major(ks + stage, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      mma_ss(ds, k_major(dos, kk), k_major(vs + stage, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    pin(s);
+    pin(ds);
+
+    // Only the diagonal tile and the ragged tail need a mask.
+    const bool masked = (p.causal && k0 + kBlock - 1 > q0) ||
+                        k0 + kBlock > seq;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = i / 2 % 2;
+      const int key = k0 + 8 * (i / 4) + 2 * t4 + i % 2;
+      const float prob = exp2f(fmaf(s[i], scale, -lse[r]));
+      const bool dropped =
+          masked && (key >= seq || (p.causal && key > row0 + 8 * r));
+      ds[i] = dropped ? 0.f : prob * (ds[i] - delta[r]);
+    }
+    uint32_t a[4][4];
+    to_operand(ds, a);
+    pin(a);
+    pin(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs(dq, a[kk], mn_major(ks + stage, kk));
+    wgmma_commit();
+    wgmma_wait();
+    pin(dq);
+    __syncthreads();  // every read of this stage is done before its refill
+  }
+
+  const float dq_scale[2] = {p.scale, p.scale};
+  store_tile<DP>(p.dq, b, h, row0, seq, dim, dq, dq_scale);
+}
+
 // --- launching ---------------------------------------------------------------
 
 enum Pass { kForward = 0, kDq = 1, kDkv = 2 };
@@ -976,13 +1086,22 @@ template <int DP>
 cudaError_t run_tensor_cores(Pass pass, const FlashParams& p,
                              cudaStream_t stream) {
   constexpr size_t tile = kBlock * DP * sizeof(__nv_bfloat16);
-  const bool forward = pass == kForward;
-  void (*kernel)(const FlashParams) =
-      forward ? flash_forward_tc_kernel<DP> : flash_dkv_tc_kernel<DP>;
-  // Q + two stages of K and V; or K, V + two stages of Q, dO and the rows.
-  // 1024 more to align the tiles.
-  const size_t smem =
-      (forward ? 5 * tile : 6 * tile + 4 * kBlock * sizeof(float)) + 1024;
+  void (*kernel)(const FlashParams);
+  size_t smem = 1024;  // to align the tiles to the swizzle's period
+  switch (pass) {
+    case kForward:  // Q + two stages of K and V
+      kernel = flash_forward_tc_kernel<DP>;
+      smem += 5 * tile;
+      break;
+    case kDq:  // Q, dO + two stages of K and V
+      kernel = flash_dq_tc_kernel<DP>;
+      smem += 6 * tile;
+      break;
+    default:  // K, V + two stages of Q, dO and the lse and delta rows
+      kernel = flash_dkv_tc_kernel<DP>;
+      smem += 6 * tile + 4 * kBlock * sizeof(float);
+      break;
+  }
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -999,10 +1118,12 @@ int dispatch_tensor_cores(Pass pass, const FlashParams* p, int dtype,
       p->seq < 1 || p->batch * p->heads < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // The operands the pass reads and writes; the others may be empty.
+  const bool backward = pass != kForward;
   const Operand* used[] = {&p->q, &p->k, &p->v,
-                           pass == kForward ? &p->o : &p->dout,
-                           pass == kForward ? &p->o : &p->dk,
-                           pass == kForward ? &p->o : &p->dv};
+                           backward ? &p->dout : &p->o,
+                           pass == kDq ? &p->dq : backward ? &p->dk : &p->o,
+                           pass == kDq ? &p->dq : backward ? &p->dv : &p->o};
   for (const Operand* x : used) {
     if (!tensor_core_layout(*x, *p)) {
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1087,6 +1208,11 @@ extern "C" int t2r_flash_dkv(const FlashParams* p, int dtype, void* stream) {
 extern "C" int t2r_flash_forward_tc(const FlashParams* p, int dtype,
                                     void* stream) {
   return dispatch_tensor_cores(kForward, p, dtype, stream);
+}
+
+extern "C" int t2r_flash_dq_tc(const FlashParams* p, int dtype,
+                               void* stream) {
+  return dispatch_tensor_cores(kDq, p, dtype, stream);
 }
 
 extern "C" int t2r_flash_dkv_tc(const FlashParams* p, int dtype,

@@ -16,18 +16,17 @@ The kernels' limits are the card's, not the TPU's: they stream key and
 query tiles and mask the ragged tail, so every T >= 1 runs; the head dim
 is a multiple of 8 up to 128; float32 and bfloat16, with float32 sums.
 
-The dtype picks the kernel. bfloat16 runs K2 and K4 on the tensor cores
-(wgmma), which round the probabilities P (and K4's dS) to bfloat16 before
-their second product, where the plain versions keep float32; they read
-rows in 16-byte pieces, so ``_tensor_core_operand`` hands them a
+The dtype picks the kernel. bfloat16 runs K2, K3 and K4 on the tensor
+cores (wgmma), which round the probabilities P (and dS) to bfloat16 before
+the product that follows them, where the plain versions keep float32; they
+read rows in 16-byte pieces, so ``_tensor_core_operand`` hands them a
 contiguous copy of any operand laid out otherwise. float32 runs all three
 on the CUDA cores, whose float32 products keep the 1e-4 float32 tolerance
-that a TF32 tensor-core product would miss. K3 (dq) runs on the CUDA cores
-in both dtypes. The CUDA-core forward and dk/dv kernels still take
-bfloat16, but no wrapper sends it to them: that form exists only as the
-yardstick ``chip_smoke.py`` times the tensor-core kernels against.
-``flash_attention.launches`` counts each kernel apart:
-``forward``, ``dq`` and ``dkv`` the CUDA-core kernels, ``forward_tc`` and
+that a TF32 tensor-core product would miss. The CUDA-core kernels still
+take bfloat16, but no wrapper sends it to them: that form exists only as
+the yardstick ``chip_smoke.py`` times the tensor-core kernels against.
+``flash_attention.launches`` counts each kernel apart: ``forward``, ``dq``
+and ``dkv`` the CUDA-core kernels, ``forward_tc``, ``dq_tc`` and
 ``dkv_tc`` the tensor-core ones.
 """
 
@@ -226,14 +225,22 @@ def flash_forward(q, k, v, causal: bool,
 
 def flash_dq(q, k, v, dout, lse, delta, causal: bool,
              scale: float) -> torch.Tensor:
-  """K3's wrapper: dq in q's dtype."""
+  """K3's wrapper: dq in q's dtype.
+
+  bfloat16 on the card runs the tensor-core kernel, on operands that
+  ``_tensor_core_operand`` passes or copies; float32 the CUDA-core one."""
   _check(q, k, v, dout)
   _check_rows(q, lse, delta)
   if q.device.type == "cpu":
     return flash_dq_reference(q, k, v, dout, lse, delta, causal, scale)
   dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-  _launch("t2r_flash_dq", "dq", q, k, v, causal, scale, dout=dout, dq=dq,
-          lse=lse, delta=delta)
+  if q.dtype == torch.bfloat16:
+    q, k, v, dout = (_tensor_core_operand(x) for x in (q, k, v, dout))
+    _launch("t2r_flash_dq_tc", "dq_tc", q, k, v, causal, scale, dout=dout,
+            dq=dq, lse=lse, delta=delta)
+  else:
+    _launch("t2r_flash_dq", "dq", q, k, v, causal, scale, dout=dout, dq=dq,
+            lse=lse, delta=delta)
   return dq
 
 
@@ -329,6 +336,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # Kernel launches by kernel (CUDA cores: forward, dq, dkv; tensor cores:
-# forward_tc, dkv_tc); the plain versions count none.
+# forward_tc, dq_tc, dkv_tc); the plain versions count none.
 flash_attention.launches = {"forward": 0, "dq": 0, "dkv": 0,
-                            "forward_tc": 0, "dkv_tc": 0}
+                            "forward_tc": 0, "dq_tc": 0, "dkv_tc": 0}

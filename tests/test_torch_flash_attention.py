@@ -3,8 +3,8 @@
 The port's plain versions (what a CPU tensor takes) must agree with the JAX
 Pallas kernels, run here in interpret mode, and with the JAX reference, on
 the shapes and tolerances of tests/test_ops.py: forward out and lse (K2),
-dq (K3), dk and dv (K4). The bfloat16 K2 and K4 run on the tensor cores,
-which round P (and K4's dS) to bfloat16 before the second product:
+dq (K3), dk and dv (K4). The bfloat16 K2-K4 run on the tensor cores,
+which round P (and dS) to bfloat16 before the product that follows:
 TestTensorCoreNumerics rounds at the same points on the CPU and holds the
 result to the bfloat16 tolerance that chip_smoke.py holds the kernels to.
 The CUDA kernels run only on a GPU: the tests marked `cuda` hold each
@@ -86,6 +86,18 @@ def _tensor_core_forward(q, k, v, causal, scale, dropped_keys=None):
       l.clamp_min(1e-37))
   out = acc / torch.where(l == 0, torch.ones_like(l), l)
   return out.permute(0, 2, 1, 3).to(q.dtype), lse[..., 0]
+
+
+def _tensor_core_dq(q, k, v, dout, lse, delta, causal, scale,
+                    dropped_keys=None):
+  """What the tensor-core K3 computes, in float32 on the CPU: dS rounded
+  to bf16 before dq = dS k * scale. `dropped_keys` (a slice) plants a
+  fault: those keys add nothing to dq."""
+  _, ds = fa._probabilities_and_ds(q, k, v, dout, lse, delta, causal, scale)
+  if dropped_keys is not None:
+    ds[..., dropped_keys] = 0.0
+  dq = torch.einsum("bhqk,bkhd->bqhd", _bf16(ds), k.float()) * scale
+  return dq.to(q.dtype)
 
 
 def _tensor_core_dkv(q, k, v, dout, lse, delta, causal, scale):
@@ -271,9 +283,35 @@ class TestTensorCoreNumerics:
       _assert_bf16_within(a, torch.from_numpy(np.asarray(c, np.float32)),
                           f"{name} vs the Pallas kernel")
 
+  @pytest.mark.parametrize("d", HEAD_DIMS)
+  @pytest.mark.parametrize("t", LENGTHS)
+  @pytest.mark.parametrize("causal", [False, True])
+  def test_rounded_dq_holds_the_bf16_tolerance(self, jax_fa, t, causal, d):
+    # The same residuals (the plain forward's out and lse) through both
+    # backwards: the rounded dq against the plain version and _kernel_dq.
+    jax, jfa = jax_fa
+    q, k, v, dout = (x.to(torch.bfloat16) for x in _torch(
+        *_inputs(t, d=d, seed=60 + t + d)))
+    scale = 1.0 / np.sqrt(d)
+    out, lse = fa.flash_forward_reference(q, k, v, causal, scale)
+    delta = fa.flash_delta(out, dout)
+    got = _tensor_core_dq(q, k, v, dout, lse, delta, causal, scale)
+    want = fa.flash_dq_reference(q, k, v, dout, lse, delta, causal, scale)
+    _assert_bf16_within(got, want, "dq vs the plain version")
+    bf16 = jax.numpy.bfloat16
+    jq, jk, jv, jdo, jout = (jax.numpy.asarray(x.float().numpy(), bf16)
+                             for x in (q, k, v, dout, out))
+    pallas_dq, _, _ = jfa._pallas_backward(
+        jq, jk, jv, jout, jax.numpy.asarray(lse.numpy().reshape(4, t, 1)),
+        jdo, causal, scale)
+    _assert_bf16_within(
+        got, torch.from_numpy(np.asarray(pallas_dq, np.float32)),
+        "dq vs the Pallas kernel")
+
   @pytest.mark.parametrize("fault", [
       "key tile dropped", "next stage's v", "late rows 10% off",
-      "query tile dropped", "next stage's dout"])
+      "query tile dropped", "next stage's dout", "dq key tile dropped",
+      "dq next stage's k"])
   @pytest.mark.parametrize("causal", [False, True])
   def test_bf16_limit_catches_planted_faults(self, fault, causal):
     # The limit is tight enough to catch a kernel that is slightly wrong:
@@ -284,7 +322,9 @@ class TestTensorCoreNumerics:
     scale = 1.0 / 8.0
     out, lse = fa.flash_forward_reference(q, k, v, causal, scale)
     delta = fa.flash_delta(out, dout)
-    want = {"out": out}
+    want = {"out": out,
+            "dq": fa.flash_dq_reference(q, k, v, dout, lse, delta, causal,
+                                        scale)}
     want["dk"], want["dv"] = fa.flash_dkv_reference(q, k, v, dout, lse,
                                                     delta, causal, scale)
     # One 64-row tile, its neighbour: the next stage of the ring.
@@ -305,11 +345,19 @@ class TestTensorCoreNumerics:
       delta[..., tile] = 0.0
       got = dict(zip(("dk", "dv"), _tensor_core_dkv(
           q, k, v, dout, lse, delta, causal, scale)))
-    else:
+    elif fault == "next stage's dout":
       dout = dout.clone()
       dout[:, tile] = dout[:, nxt]
       got = dict(zip(("dk", "dv"), _tensor_core_dkv(
           q, k, v, dout, lse, delta, causal, scale)))
+    elif fault == "dq key tile dropped":
+      got = {"dq": _tensor_core_dq(q, k, v, dout, lse, delta, causal, scale,
+                                   dropped_keys=tile)}
+    else:
+      k = k.clone()
+      k[:, tile] = k[:, nxt]
+      got = {"dq": _tensor_core_dq(q, k, v, dout, lse, delta, causal,
+                                   scale)}
     exceeded = [name for name, x in got.items()
                 if bool(((x.float() - want[name].float()).abs()
                          > _bf16_limit(want[name])).any())]
@@ -363,10 +411,11 @@ class TestContract:
     out, lse = fa.flash_forward(q, k, v, True, 0.25)
     want_out, want_lse = fa.flash_forward_reference(q, k, v, True, 0.25)
     delta = fa.flash_delta(out, dout)
+    args = (q, k, v, dout, lse, delta, True, 0.25)
     for got, want in zip(
-        (out, lse, *fa.flash_dkv(q, k, v, dout, lse, delta, True, 0.25)),
-        (want_out, want_lse,
-         *fa.flash_dkv_reference(q, k, v, dout, lse, delta, True, 0.25))):
+        (out, lse, fa.flash_dq(*args), *fa.flash_dkv(*args)),
+        (want_out, want_lse, fa.flash_dq_reference(*args),
+         *fa.flash_dkv_reference(*args))):
       torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert fa.flash_attention.launches == before
 
@@ -449,10 +498,10 @@ def _moved(before):
 
 
 # The counts one forward + dq + dkv moves, by dtype.
-_TENSOR_CORES = {"forward": 0, "dq": 1, "dkv": 0, "forward_tc": 1,
-                 "dkv_tc": 1}
+_TENSOR_CORES = {"forward": 0, "dq": 0, "dkv": 0, "forward_tc": 1,
+                 "dq_tc": 1, "dkv_tc": 1}
 _CUDA_CORES = {"forward": 1, "dq": 1, "dkv": 1, "forward_tc": 0,
-               "dkv_tc": 0}
+               "dq_tc": 0, "dkv_tc": 0}
 
 
 @pytest.mark.cuda
@@ -466,10 +515,9 @@ _CUDA_CORES = {"forward": 1, "dq": 1, "dkv": 1, "forward_tc": 0,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernels_match_plain_versions(cuda_device, shape, dout_layout,
                                            causal, dtype):
-  # bf16 K2 and K4 on the tensor cores, float32 on the CUDA cores, K3 on
-  # the CUDA cores in both. dout as a column slice 16 bytes into wider
-  # rows (the tensor cores read it in place) or with stride 0 (they get a
-  # copy first).
+  # bf16 K2-K4 on the tensor cores, float32 on the CUDA cores. dout as a
+  # column slice 16 bytes into wider rows (the tensor cores read it in
+  # place) or with stride 0 (they get a copy first).
   torch.backends.cuda.matmul.allow_tf32 = False
   b, t, h, d = shape
   q, k, v, dout = (x.to(cuda_device, dtype) for x in _torch(

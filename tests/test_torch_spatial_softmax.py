@@ -2,9 +2,10 @@
 
 The port's plain version (the one a CPU tensor takes) must agree with the
 JAX Pallas kernel, run here in interpret mode, and with the JAX reference,
-on the shapes and tolerances of tests/test_ops.py. The CUDA kernel itself
-runs only on a GPU: the test marked `cuda` holds it against the plain
-version there and skips on a machine without one.
+on the shapes and tolerances of tests/test_ops.py. The map's strides pick
+one of two CUDA kernels (`_kernel_for`, tested here); the kernels run only
+on a GPU: the test marked `cuda` holds each against the plain version
+there and skips on a machine without one.
 """
 
 import numpy as np
@@ -14,6 +15,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from tensor2robot_tpu_torch.ops.spatial_softmax import (  # noqa: E402
+    _kernel_for,
     spatial_softmax,
     spatial_softmax_reference,
 )
@@ -32,6 +34,27 @@ def jax_ops():
 def _normal(shape, seed):
   return np.random.default_rng(seed).standard_normal(shape).astype(
       np.float32)
+
+
+def _layout(x, layout):
+  """x's values as a (B, H, W, C) map in the named memory layout: "nhwc"
+  contiguous, "nchw" the NCHW view a conv tower hands over, "slice_even"
+  / "slice_odd" the channels of a wider map from channel 8 / 1."""
+  if layout == "nchw":
+    return x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+  if layout.startswith("slice"):
+    offset = 8 if layout == "slice_even" else 1
+    wide = torch.zeros(x.shape[:3] + (x.shape[3] + 9,), dtype=x.dtype,
+                       device=x.device)
+    wide[..., offset:offset + x.shape[3]] = x
+    return wide[..., offset:offset + x.shape[3]]
+  return x
+
+
+# The kernel each layout takes: channels contiguous -> the channel-group
+# kernel; the NCHW view (stride_w 1) -> the warp-per-(b, c) kernel.
+_KERNEL_OF_LAYOUT = {"nhwc": "channels", "nchw": "warp",
+                     "slice_even": "channels", "slice_odd": "channels"}
 
 
 class TestAgainstJax:
@@ -127,6 +150,34 @@ class TestPlainVersion:
                                spatial_softmax_reference(x), rtol=0, atol=0)
     assert spatial_softmax.launches == before
 
+  @pytest.mark.parametrize("shape, layout, kernel", [
+      ((2, 8, 8, 16), "nhwc", "channels"),
+      ((64, 16, 16, 64), "nhwc", "channels"),
+      ((2, 8, 8, 16), "nchw", "warp"),
+      ((64, 16, 16, 64), "nchw", "warp"),
+      ((2, 8, 8, 16), "slice_even", "channels"),
+      ((2, 8, 8, 16), "slice_odd", "channels"),
+      ((1, 7, 5, 3), "nhwc", "channels"),
+      ((1, 7, 5, 3), "nchw", "warp"),
+      ((3, 1, 9, 130), "nhwc", "channels"),
+      ((3, 1, 9, 130), "nchw", "warp"),
+      ((1, 8, 8, 1), "nhwc", "warp"),  # one channel: pixels contiguous
+  ])
+  def test_kernel_for_picks_by_strides(self, shape, layout, kernel):
+    x = _layout(torch.from_numpy(_normal(shape, 9)), layout)
+    assert tuple(x.shape) == shape
+    assert _kernel_for(x.shape, x.stride()) == kernel
+    torch.testing.assert_close(
+        spatial_softmax(x), spatial_softmax_reference(x.contiguous()),
+        rtol=0, atol=1e-6)
+
+  def test_cpu_tensor_moves_no_kernel_count(self):
+    x = torch.from_numpy(_normal((2, 5, 6, 7), 10))
+    before = dict(spatial_softmax.launches_by_kernel)
+    spatial_softmax(x)
+    assert spatial_softmax.launches_by_kernel == before
+    assert set(before) == {"warp", "channels"}
+
   @pytest.mark.parametrize("bad, error", [
       (torch.zeros(2, 3, 4), ValueError),
       (torch.zeros(1, 2, 2, 3, dtype=torch.float64), TypeError),
@@ -145,25 +196,49 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 16, 16, 64), (64, 16, 16, 64)]
-                         + SHAPES)
+@pytest.mark.parametrize("shape", [(1, 16, 16, 64), (64, 16, 16, 64),
+                                   (2, 9, 11, 65)] + SHAPES)
 @pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-5),
                                          (torch.bfloat16, 2e-2)])
-def test_cuda_kernel_matches_plain_version(cuda_device, shape, dtype, atol):
+@pytest.mark.parametrize("layout", sorted(_KERNEL_OF_LAYOUT))
+def test_cuda_kernel_matches_plain_version(cuda_device, shape, dtype, atol,
+                                           layout):
   x = torch.from_numpy(_normal(shape, 8)).to(cuda_device, dtype)
-  # The NCHW layout a conv tower hands over, viewed as (B, H, W, C).
-  strided = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-  before = spatial_softmax.launches
-  for features in (x, strided):
-    got = spatial_softmax(features, temperature=0.7)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and got.device.type == "cuda"
-    want = spatial_softmax_reference(features, temperature=0.7)
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
-  assert spatial_softmax.launches == before + 2
+  features = _layout(x, layout)
+  kernel = _KERNEL_OF_LAYOUT[layout]
+  before = dict(spatial_softmax.launches_by_kernel)
+  total = spatial_softmax.launches
+  got = spatial_softmax(features, temperature=0.7)
+  torch.cuda.synchronize()
+  assert got.dtype == dtype and got.device.type == "cuda"
+  want = spatial_softmax_reference(features, temperature=0.7)
+  torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+  assert spatial_softmax.launches == total + 1
+  assert spatial_softmax.launches_by_kernel == {
+      **before, kernel: before[kernel] + 1}
 
   xg = x.float().detach().requires_grad_()
   torch.sum(spatial_softmax(xg) ** 2).backward()
   xr = x.float().detach().requires_grad_()
   torch.sum(spatial_softmax_reference(xr) ** 2).backward()
   torch.testing.assert_close(xg.grad, xr.grad, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_cuda_kernels_keep_the_inf_and_nan_rules(cuda_device, layout):
+  # Channel 0 is -inf on half its rows (they take no weight), channel 1 is
+  # -inf everywhere and channel 2 holds one NaN (both give NaN), as in the
+  # plain version.
+  x = torch.from_numpy(_normal((2, 8, 8, 5), 11))
+  x[:, :4, :, 0] = -np.inf
+  x[:, :, :, 1] = -np.inf
+  x[1, 3, 5, 2] = np.nan
+  features = _layout(x.to(cuda_device), layout)
+  before = dict(spatial_softmax.launches_by_kernel)
+  got = spatial_softmax(features)
+  torch.cuda.synchronize()
+  kernel = _KERNEL_OF_LAYOUT[layout]
+  assert spatial_softmax.launches_by_kernel[kernel] == before[kernel] + 1
+  torch.testing.assert_close(got, spatial_softmax_reference(features),
+                             rtol=0, atol=1e-5, equal_nan=True)

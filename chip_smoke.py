@@ -19,7 +19,15 @@ tensor cores, float32 on the CUDA cores). Then it drives both slices:
   2048 steps, 64 features; attention with key size 64, a TCBlock of 11
   dense blocks of 32 filters, attention, a dense head) for 20 Adam steps
   with the flash core, and holds its loss stream against the same 20
-  steps with the dense core.
+  steps with the dense core;
+- slice 5 trains the pose_env model at that width through ``Trainer``
+  (2000 collected episodes, 1500 Adam 1e-3 steps at batch 64, bf16, its
+  ImagePreprocessor and ``prefetch_to_device``), exports it with
+  ``NativeExportGenerator``, serves it through ``ExportedModelPredictor``
+  and requires a reach success rate of at least 0.80 within 0.05 over 200
+  held-out episodes, the JAX package's own bar; then it holds 3 float32
+  steps on the GPU against the CPU and drives ``train_eval_model`` to an
+  export that loads.
 
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
@@ -104,6 +112,32 @@ def flash_limit(torch, want):
   rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
   return (FLASH_BF16_FLOOR + FLASH_BF16_ROW_SHARE * rms
           + FLASH_BF16_RTOL * w.abs())
+# Slice 5: the JAX package's full-scale pose_env capability check
+# (tensor2robot_tpu/bin/run_capability_checks.py: 2000 episodes, 1500
+# steps of Adam 1e-3 at batch 64, 200 held-out reaches from seed 1234, at
+# least 0.80 of them within 0.05).
+POSE_EPISODES, POSE_STEPS, POSE_LR = 2000, 1500, 1e-3
+REACH_EPISODES, REACH_SEED, REACH_THRESHOLD, REACH_BAR = 200, 1234, 0.05, 0.80
+PROFILED_STEPS = 10
+# GPU vs CPU training at float32 with TF32 off, 3 steps in lockstep: each
+# GPU step starts from the CPU's state (parameters, Adam moments, running
+# statistics), so each step's arithmetic is compared on equal inputs. The
+# loss and the running statistics must agree within 1e-4. Parameters are
+# not compared with each other: Adam's first step is lr g / (|g| + eps),
+# a step of lr however small g is, so an element whose gradient lies
+# within the two sides' float32 difference of 0 may step the other way
+# (2 lr apart), and the conv biases that feed BatchNorm (an exact gradient
+# of 0) do so at random. Instead each tensor's gradients must agree
+# within GRAD_NOISE_SHARE of its largest (the BN-fed biases' are pure
+# noise and are not held), and each side's update must be Adam's rule on
+# its own gradient, computed in float64, within ADAM_ATOL.
+TRAIN_F32_STEPS = 3
+TRAIN_F32_RTOL = 1e-4
+TRAIN_F32_ATOL = 1e-4
+GRAD_NOISE_SHARE = 1e-3
+ADAM_ATOL = 1e-6
+BN_FED_BIASES = ("tower.conv0.bias", "tower.conv1.bias", "tower.conv2.bias")
+
 # Flash-core vs dense-core loss streams: the dense core rounds its logits
 # and its softmax weights to bfloat16 (the flash kernels keep float32), so
 # each step's loss may differ by bf16 noise averaged over 16384 outputs.
@@ -282,20 +316,25 @@ def check_spatial_softmax(torch, ss, dev, seed: int) -> list:
                          f"({grid[5]}, {grid[2]})")
   results.append({"case": "peak", "out": out.tolist()})
 
-  # First-order gradients: the kernel's backward differentiates the plain
-  # version, and must match differentiating the plain version directly.
+  # First-order gradients: the kernel's backward is analytic (it never
+  # runs the plain version) and must match differentiating the plain
+  # version, on both kernels' layouts.
   for shape in [(2, 6, 6, 4), (64, 16, 16, 64)]:
-    base = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-    xk = base.to(dev).requires_grad_()
-    xr = base.to(dev).requires_grad_()
-    torch.sum(ss.spatial_softmax(xk) ** 2).backward()
-    torch.sum(ss.spatial_softmax_reference(xr) ** 2).backward()
-    err = float((xk.grad - xr.grad).abs().max())
-    results.append({"case": "grad", "shape": list(shape),
-                    "max_abs_err": err, "atol": F32_ATOL})
-    if not err <= F32_ATOL:
-      raise AssertionError(f"spatial_softmax gradient disagrees: "
-                           f"{results[-1]}")
+    for layout in ("nhwc", "nchw"):
+      base = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+      xk = base.to(dev).requires_grad_()
+      xr = base.to(dev).requires_grad_()
+      with CountPlainSpatialSoftmax(ss) as plain:
+        torch.sum(ss.spatial_softmax(
+            spatial_softmax_map(torch, xk, layout)) ** 2).backward()
+      torch.sum(ss.spatial_softmax_reference(xr) ** 2).backward()
+      err = float((xk.grad - xr.grad).abs().max())
+      results.append({"case": "grad", "shape": list(shape), "layout": layout,
+                      "max_abs_err": err, "atol": F32_ATOL,
+                      "plain_calls": plain.cuda_calls})
+      if not (err <= F32_ATOL and plain.cuda_calls == 0):
+        raise AssertionError(f"spatial_softmax gradient disagrees: "
+                             f"{results[-1]}")
   return results
 
 
@@ -728,6 +767,394 @@ def env_batch(seed: int) -> np.ndarray:
       np.float32) / 255.0
 
 
+def reset_spatial_softmax_counts(ss) -> None:
+  ss.spatial_softmax.launches = 0
+  for name in ss.spatial_softmax.launches_by_kernel:
+    ss.spatial_softmax.launches_by_kernel[name] = 0
+
+
+class CountPlainSpatialSoftmax:
+  """While installed, counts the calls of K1's plain version on CUDA
+  tensors (the module's global, which the autograd function looks up)."""
+
+  def __init__(self, ss):
+    self._ss = ss
+    self._plain = ss.spatial_softmax_reference
+    self.cuda_calls = 0
+
+  def __enter__(self):
+    def counted(features, temperature=1.0):
+      self.cuda_calls += features.is_cuda
+      return self._plain(features, temperature)
+    self._ss.spatial_softmax_reference = counted
+    return self
+
+  def __exit__(self, *exc):
+    self._ss.spatial_softmax_reference = self._plain
+    return False
+
+
+def trace_summary(trace_path: str, steps: int, wall_ms: float,
+                  match: str = r"spatial_softmax\w*") -> dict:
+  """Device time, kernel launches and idle share per step of a chrome
+  trace of `steps` steps over `wall_ms`, and the device time of the
+  kernels whose names match `match`, by kernel."""
+  import collections
+  import re
+  with open(trace_path) as f:
+    events = json.load(f)["traceEvents"]
+  device_us, launches = 0.0, 0
+  by_kernel, matched = collections.Counter(), collections.Counter()
+  for event in events:
+    category = event.get("cat", "")
+    if category in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in event:
+      name = event.get("name", "?")
+      device_us += float(event["dur"])
+      by_kernel[name[:80]] += float(event["dur"])
+      found = re.search(match, name)
+      if found:
+        matched[found.group(0)] += float(event["dur"])
+    launches += category == "kernel"
+  device_ms = device_us / 1e3
+  return {
+      "device_ms_per_step": device_ms / steps,
+      "matched_ms_per_step": {name: us / 1e3 / steps
+                              for name, us in matched.items()},
+      "kernels_per_step": launches / steps,
+      "device_idle_share": (1.0 - device_ms / wall_ms) if device_us else None,
+      "top_device_ms_per_step": {
+          name: us / 1e3 / steps for name, us in by_kernel.most_common(8)},
+  }
+
+
+def pose_batches(preprocessor, images, poses, steps: int, rng):
+  """The JAX check_vrgripper's sampler: `steps` batches of BATCH episodes
+  drawn without replacement from `rng`, through the model's preprocessor
+  in TRAIN mode on the host."""
+  from tensor2robot_tpu_torch import modes
+  from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+  for _ in range(steps):
+    idx = rng.choice(len(images), BATCH, replace=False)
+    yield preprocessor.preprocess(
+        ts.TensorSpecStruct({"image": images[idx]}),
+        ts.TensorSpecStruct({"target_pose": poses[idx]}), modes.TRAIN)
+
+
+def profile_steps(torch, trainer, state, batches, out_dir: str,
+                  name: str):
+  """A torch.profiler trace of one train step per batch (after three
+  unprofiled ones); returns the state and the trace's summary."""
+  for features, labels in batches[:3]:
+    state, _ = trainer.train_step(state, features, labels)
+  steps = len(batches) - 3
+  with torch.profiler.profile(activities=[
+      torch.profiler.ProfilerActivity.CPU,
+      torch.profiler.ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for features, labels in batches[3:]:
+      state, _ = trainer.train_step(state, features, labels)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+  path = os.path.join(out_dir, f"{name}.json")
+  prof.export_chrome_trace(path)
+  return state, {"profiled_step_ms": wall_ms / steps,
+                 **trace_summary(path, steps, wall_ms)}
+
+
+def training_feature_map(torch, model, state, features):
+  """The conv tower's TRAIN-mode output on `features`, in the layout the
+  train step hands K1 (on copies of the running statistics)."""
+  variables = state.variables()
+  tower = {key.split(".", 1)[1]: value.detach().clone()
+           for key, value in variables.items() if key.startswith("tower.")}
+  with torch.no_grad():
+    return torch.func.functional_call(
+        model.module.tower, tower, (features["image"],), {"train": True})
+
+
+def run_pose_training(torch, ss, dev, seed: int, root: str) -> dict:
+  """Slice 5's main path: BASELINE config #1 trained through ``Trainer``
+  (K1 forward once a step, its gradient analytic), exported, restored and
+  driven through ``evaluate_policy`` on the GPU; the reach bar must hold.
+  Then 10 profiled steps."""
+  from tensor2robot_tpu_torch.data.prefetch import prefetch_to_device
+  from tensor2robot_tpu_torch.export import export_utils
+  from tensor2robot_tpu_torch.export.native_export_generator import (
+      NativeExportGenerator,
+  )
+  from tensor2robot_tpu_torch.predictors.exported_model_predictor import (
+      ExportedModelPredictor,
+  )
+  from tensor2robot_tpu_torch.research.pose_env import (
+      PoseEnvRegressionModel,
+      evaluate_policy,
+  )
+  from tensor2robot_tpu_torch.research.pose_env.pose_env import (
+      collect_episodes,
+  )
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+  start = time.perf_counter()
+  model = PoseEnvRegressionModel(optimizer_fn=create_adam_optimizer(POSE_LR))
+  images, poses = collect_episodes(POSE_EPISODES, seed=0)
+  collect_s = time.perf_counter() - start
+  trainer = Trainer(model, seed=seed)
+  state = trainer.create_train_state()
+  if trainer.device.type != dev.type:
+    raise AssertionError(f"the trainer runs on {trainer.device}")
+  batches = prefetch_to_device(
+      pose_batches(model.preprocessor, images, poses, POSE_STEPS,
+                   np.random.default_rng(1)), device=dev)
+  reset_spatial_softmax_counts(ss)
+  losses, step_ms = [], []
+  train_start = time.perf_counter()
+  with CountPlainSpatialSoftmax(ss) as plain:
+    for step, (features, labels) in enumerate(batches):
+      if step == 100:
+        torch.cuda.reset_peak_memory_stats()
+      torch.cuda.synchronize()
+      begin = time.perf_counter()
+      state, metrics = trainer.train_step(state, features, labels)
+      torch.cuda.synchronize()
+      step_ms.append((time.perf_counter() - begin) * 1e3)
+      losses.append(float(metrics["loss"]))
+  train_s = time.perf_counter() - train_start
+  peak = torch.cuda.max_memory_allocated()
+  launches = ss.spatial_softmax.launches
+  by_kernel = dict(ss.spatial_softmax.launches_by_kernel)
+  if state.step != POSE_STEPS or launches != POSE_STEPS:
+    raise AssertionError(f"{state.step} steps launched K1 {by_kernel}; want "
+                         f"{POSE_STEPS} steps and one forward launch each")
+  if plain.cuda_calls:
+    raise AssertionError(f"training called K1's plain version on the GPU "
+                         f"{plain.cuda_calls} times")
+  if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+    raise AssertionError(f"the loss did not fall: {losses[:3]} ... "
+                         f"{losses[-3:]}")
+  feature_map = training_feature_map(torch, model, state, features)
+  map_kernel = ss._kernel_for(feature_map.shape, feature_map.stride())
+  if by_kernel[map_kernel] != POSE_STEPS:
+    raise AssertionError(f"training launched {by_kernel}; its map "
+                         f"{tuple(feature_map.stride())} takes {map_kernel}")
+
+  generator = NativeExportGenerator(os.path.join(root, "pose_exports"))
+  generator.set_specification_from_model(model)
+  export_dir = export_utils.export_and_gc(
+      generator, export_utils.fetch_variables_to_host(
+          state.variables(use_ema=True)), keep=1, global_step=state.step)
+  predictor = ExportedModelPredictor(model, generator.export_root)
+  if not (predictor.restore() and predictor.device.type == dev.type
+          and predictor.model_version == int(os.path.basename(export_dir))):
+    raise AssertionError(f"the predictor did not load {export_dir} on {dev}")
+  reset_spatial_softmax_counts(ss)
+  reach_start = time.perf_counter()
+  reach = evaluate_policy(predictor, num_episodes=REACH_EPISODES,
+                          seed=REACH_SEED, success_threshold=REACH_THRESHOLD,
+                          extra_thresholds=(0.10,))
+  reach_s = time.perf_counter() - reach_start
+  served = dict(ss.spatial_softmax.launches_by_kernel)
+  if ss.spatial_softmax.launches != REACH_EPISODES:
+    raise AssertionError(f"{REACH_EPISODES} requests launched K1 {served}")
+
+  extra = [next(pose_batches(model.preprocessor, images, poses, 1,
+                             np.random.default_rng(2 + i)))
+           for i in range(PROFILED_STEPS + 3)]
+  extra = list(prefetch_to_device(iter(extra), device=dev))
+  state, profile = profile_steps(torch, trainer, state, extra, root,
+                                 "pose_training")
+  result = {
+      "episodes": POSE_EPISODES, "steps": POSE_STEPS, "batch": BATCH,
+      "learning_rate": POSE_LR, "compute_dtype": "bfloat16",
+      "parameters": sum(p.numel() for p in state.params.values()),
+      "first_loss": losses[0], "last_loss": losses[-1],
+      "step_ms_median_100_1499": float(np.median(step_ms[100:])),
+      "first_step_ms": step_ms[0],
+      "device_ms_per_step": profile["device_ms_per_step"],
+      "kernels_per_step": profile["kernels_per_step"],
+      "device_idle_share_profiled": profile["device_idle_share"],
+      "device_idle_share_of_step": 1.0 - profile["device_ms_per_step"] / (
+          float(np.median(step_ms[100:]))),
+      "k1_ms_per_step": profile["matched_ms_per_step"],
+      "top_device_ms_per_step": profile["top_device_ms_per_step"],
+      "peak_mib_steps_100_1499": peak / 2 ** 20,
+      "k1_launches_training": by_kernel, "k1_launches_served": served,
+      "k1_plain_calls_on_gpu": plain.cuda_calls,
+      "training_map_strides": list(feature_map.stride()),
+      "training_map_kernel": map_kernel,
+      "success_rate": reach["success_rate"],
+      "success_rate_at_0.1": reach["success_rate_at_0.1"],
+      "mean_reward": reach["mean_reward"], "reach_bar": REACH_BAR,
+      "collect_s": collect_s, "train_s": train_s, "reach_s": reach_s,
+      "seconds": time.perf_counter() - start,
+  }
+  emit("pose_train", **result)
+  if not reach["success_rate"] >= REACH_BAR:
+    raise AssertionError(f"reach success {reach['success_rate']} within "
+                         f"{REACH_THRESHOLD} is under {REACH_BAR}")
+  return {**result, "feature_map": feature_map, "images": images,
+          "poses": poses}
+
+
+def copy_train_state(torch, src, dst):
+  """`dst` with `src`'s step, parameters, Adam moments and statistics, on
+  `dst`'s device."""
+  import dataclasses
+  device = next(iter(dst.params.values())).device
+  with torch.no_grad():
+    for key, param in dst.params.items():
+      param.copy_(src.params[key])
+  dst.opt_state.load_state_dict(src.opt_state.state_dict())
+  return dataclasses.replace(dst, step=src.step, model_state={
+      key: value.to(device, copy=True)
+      for key, value in src.model_state.items()})
+
+
+def adam_reference(torch, old, grad, moments, step: int, lr: float):
+  """The parameter after Adam's step (optax's and torch's rule, b1 0.9, b2
+  0.999, eps 1e-8 outside the root) in float64, from the moments before
+  it (None before the first step)."""
+  g = grad.double()
+  m_prev, v_prev = ((0.0, 0.0) if moments is None else
+                    (moments["exp_avg"].double(),
+                     moments["exp_avg_sq"].double()))
+  m = 0.9 * m_prev + 0.1 * g
+  v = 0.999 * v_prev + 0.001 * g * g
+  return old.double() - lr * (m / (1 - 0.9 ** step)) / (
+      (v / (1 - 0.999 ** step)).sqrt() + 1e-8)
+
+
+def pose_train_f32(torch, dev, seed: int, images, poses) -> dict:
+  """TRAIN_F32_STEPS float32 steps (TF32 off) from one init on the GPU and
+  on the CPU, in lockstep on the same batches: losses, running
+  statistics, gradients and Adam's updates (see GRAD_NOISE_SHARE)."""
+  import copy
+  import dataclasses
+  from tensor2robot_tpu_torch.research.pose_env import PoseEnvRegressionModel
+  from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+  model = PoseEnvRegressionModel(compute_dtype=torch.float32,
+                                 optimizer_fn=create_adam_optimizer(POSE_LR))
+  batches = list(pose_batches(model.preprocessor, images, poses,
+                              TRAIN_F32_STEPS, np.random.default_rng(3)))
+  tf32 = (torch.backends.cudnn.allow_tf32,
+          torch.backends.cuda.matmul.allow_tf32)
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  trainers = [Trainer(model, seed=seed, device=device)
+              for device in (dev, torch.device("cpu"))]
+  gpu, cpu = (trainer.create_train_state() for trainer in trainers)
+  report = {"steps": TRAIN_F32_STEPS, "tf32": False, "losses_gpu": [],
+            "losses_cpu": [], "max_rel_loss_diff": 0.0,
+            "loss_rtol": TRAIN_F32_RTOL, "stats_max_abs_err": 0.0,
+            "atol": TRAIN_F32_ATOL, "grad_err_share": {},
+            "grad_noise_share": GRAD_NOISE_SHARE, "adam_max_abs_err": 0.0,
+            "adam_atol": ADAM_ATOL, "param_max_abs_diff": 0.0}
+  for batch in batches:
+    # The GPU side starts from the CPU's state (moments copied, not shared).
+    with torch.no_grad():
+      for key, param in gpu.params.items():
+        param.copy_(cpu.params[key])
+    gpu.opt_state.load_state_dict(copy.deepcopy(cpu.opt_state.state_dict()))
+    gpu = dataclasses.replace(gpu, step=cpu.step, model_state={
+        key: value.to(dev, copy=True)
+        for key, value in cpu.model_state.items()})
+    before = {key: param.detach().clone() for key, param in
+              cpu.params.items()}
+    moments = {key: copy.deepcopy(cpu.opt_state.state.get(param))
+               for key, param in cpu.params.items()}
+    runs = []
+    for trainer, state in zip(trainers, (gpu, cpu)):
+      features, labels = (ts.TensorSpecStruct(
+          (k, torch.from_numpy(v).to(trainer.device)) for k, v in tree.items())
+                          for tree in batch)
+      state, metrics = trainer.train_step(state, features, labels)
+      runs.append((state, float(metrics["loss"])))
+    (gpu, gpu_loss), (cpu, cpu_loss) = runs
+    report["losses_gpu"].append(gpu_loss)
+    report["losses_cpu"].append(cpu_loss)
+    report["max_rel_loss_diff"] = max(report["max_rel_loss_diff"],
+                                      abs(gpu_loss - cpu_loss) / cpu_loss)
+    for key, value in cpu.model_state.items():
+      report["stats_max_abs_err"] = max(report["stats_max_abs_err"], float(
+          (gpu.model_state[key].cpu() - value).abs().max()))
+    for key, param in cpu.params.items():
+      gpu_param = gpu.params[key].detach().cpu()
+      gpu_grad = gpu.params[key].grad.cpu()
+      if key not in BN_FED_BIASES:
+        share = float((gpu_grad - param.grad).abs().max()
+                      / param.grad.abs().max())
+        report["grad_err_share"][key] = max(
+            share, report["grad_err_share"].get(key, 0.0))
+      for new, grad in ((gpu_param, gpu_grad), (param.detach(), param.grad)):
+        want = adam_reference(torch, before[key], grad, moments[key],
+                              cpu.step, POSE_LR)
+        report["adam_max_abs_err"] = max(report["adam_max_abs_err"], float(
+            (new.double() - want).abs().max()))
+      report["param_max_abs_diff"] = max(report["param_max_abs_diff"], float(
+          (gpu_param - param.detach()).abs().max()))
+  torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+      tf32)
+  if not (report["max_rel_loss_diff"] <= TRAIN_F32_RTOL
+          and report["stats_max_abs_err"] <= TRAIN_F32_ATOL
+          and max(report["grad_err_share"].values()) <= GRAD_NOISE_SHARE
+          and report["adam_max_abs_err"] <= ADAM_ATOL):
+    raise AssertionError(f"GPU and CPU training disagree: {report}")
+  return report
+
+
+def run_train_eval(torch, dev, seed: int, root: str) -> dict:
+  """The normal entry point end to end on the GPU: train_eval_model over
+  a DefaultRandomInputGenerator with the pose model's specs, 20 steps,
+  2 eval batches, a final export that the predictor loads."""
+  from tensor2robot_tpu_torch.data.default_input_generator import (
+      DefaultRandomInputGenerator,
+  )
+  from tensor2robot_tpu_torch.export.native_export_generator import (
+      NativeExportGenerator,
+  )
+  from tensor2robot_tpu_torch.predictors.exported_model_predictor import (
+      ExportedModelPredictor,
+  )
+  from tensor2robot_tpu_torch.research.pose_env import PoseEnvRegressionModel
+  from tensor2robot_tpu_torch.train.train_eval import train_eval_model
+  start = time.perf_counter()
+  model = PoseEnvRegressionModel()
+  generator = NativeExportGenerator(os.path.join(root, "train_eval_exports"))
+  result = train_eval_model(
+      model,
+      input_generator_train=DefaultRandomInputGenerator(batch_size=BATCH,
+                                                        seed=seed),
+      input_generator_eval=DefaultRandomInputGenerator(batch_size=BATCH,
+                                                       seed=seed + 1),
+      max_train_steps=20, eval_steps=2, log_every_steps=10,
+      export_generator=generator)
+  if result.state.step != 20 or not result.export_dir or not os.path.isdir(
+      result.export_dir):
+    raise AssertionError(f"train_eval_model: step {result.state.step}, "
+                         f"export {result.export_dir}")
+  predictor = ExportedModelPredictor(model, generator.export_root)
+  if not predictor.restore() or predictor.device.type != dev.type:
+    raise AssertionError("the predictor did not load the train_eval export")
+  images = env_batch(seed + 4)
+  served = predictor.predict({"image": images})["inference_output"]
+  with torch.inference_mode():
+    direct = model.predict_fn(
+        result.state.variables(),
+        {"image": torch.from_numpy(images).to(predictor.device)})[
+            "inference_output"].float().cpu().numpy()
+  err = float(np.abs(served - direct).max())
+  if not (np.isfinite(served).all() and err <= SERVE_F32_ATOL):
+    raise AssertionError(f"the export serves {err} away from the trained "
+                         "state")
+  return {"steps": result.state.step, "train_metrics": result.train_metrics,
+          "eval_metrics": result.eval_metrics,
+          "export": sorted(os.listdir(result.export_dir)),
+          "served_vs_trained_max_abs_err": err,
+          "seconds": time.perf_counter() - start}
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -779,9 +1206,7 @@ def main(argv=None) -> int:
     predictor = ExportedModelPredictor(model, root)
     if not predictor.restore() or predictor.device.type != "cuda":
       raise AssertionError("the predictor did not load the export on cuda")
-    ss.spatial_softmax.launches = 0
-    for name in ss.spatial_softmax.launches_by_kernel:
-      ss.spatial_softmax.launches_by_kernel[name] = 0
+    reset_spatial_softmax_counts(ss)
     start = time.perf_counter()
     result = evaluate_policy(predictor, num_episodes=EPISODES,
                              seed=args.seed)
@@ -839,12 +1264,27 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
         tf32)
 
+  # Slice 5's main path: train pose_env through K1 to the reach bar.
+  with tempfile.TemporaryDirectory() as tmp:
+    pose = run_pose_training(torch, ss, dev, args.seed, tmp)
+    emit("pose_train_f32", **pose_train_f32(torch, dev, args.seed,
+                                            pose["images"], pose["poses"]))
+    emit("pose_train_eval", **run_train_eval(torch, dev, args.seed, tmp))
+
   # Slice 2's main path: train the SNAIL stack through K2, K3 and K4.
   snail = run_snail_slice(torch, fa, dev, args.seed)
   emit("snail_slice", **snail)
 
   timing = time_spatial_softmax(torch, ss, feature_map)
   emit("kernel_timing", spatial_softmax=timing)
+  # K1 on the map the train step hands it, where its layout differs.
+  training_map = pose["feature_map"]
+  training_timing = None
+  if pose["training_map_kernel"] != timing[0]["kernel"]:
+    training_timing = next(
+        row for row in time_spatial_softmax(torch, ss, training_map)
+        if row["shape"][0] == BATCH and row["dtype"] == "bfloat16")
+    emit("kernel_timing", spatial_softmax_training_map=training_timing)
   flash_timing = time_flash_attention(torch, fa, dev, args.seed + 3)
   emit("kernel_timing", flash_attention=flash_timing)
   # The batch predict's call: batch 64 in the default bfloat16 (and the
@@ -858,8 +1298,10 @@ def main(argv=None) -> int:
       "route": "cuda",
       "source": "tensor2robot_tpu_torch/csrc/spatial_softmax.cu",
       "replaces": "tensor2robot_tpu/ops/spatial_softmax.py:50",
-      "launches": launches,
-      "launches_by_kernel": by_kernel,
+      "launches": (launches + POSE_STEPS + REACH_EPISODES),
+      "launches_by_path": {
+          "serve_slice": by_kernel, "pose_train": pose["k1_launches_training"],
+          "pose_reach": pose["k1_launches_served"]},
       "kernel": main_row["kernel"],
       "max_abs_err": main_row["max_abs_err"],
       "ms": main_row["ms"],
@@ -872,6 +1314,7 @@ def main(argv=None) -> int:
       "shape": main_row["shape"],
       "strides": main_row["strides"],
       "dtype": main_row["dtype"],
+      "training_map": training_timing,
   }] + [{
       "name": f"flash_attention_{name}",
       "route": "cuda",

@@ -13,6 +13,10 @@ leaf at ``<collection>/<scope...>/<name>`` maps to the state_dict key
     batch_stats/<scope>/mean                     -> running_mean
     batch_stats/<scope>/var                      -> running_var
 
+A params-only tree (the EMA copy a JAX ``TrainState`` keeps in
+``ema_params``) maps with ``params_to_state_dict`` onto the module's
+parameters alone.
+
 Both directions raise on any leaf they cannot map, and the flax->torch
 direction also on any key of the module that no leaf fills: nothing is
 skipped.
@@ -70,7 +74,20 @@ def variables_to_state_dict(variables: Mapping[str, Any],
   Every key of ``module.state_dict()`` must be filled, with its shape, and
   every leaf of the tree must land on one; tensors take the module's dtype.
   """
-  expected = module.state_dict()
+  return _map_onto(variables, module.state_dict(), type(module).__name__)
+
+
+def params_to_state_dict(params: Mapping[str, Any],
+                         module: nn.Module) -> Dict[str, torch.Tensor]:
+  """A flax params tree (no collection level, as an EMA copy) as `module`'s
+  parameters, on the CPU: every parameter filled, no buffer."""
+  return _map_onto({"params": params}, dict(module.named_parameters()),
+                   type(module).__name__)
+
+
+def _map_onto(variables: Mapping[str, Any],
+              expected: Mapping[str, torch.Tensor],
+              owner: str) -> Dict[str, torch.Tensor]:
   out: Dict[str, torch.Tensor] = {}
   for collection, tree in variables.items():
     if not isinstance(tree, Mapping):
@@ -80,7 +97,7 @@ def variables_to_state_dict(variables: Mapping[str, Any],
       if key not in expected:
         raise KeyError(
             f"Flax leaf {'/'.join((collection,) + path)!r} maps to {key!r}, "
-            f"which {type(module).__name__} does not have.")
+            f"which {owner} does not have.")
       if tuple(tensor.shape) != tuple(expected[key].shape):
         raise ValueError(
             f"{key!r}: flax gives shape {tuple(tensor.shape)}, the module "
@@ -89,7 +106,7 @@ def variables_to_state_dict(variables: Mapping[str, Any],
   missing = sorted(set(expected) - set(out))
   if missing:
     raise KeyError(f"Flax variables leave module keys unfilled: {missing}")
-  return out
+  return {key: out[key] for key in expected}  # in the module's order
 
 
 def state_dict_to_variables(

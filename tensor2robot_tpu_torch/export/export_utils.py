@@ -1,15 +1,21 @@
-"""Versioned export directories + spec assets: the predictor's subset.
+"""Versioned export directories + spec assets.
 
 Counterpart of ``tensor2robot_tpu/export/export_utils.py``. An export root
 holds numeric version directories; each holds ``variables.npz``
 (``export/variables_io.py``) and the JSON spec asset ``t2r_assets.json``.
+A version is written into a temporary directory and published by one
+rename, so a polling predictor never sees half of one.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import List, Optional, Tuple
+import shutil
+import time
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
 
@@ -22,6 +28,92 @@ def normalize_serving_outputs(outputs) -> dict:
   if hasattr(outputs, "items"):
     return {str(k): v for k, v in outputs.items()}
   return {"inference_output": outputs}
+
+
+def versioned_export_dir(export_root: str) -> Tuple[str, str]:
+  """(tmp_dir, final_dir) for a new version, numbered from the clock and
+  past every existing one: write into tmp_dir, then `publish`."""
+  os.makedirs(export_root, exist_ok=True)
+  version = int(time.time())
+  existing = list_export_versions(export_root)
+  if existing and version <= existing[-1]:
+    version = existing[-1] + 1
+  return (os.path.join(export_root, f".tmp-{version}"),
+          os.path.join(export_root, str(version)))
+
+
+def publish(tmp_dir: str, final_dir: str) -> str:
+  """Publishes tmp_dir as final_dir with one rename; refuses to replace a
+  published version."""
+  if os.path.exists(final_dir):
+    raise FileExistsError(
+        f"export target already exists: {final_dir} (publishing "
+        f"{tmp_dir}); refusing to clobber a published export.")
+  os.rename(tmp_dir, final_dir)
+  return final_dir
+
+
+def garbage_collect_exports(export_root: str, keep: int) -> List[str]:
+  """Removes all but the newest `keep` versions; keep <= 0 removes none.
+  Returns the removed directories."""
+  if keep <= 0:
+    return []
+  removed = []
+  for version in list_export_versions(export_root)[:-keep]:
+    path = os.path.join(export_root, str(version))
+    shutil.rmtree(path, ignore_errors=True)
+    removed.append(path)
+  return removed
+
+
+def resolve_export_root(generator, model_dir: Optional[str]) -> None:
+  """Defaults a generator's export_root to <model_dir>/export/latest."""
+  try:
+    generator.export_root
+  except ValueError:
+    if not model_dir:
+      raise ValueError(
+          "Export generator has no export_root and no model_dir to "
+          "default it under.") from None
+    generator.export_root = os.path.join(model_dir, "export", "latest")
+
+
+def fetch_variables_to_host(
+    variables: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+  """Device variables -> detached CPU copies, as an export writes them."""
+  return {key: value.detach().to("cpu", copy=True)
+          for key, value in variables.items()}
+
+
+def export_and_gc(generator, variables, keep: int,
+                  global_step: int = 0) -> str:
+  """One export, then version GC down to the newest `keep`."""
+  export_dir = generator.export(variables, global_step=global_step)
+  garbage_collect_exports(generator.export_root, keep=keep)
+  return export_dir
+
+
+def write_spec_assets(
+    export_dir: str,
+    feature_spec: ts.SpecStructure,
+    label_spec: Optional[ts.SpecStructure] = None,
+    extra: Optional[dict] = None,
+    global_step: int = 0,
+) -> str:
+  """Writes the JSON spec asset predictors read the signature from. (The
+  JAX package also writes a proto twin, ``t2r_assets.pb``; its readers
+  take the JSON one first.)"""
+  payload = {
+      "feature_spec": json.loads(ts.to_serialized(feature_spec)),
+      "label_spec": (json.loads(ts.to_serialized(label_spec))
+                     if label_spec is not None else None),
+      "extra": extra or {},
+      "global_step": int(global_step),
+  }
+  path = os.path.join(export_dir, SPEC_ASSET_NAME)
+  with open(path, "w") as f:
+    json.dump(payload, f, indent=2, sort_keys=True)
+  return path
 
 
 def list_export_versions(export_root: str) -> List[int]:

@@ -24,9 +24,11 @@ from tensor2robot_tpu_torch.ops.spatial_softmax import (
     spatial_softmax as fused_spatial_softmax,
 )
 
-# flax's defaults: BatchNorm epsilon 1e-5; GroupNorm epsilon 1e-6, where
-# torch's GroupNorm default is 1e-5.
+# flax's defaults: BatchNorm epsilon 1e-5 and momentum 0.99 (the running
+# averages keep 0.99 of themselves: torch's momentum=0.01); GroupNorm
+# epsilon 1e-6, where torch's GroupNorm default is 1e-5.
 _BATCH_NORM_EPSILON = 1e-5
+_BATCH_NORM_MOMENTUM = 0.99
 _GROUP_NORM_EPSILON = 1e-6
 
 
@@ -77,7 +79,15 @@ class Dense(nn.Linear):
 
 
 class BatchNorm(nn.Module):
-  """flax ``nn.BatchNorm`` with running averages (the PREDICT/EVAL form)."""
+  """flax ``nn.BatchNorm`` on (B, C, H, W), statistics in float32.
+
+  Evaluation normalises with the running averages. Training normalises
+  with the batch's mean and biased variance over (B, H, W), and moves the
+  running averages in place to 0.99 old + 0.01 batch, the variance the
+  biased one, as flax does (torch's own update keeps 0.9 and the unbiased
+  variance). The model hands training copies of its running averages,
+  so the caller's variables never change.
+  """
 
   def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
     super().__init__()
@@ -87,10 +97,25 @@ class BatchNorm(nn.Module):
     self.register_buffer("running_var", torch.ones(channels))
     self.compute_dtype = dtype
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
+  def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    x = x.float()
+    if train:
+      if x.device.type == "cpu":
+        # PyTorch's CPU batch norm sums a channels-last input's statistics
+        # one pixel after another in float32: 50x the error of its
+        # contiguous path, enough to move this model's gradients by a
+        # tenth of their largest (tests/test_torch_train.py).
+        x = x.contiguous()
+      with torch.no_grad():
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        for running, batch in ((self.running_mean, mean),
+                               (self.running_var, var)):
+          running.mul_(_BATCH_NORM_MOMENTUM).add_(
+              batch, alpha=1.0 - _BATCH_NORM_MOMENTUM)
     return F.batch_norm(
-        x.float(), self.running_mean, self.running_var, self.weight,
-        self.bias, training=False, eps=_BATCH_NORM_EPSILON,
+        x, None if train else self.running_mean,
+        None if train else self.running_var, self.weight, self.bias,
+        training=train, eps=_BATCH_NORM_EPSILON,
     ).to(self.compute_dtype)
 
 
@@ -170,14 +195,11 @@ class ImagesToFeatures(nn.Module):
       in_channels = width
 
   def forward(self, images: torch.Tensor, train: bool = False):
-    if train and self.norm == "batch":
-      raise NotImplementedError(
-          "Train-mode BatchNorm (batch statistics and their running-average "
-          "update) is not ported yet; serve in PREDICT or EVAL mode.")
     x = normalize_image(images, self.compute_dtype).permute(0, 3, 1, 2)
     for i in range(self.num_layers):
       x = getattr(self, f"conv{i}")(x)
-      x = getattr(self, f"bn{i}")(x)
+      norm = getattr(self, f"bn{i}")
+      x = norm(x, train) if isinstance(norm, BatchNorm) else norm(x)
       x = torch.relu(x)
     return x.permute(0, 2, 3, 1)
 

@@ -1,27 +1,36 @@
-"""AbstractT2RModel — the portable model abstraction: the serving subset.
+"""AbstractT2RModel — the portable model abstraction.
 
 Counterpart of ``tensor2robot_tpu/models/abstract_model.py``. A model
-declares its specs, builds its network as an ``nn.Module``, and defines
-its loss. As in the JAX package, variables live apart from the network:
-they are a state_dict (parameters and running statistics) that
-``inference_network_fn`` applies with ``torch.func.functional_call``, so a
-predictor can swap them without touching the module. The module runs in
-``compute_dtype`` (bfloat16 by default) with parameters in ``param_dtype``.
+declares its specs and its preprocessor, builds its network as an
+``nn.Module``, defines its loss and provides its optimizer. As in the JAX
+package, variables live apart from the network: they are a state_dict
+(parameters and running statistics) that ``inference_network_fn`` applies
+with ``torch.func.functional_call``, so a predictor or a trainer can swap
+them without touching the module. The module runs in ``compute_dtype``
+(bfloat16 by default) with parameters in ``param_dtype``. EMA
+(``use_avg_model_params``) is declared here and run by the trainer.
 
-The optimizer and the train step arrive with the training slice.
+The module's buffers are its mutable state, flax's ``batch_stats``
+collection: a TRAIN-mode pass updates copies of them and returns the
+copies as the new model state.
 """
 
 from __future__ import annotations
 
 import abc
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
 
 from tensor2robot_tpu_torch import Device, modes, resolve_device
+from tensor2robot_tpu_torch.preprocessors.abstract_preprocessor import (
+    AbstractPreprocessor,
+    ModelNoOpPreprocessor,
+)
 from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+from tensor2robot_tpu_torch.utils import optimizers
 
 Variables = Dict[str, torch.Tensor]  # a state_dict
 Metrics = Dict[str, torch.Tensor]
@@ -50,17 +59,30 @@ def flax_default_init_(module: nn.Module,
 
 
 class AbstractT2RModel(abc.ABC):
-  """Spec-declaring, loss-defining model base."""
+  """Spec-declaring, loss-defining, optimizer-providing model base."""
 
-  def __init__(self, compute_dtype: torch.dtype = torch.bfloat16,
+  def __init__(self, optimizer_fn: Optional[optimizers.OptimizerFn] = None,
+               use_avg_model_params: bool = False,
+               avg_model_params_decay: float = 0.9999,
+               compute_dtype: torch.dtype = torch.bfloat16,
                param_dtype: torch.dtype = torch.float32):
     """Args:
+      optimizer_fn: parameters -> ``torch.optim.Optimizer``, as the
+        factories of ``utils/optimizers.py`` return; None gives
+        ``create_optimizer``'s default, Adam 1e-4.
+      use_avg_model_params: keep an EMA copy of the parameters, which eval
+        and export use.
+      avg_model_params_decay: EMA decay.
       compute_dtype: activation dtype inside the network.
       param_dtype: master parameter dtype.
     """
+    self._optimizer_fn = optimizer_fn
+    self.use_avg_model_params = use_avg_model_params
+    self.avg_model_params_decay = avg_model_params_decay
     self.compute_dtype = compute_dtype
     self.param_dtype = param_dtype
     self._module: Optional[nn.Module] = None
+    self._preprocessor: Optional[AbstractPreprocessor] = None
 
   # --- specs --------------------------------------------------------------
 
@@ -72,6 +94,17 @@ class AbstractT2RModel(abc.ABC):
     """Model-consumed label specs for `mode` (default: none)."""
     del mode
     return ts.TensorSpecStruct()
+
+  @property
+  def preprocessor(self) -> AbstractPreprocessor:
+    """The preprocessor pairing this model with the input pipeline."""
+    if self._preprocessor is None:
+      self._preprocessor = self.create_preprocessor()
+    return self._preprocessor
+
+  def create_preprocessor(self) -> AbstractPreprocessor:
+    """Default: identity, resolving the model's own specs per mode."""
+    return ModelNoOpPreprocessor(self)
 
   # --- network ------------------------------------------------------------
 
@@ -96,15 +129,29 @@ class AbstractT2RModel(abc.ABC):
     return {k: v.detach().to(device) for k, v in module.state_dict().items()}
 
   def inference_network_fn(self, variables: Variables, features: Any,
-                           mode: str) -> Tuple[Any, Dict[str, Any]]:
+                           mode: str) -> Tuple[Any, Variables]:
     """Functional forward pass: (outputs, new_model_state).
 
-    new_model_state is empty: the modes served here update no statistics.
+    In TRAIN mode new_model_state holds the module's buffers (the batch
+    statistics) as the pass left them, updated in copies: `variables` is
+    never changed. In the other modes it is empty.
     """
+    mode = modes.validate_mode(mode)
+    state = {}
+    if mode == modes.TRAIN:
+      keys = [name for name, _ in self.module.named_buffers()]
+      if keys and "batch_stats" not in self.mutable_collections():
+        raise ValueError(
+            f"{type(self).__name__} updates batch_stats in TRAIN mode, but "
+            "mutable_collections() does not list it.")
+      state = {key: variables[key].clone() for key in keys}
     outputs = torch.func.functional_call(
-        self.module, variables, (features, modes.validate_mode(mode)),
-        strict=True)
-    return outputs, {}
+        self.module, {**variables, **state}, (features, mode), strict=True)
+    return outputs, state
+
+  def mutable_collections(self) -> Tuple[str, ...]:
+    """Non-param variable collections updated during training."""
+    return ("batch_stats",)
 
   # --- loss ---------------------------------------------------------------
 
@@ -112,6 +159,37 @@ class AbstractT2RModel(abc.ABC):
   def loss_fn(self, outputs: Any, features: Any,
               labels: Optional[Any]) -> Tuple[torch.Tensor, Metrics]:
     """Scalar training loss + metrics."""
+
+  def model_train_fn(self, variables: Variables, features: Any,
+                     labels: Optional[Any]
+                     ) -> Tuple[torch.Tensor, Tuple[Metrics, Variables]]:
+    """loss + (metrics, updated model state); the trainer differentiates
+    the loss with respect to the parameters."""
+    outputs, new_state = self.inference_network_fn(variables, features,
+                                                   modes.TRAIN)
+    loss, metrics = self.loss_fn(outputs, features, labels)
+    metrics = dict(metrics)
+    metrics.setdefault("loss", loss)
+    return loss, (metrics, new_state)
+
+  def model_eval_fn(self, variables: Variables, features: Any,
+                    labels: Optional[Any]) -> Metrics:
+    """Eval metrics (EVAL mode: running statistics). The trainer passes
+    the EMA parameters when use_avg_model_params is set."""
+    outputs, _ = self.inference_network_fn(variables, features, modes.EVAL)
+    loss, metrics = self.loss_fn(outputs, features, labels)
+    metrics = dict(metrics)
+    metrics.setdefault("loss", loss)
+    return metrics
+
+  # --- optimizer ----------------------------------------------------------
+
+  def create_optimizer(
+      self, params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
+    """The optimizer over `params`: optimizer_fn's, else Adam 1e-4."""
+    if self._optimizer_fn is not None:
+      return self._optimizer_fn(params)
+    return optimizers.create_adam_optimizer(1e-4)(params)
 
   # --- serving ------------------------------------------------------------
 

@@ -11,9 +11,15 @@ For a CUDA tensor it launches one of two hand-written kernels
 by the map's strides: ``"channels"`` (a cluster of up to 8 blocks per
 group of 64 channels) for a map whose channels are contiguous, as the
 served tower's NHWC output, and ``"warp"`` (a warp per (b, c)) for
-every other layout, as the NCHW view. Gradients differentiate the plain
-version, as the JAX ``custom_jvp`` does: the kernels keep no attention
-weights for the chain rule, and the JAX package has no backward kernel.
+every other layout, as the NCHW view.
+
+The kernels keep no attention weights for the chain rule, and the JAX
+package has no backward kernel. A first-order gradient is the analytic
+one (``spatial_softmax_grad``), computed in torch ops from the saved
+input: the counterpart of the derivative XLA takes of the JAX
+``custom_jvp``'s rule, without the plain version. A double backward
+(``create_graph=True``) differentiates the plain version, as the JAX rule
+derives higher orders from the reference.
 """
 
 from __future__ import annotations
@@ -46,6 +52,30 @@ def spatial_softmax_reference(features: torch.Tensor,
   expected_x = torch.sum(attention * xs, dim=(2, 3))
   expected_y = torch.sum(attention * ys[:, None], dim=(2, 3))
   return torch.cat([expected_x, expected_y], dim=-1).to(features.dtype)
+
+
+def spatial_softmax_grad(features: torch.Tensor, grad_out: torch.Tensor,
+                         temperature: float = 1.0) -> torch.Tensor:
+  """The gradient of `spatial_softmax` at `features` for `grad_out`.
+
+  In float32, with p = softmax(x / T) over H·W:
+  dx = p ⊙ (g_x (xs − E[x]) + g_y (ys − E[y])) / T, cast back to the
+  input dtype. (B, H, W, C) in, the same shape out. It works on the
+  (B, C, H·W) view of the map (no copy for an NCHW view), and the
+  gradient comes back in that layout.
+  """
+  b, h, w, c = features.shape
+  logits = features.float().permute(0, 3, 1, 2).flatten(2)
+  p = torch.softmax(logits / temperature, dim=-1)  # (B, C, H·W)
+  xs = torch.linspace(-1.0, 1.0, w, device=features.device).repeat(h)
+  ys = torch.linspace(-1.0, 1.0, h,
+                      device=features.device).repeat_interleave(w)
+  g = grad_out.float()
+  gx, gy = g[:, :c, None], g[:, c:, None]  # (B, C, 1)
+  ex = torch.sum(p * xs, dim=-1, keepdim=True)
+  ey = torch.sum(p * ys, dim=-1, keepdim=True)
+  dx = p * (gx * (xs - ex) + gy * (ys - ey)) / temperature
+  return dx.unflatten(2, (h, w)).permute(0, 2, 3, 1).to(features.dtype)
 
 
 def _kernel_for(shape, strides) -> str:
@@ -98,7 +128,8 @@ def _launch(features: torch.Tensor, temperature: float,
 
 
 class _SpatialSoftmaxFn(torch.autograd.Function):
-  """Kernel forward; backward differentiates the plain version."""
+  """Kernel forward; analytic first-order backward; a double backward
+  differentiates the plain version."""
 
   @staticmethod
   def forward(ctx, features, temperature):
@@ -109,13 +140,13 @@ class _SpatialSoftmaxFn(torch.autograd.Function):
   @staticmethod
   def backward(ctx, grad_out):
     (features,) = ctx.saved_tensors
-    # Grad mode is on here only under create_graph=True; the plain version
-    # is then recorded against `features`, so higher orders derive from it.
-    create_graph = torch.is_grad_enabled()
-    with torch.enable_grad():
-      out = spatial_softmax_reference(features, ctx.temperature)
+    if not torch.is_grad_enabled():  # first order
+      return spatial_softmax_grad(features, grad_out, ctx.temperature), None
+    # Grad mode is on here only under create_graph=True: the plain version
+    # is recorded against `features`, so higher orders derive from it.
+    out = spatial_softmax_reference(features, ctx.temperature)
     (grad,) = torch.autograd.grad(out, features, grad_out,
-                                  create_graph=create_graph)
+                                  create_graph=True)
     return grad, None
 
 

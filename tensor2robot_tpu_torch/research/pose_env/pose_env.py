@@ -192,3 +192,27 @@ def pixel_to_pose(pixel_xy, image_size: int) -> Tuple[float, float]:
 
 # Reference alias.
 PoseToyEnv = PoseEnv
+
+
+def collect_episodes(
+    num_episodes: int,
+    seed: int = 0,
+    image_size: int = IMAGE_SIZE,
+    num_distractors: int = 4,
+    occlusion: bool = True,
+) -> Tuple[np.ndarray, np.ndarray]:
+  """Random-policy data collection: (images, target_poses).
+
+  uint8 (N, S, S, 3) images and float32 (N, 2) poses, bit-identical to the
+  JAX package's ``collect_episodes`` on the same arguments. Clutter knobs
+  default to the env defaults (the hard scene).
+  """
+  env = PoseEnv(image_size=image_size, seed=seed,
+                num_distractors=num_distractors, occlusion=occlusion)
+  images = np.empty((num_episodes, image_size, image_size, 3), np.uint8)
+  poses = np.empty((num_episodes, 2), np.float32)
+  for i in range(num_episodes):
+    obs = env.reset()
+    images[i] = obs["image"]
+    poses[i] = obs["target_pose"]
+  return images, poses

@@ -8,7 +8,7 @@ the tower ends in a 16x16x64 map, the spatial softmax gives 128 values.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +20,9 @@ from tensor2robot_tpu_torch.layers.vision_layers import (
     ImagesToFeatures,
 )
 from tensor2robot_tpu_torch.models.regression_model import RegressionModel
+from tensor2robot_tpu_torch.preprocessors.image_preprocessors import (
+    ImagePreprocessor,
+)
 from tensor2robot_tpu_torch.research.pose_env.pose_env import IMAGE_SIZE
 from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
 
@@ -47,11 +50,21 @@ class _PoseEnvModule(nn.Module):
 class PoseEnvRegressionModel(RegressionModel):
   """Image -> 2D target pose (MSE)."""
 
-  def __init__(self, image_size: int = IMAGE_SIZE, norm: str = "batch",
-               **kwargs):
-    """norm: 'batch' (reference parity) or 'group' (batch-independent)."""
+  def __init__(self, image_size: int = IMAGE_SIZE,
+               in_image_size: Optional[int] = None, distort: bool = False,
+               norm: str = "batch", **kwargs):
+    """Args:
+      image_size: the model's input size.
+      in_image_size: the collected images' size (crops to image_size);
+        defaults to image_size.
+      distort: photometric distortion in TRAIN mode.
+      norm: 'batch' (reference parity) or 'group' (batch-independent).
+      **kwargs: AbstractT2RModel's (optimizer_fn, compute_dtype, ...).
+    """
     super().__init__(label_key="target_pose", **kwargs)
     self._image_size = image_size
+    self._in_image_size = in_image_size or image_size
+    self._distort = distort
     self._norm = norm
 
   def get_feature_specification(self, mode: str) -> ts.TensorSpecStruct:
@@ -68,6 +81,18 @@ class PoseEnvRegressionModel(RegressionModel):
         "target_pose": ts.ExtendedTensorSpec((2,), np.float32,
                                              name="target_pose"),
     })
+
+  def create_preprocessor(self) -> ImagePreprocessor:
+    """uint8 images at the collection size in, model-ready float out
+    (TRAIN: random crop and, with `distort`, photometric jitter)."""
+    return ImagePreprocessor(
+        feature_spec=self.get_feature_specification(modes.TRAIN),
+        label_spec=self.get_label_specification(modes.TRAIN),
+        image_key="image",
+        in_image_shape=(self._in_image_size, self._in_image_size, 3),
+        data_format="jpeg",
+        distort=self._distort,
+    )
 
   def build_module(self) -> nn.Module:
     return _PoseEnvModule(norm=self._norm, compute_dtype=self.compute_dtype)

@@ -1,10 +1,13 @@
-"""Typed tensor specs: the numpy subset that serving needs.
+"""Typed tensor specs: the numpy subset that serving and training need.
 
 Counterpart of ``tensor2robot_tpu/specs/tensorspec_utils.py``:
 ``ExtendedTensorSpec``, ``TensorSpecStruct``, ``flatten_spec_structure``,
-``validate_and_flatten`` and ``from_serialized`` (which reading an export's
-spec assets needs). Plain numpy: no pytree registration, and dtypes are
-numpy's own (an export's spec that names ``bfloat16`` is refused).
+``assert_valid_spec_structure``, ``validate_and_flatten``, the random
+batches of the mock input stack (``make_random_batch``, the same draws as
+the JAX package's from the same generator) and the JSON serialisation of
+an export's spec assets (``to_serialized`` / ``from_serialized``). Plain
+numpy: no pytree registration, and dtypes are numpy's own (an export's
+spec that names ``bfloat16`` is refused).
 """
 
 from __future__ import annotations
@@ -95,6 +98,18 @@ class ExtendedTensorSpec:
         self, "data_format", data_format.lower() if data_format else None)
     object.__setattr__(self, "dataset_key", dataset_key or "")
     object.__setattr__(self, "varlen_default_value", varlen_default_value)
+
+  def to_json_dict(self) -> dict[str, Any]:
+    return {
+        "shape": list(self.shape),
+        "dtype": self.dtype.name,
+        "name": self.name,
+        "is_optional": self.is_optional,
+        "is_sequence": self.is_sequence,
+        "data_format": self.data_format,
+        "dataset_key": self.dataset_key,
+        "varlen_default_value": self.varlen_default_value,
+    }
 
   @classmethod
   def from_json_dict(cls, d: Mapping[str, Any]) -> "ExtendedTensorSpec":
@@ -295,6 +310,15 @@ def flatten_spec_structure(spec_structure: SpecStructure) -> TensorSpecStruct:
   return out
 
 
+def assert_valid_spec_structure(spec_structure: SpecStructure) -> None:
+  """Raises unless every leaf is an ExtendedTensorSpec with a valid key."""
+  for key, spec in flatten_spec_structure(spec_structure).items():
+    if not isinstance(spec, ExtendedTensorSpec):
+      raise ValueError(
+          f"Spec structure leaf {key!r} is {type(spec).__name__}, expected "
+          "ExtendedTensorSpec.")
+
+
 def _shapes_compatible(spec: ExtendedTensorSpec, value_shape: tuple[int, ...],
                        batched: bool) -> bool:
   expected = spec.shape
@@ -351,8 +375,54 @@ def validate_and_flatten(
   return out
 
 
+def make_random_array(
+    spec: ExtendedTensorSpec,
+    batch_size: Optional[int] = None,
+    rng: Optional[np.random.Generator] = None,
+) -> np.ndarray:
+  """Spec-conformant random numpy array (the mock-stack workhorse).
+
+  Floats ~ U[0, 1); ints ~ U[0, 10); bools ~ Bernoulli(0.5): the JAX
+  package's draws, in its order, from the same generator.
+  """
+  rng = rng or np.random.default_rng(0)
+  shape = spec.shape if batch_size is None else (batch_size,) + spec.shape
+  if np.issubdtype(spec.dtype, np.floating):
+    return rng.random(shape, dtype=np.float64).astype(spec.dtype)
+  if spec.dtype == np.dtype(bool):
+    return rng.random(shape) < 0.5
+  if np.issubdtype(spec.dtype, np.integer):
+    high = min(10, np.iinfo(spec.dtype).max)
+    return rng.integers(0, high, size=shape).astype(spec.dtype)
+  raise ValueError(f"Cannot synthesize random data for dtype {spec.dtype}.")
+
+
+def make_random_batch(
+    spec_structure: SpecStructure,
+    batch_size: int,
+    rng: Optional[np.random.Generator] = None,
+    include_optional: bool = True,
+) -> TensorSpecStruct:
+  """Random batch conforming to a whole spec structure."""
+  rng = rng or np.random.default_rng(0)
+  out = TensorSpecStruct()
+  for key, spec in flatten_spec_structure(spec_structure).items():
+    if spec.is_optional and not include_optional:
+      continue
+    out[key] = make_random_array(spec, batch_size=batch_size, rng=rng)
+  return out
+
+
+def to_serialized(spec_structure: SpecStructure) -> str:
+  """JSON-serialises a spec structure: the export's spec asset."""
+  payload = OrderedDict(
+      (key, spec.to_json_dict())
+      for key, spec in flatten_spec_structure(spec_structure).items())
+  return json.dumps({"version": 1, "specs": payload}, indent=2)
+
+
 def from_serialized(serialized: str) -> TensorSpecStruct:
-  """Reads the JSON spec structure an export's assets carry."""
+  """Inverse of `to_serialized`: reads an export's spec asset."""
   payload = json.loads(serialized)
   if payload.get("version") != 1:
     raise ValueError(f"Unknown spec serialization version: {payload!r}")

@@ -211,12 +211,36 @@ class TestLayers:
       assert float(got[key]) == pytest.approx(float(want[key]), abs=1e-6)
 
   def test_train_mode_batch_norm_is_refused(self):
-    model = pose_env_models.PoseEnvRegressionModel()
+    """...where batch_stats is not a mutable collection: train-mode
+    BatchNorm updates it, and flax refuses to update an immutable one."""
+
+    class Frozen(pose_env_models.PoseEnvRegressionModel):
+
+      def mutable_collections(self):
+        return ()
+
+    class JaxFrozen(jax_models.PoseEnvRegressionModel):
+
+      def mutable_collections(self):
+        return ()
+
+    model = Frozen()
     variables = model.init_variables(torch.Generator().manual_seed(0),
                                      device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="batch_stats"):
       model.inference_network_fn(
-          variables, {"image": torch.zeros(1, 64, 64, 3)}, modes.TRAIN)
+          variables, {"image": torch.zeros(2, 64, 64, 3)}, modes.TRAIN)
+    jax_model = JaxFrozen()
+    with pytest.raises(Exception, match="batch_stats"):
+      jax_model.inference_network_fn(
+          jax_model.init_variables(jax.random.PRNGKey(0)),
+          jax_ts.TensorSpecStruct({"image": jnp.zeros((2, 64, 64, 3))}),
+          modes.TRAIN)
+    # With batch_stats mutable, the pass runs and returns the statistics.
+    _, state = pose_env_models.PoseEnvRegressionModel().inference_network_fn(
+        variables, {"image": torch.zeros(2, 64, 64, 3)}, modes.TRAIN)
+    assert sorted(state) == sorted(
+        k for k in variables if k.endswith(("running_mean", "running_var")))
 
 
 def _export(tmp_path, jax_model, variables):

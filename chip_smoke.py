@@ -28,6 +28,12 @@ tensor cores, float32 on the CUDA cores). Then it drives both slices:
   held-out episodes, the JAX package's own bar; then it holds 3 float32
   steps on the GPU against the CPU and drives ``train_eval_model`` to an
   export that loads.
+- slice 6 runs that training as the JAX package's users do, at seeds 0
+  and 1: 2000 episodes written as jpeg TFRecords, 1500 steps through the
+  CLI (``bin/run_t2r_trainer.py``) and ``pose_env_train.cfg`` into a
+  ``model_dir``, in two calls of 750 steps (the second resumes from the
+  checkpoint), then ``model_dir/export/latest`` served to the same reach
+  bar, and records served through ``predict_examples``.
 
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
@@ -40,6 +46,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -118,6 +125,13 @@ def flash_limit(torch, want):
 # least 0.80 of them within 0.05).
 POSE_EPISODES, POSE_STEPS, POSE_LR = 2000, 1500, 1e-3
 REACH_EPISODES, REACH_SEED, REACH_THRESHOLD, REACH_BAR = 200, 1234, 0.05, 0.80
+# Slice 6: the same run from jpeg records through the CLI and model_dir,
+# in two calls (the second resumes), at two seeds.
+RECORD_SEEDS = (0, 1)
+RECORD_HALF = 750
+RECORD_CFG = os.path.join("tensor2robot_tpu_torch", "research", "pose_env",
+                          "configs", "pose_env_train.cfg")
+SERVED_RECORDS = 64
 PROFILED_STEPS = 10
 # GPU vs CPU training at float32 with TF32 off, 3 steps in lockstep: each
 # GPU step starts from the CPU's state (parameters, Adam moments, running
@@ -1155,6 +1169,196 @@ def run_train_eval(torch, dev, seed: int, root: str) -> dict:
           "seconds": time.perf_counter() - start}
 
 
+class LoopStats(logging.Handler):
+  """Collects the train loop's timing records and its resume messages."""
+
+  def __init__(self):
+    super().__init__()
+    self.loop_stats, self.messages = [], []
+
+  def emit(self, record):
+    if hasattr(record, "loop_stats"):
+      self.loop_stats.append(record.loop_stats)
+    self.messages.append(record.getMessage())
+
+
+def crc_rates() -> dict:
+  """MB/s of the host library's CRC and the plain Python loop on 1 MB,
+  and the seconds the library took to build (outside the timing)."""
+  from tensor2robot_tpu_torch.data import tfrecord
+  data = np.random.default_rng(0).integers(0, 256, 1 << 20,
+                                           np.uint8).tobytes()
+  start = time.perf_counter()
+  tfrecord.masked_crc32c(b"")  # builds and loads the library
+  build_s = time.perf_counter() - start
+  start = time.perf_counter()
+  want = tfrecord.masked_crc32c_reference(data)
+  python_s = time.perf_counter() - start
+  reps, start = 100, time.perf_counter()
+  for _ in range(reps):
+    got = tfrecord.masked_crc32c(data)
+  library_s = (time.perf_counter() - start) / reps
+  if got != want:
+    raise AssertionError(f"the CRC library gives {got}, Python {want}")
+  return {"crc_library_mb_per_s": 1.0 / library_s,
+          "crc_python_mb_per_s": 1.0 / python_s,
+          "crc_library_build_s": build_s}
+
+
+def parse_rate(path: str, threads: int = 4) -> float:
+  """Records a second of the record generator alone (read, CRC, parse,
+  `threads` parser threads), one pass at batch BATCH."""
+  from tensor2robot_tpu_torch import modes
+  from tensor2robot_tpu_torch.data.default_input_generator import (
+      DefaultRecordInputGenerator,
+  )
+  from tensor2robot_tpu_torch.research.pose_env import PoseEnvRegressionModel
+  generator = DefaultRecordInputGenerator(path, batch_size=BATCH,
+                                          num_pipeline_threads=threads)
+  preprocessor = PoseEnvRegressionModel().preprocessor
+  generator.set_specification(
+      preprocessor.get_in_feature_specification(modes.TRAIN),
+      preprocessor.get_in_label_specification(modes.TRAIN))
+  start = time.perf_counter()
+  batches = sum(1 for _ in generator.create_dataset_fn(modes.EVAL)())
+  return batches * BATCH / (time.perf_counter() - start)
+
+
+def run_pose_records(torch, ss, dev, seed: int, root: str) -> dict:
+  """Slice 6's main path at one seed: BASELINE config #1 as its users run
+  it. Write 2000 episodes as jpeg TFRecords with the port, train through
+  the port's CLI and config (two calls into one model_dir, the second
+  resuming at RECORD_HALF on the GPU), serve model_dir/export/latest to
+  the reach bar, and serve records through predict_examples."""
+  from tensor2robot_tpu_torch import config, modes
+  from tensor2robot_tpu_torch.bin import run_t2r_trainer
+  from tensor2robot_tpu_torch.data import tfrecord
+  from tensor2robot_tpu_torch.data.parser import ExampleParser
+  from tensor2robot_tpu_torch.predictors.exported_model_predictor import (
+      ExportedModelPredictor,
+  )
+  from tensor2robot_tpu_torch.research.pose_env import (
+      PoseEnvRegressionModel,
+      evaluate_policy,
+  )
+  from tensor2robot_tpu_torch.research.pose_env.pose_env import (
+      write_tfrecords,
+  )
+  start = time.perf_counter()
+  records = os.path.join(root, f"train-{seed}.tfrecord")
+  write_tfrecords(records, POSE_EPISODES, seed=seed)
+  write_s = time.perf_counter() - start
+  result = {"seed": seed, "episodes": POSE_EPISODES, "write_s": write_s}
+  if seed == RECORD_SEEDS[0]:
+    import hashlib
+    digest = hashlib.sha256()
+    for _, record in zip(range(16), tfrecord.read_tfrecords(records)):
+      digest.update(record)
+    result["sha256_first_16_records"] = digest.hexdigest()
+    result["parser_records_per_s_4_threads"] = parse_rate(records)
+
+  model_dir = os.path.join(root, f"run-{seed}")
+  handler = LoopStats()
+  loop_logger = logging.getLogger("tensor2robot_tpu_torch.train.train_eval")
+  loop_logger.addHandler(handler)
+  level = loop_logger.level
+  loop_logger.setLevel(logging.INFO)
+  reset_spatial_softmax_counts(ss)
+  train_start = time.perf_counter()
+  try:
+    with CountPlainSpatialSoftmax(ss) as plain:
+      for steps in (RECORD_HALF, POSE_STEPS):
+        config.clear_config()
+        run_t2r_trainer.main([
+            "--config", os.path.join(_ROOT, RECORD_CFG),
+            "--import_module",
+            "tensor2robot_tpu_torch.research.pose_env.pose_env_models",
+            "--binding",
+            f'DefaultRecordInputGenerator.file_patterns = "{records}"',
+            "--binding", f"DefaultRecordInputGenerator.seed = {seed + 1}",
+            "--binding", f"train_eval_model.seed = {seed}",
+            "--binding", f"train_eval_model.max_train_steps = {steps}",
+            "--model_dir", model_dir, "--device", dev.type])
+  finally:
+    loop_logger.removeHandler(handler)
+    loop_logger.setLevel(level)
+    config.clear_config()
+  train_s = time.perf_counter() - train_start
+  launches = dict(ss.spatial_softmax.launches_by_kernel)
+  if ss.spatial_softmax.launches != POSE_STEPS:
+    raise AssertionError(f"{POSE_STEPS} steps launched K1 {launches}")
+  if plain.cuda_calls:
+    raise AssertionError(f"training called K1's plain version on the GPU "
+                         f"{plain.cuda_calls} times")
+  first, second = handler.loop_stats
+  if (first["steps"], second["steps"]) != (RECORD_HALF,
+                                           POSE_STEPS - RECORD_HALF):
+    raise AssertionError(f"the calls took {first['steps']} and "
+                         f"{second['steps']} steps")
+  if f"Resumed from step {RECORD_HALF}" not in handler.messages:
+    raise AssertionError(f"the second call did not resume at {RECORD_HALF}")
+  saved = sorted(int(name) for name in os.listdir(
+      os.path.join(model_dir, "checkpoints")))
+  if saved != [500, RECORD_HALF, 1000, POSE_STEPS]:
+    raise AssertionError(f"checkpoint steps {saved}")
+  with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+    logged = sorted(json.loads(line)["step"] for line in f)
+  if logged != sorted(list(range(100, POSE_STEPS + 1, 100)) + [RECORD_HALF]):
+    raise AssertionError(f"metrics.jsonl has steps {logged}")
+  if not os.path.isfile(os.path.join(model_dir, "operative_config.txt")):
+    raise AssertionError("no operative_config.txt")
+
+  model = PoseEnvRegressionModel()
+  predictor = ExportedModelPredictor(
+      model, os.path.join(model_dir, "export", "latest"), device=dev)
+  if not predictor.restore() or predictor.device.type != dev.type:
+    raise AssertionError("the predictor did not load the run's export")
+  reset_spatial_softmax_counts(ss)
+  reach = evaluate_policy(predictor, num_episodes=REACH_EPISODES,
+                          seed=REACH_SEED, success_threshold=REACH_THRESHOLD,
+                          extra_thresholds=(0.10,))
+  # Records of another seed, served as a robot's log through
+  # predict_examples, against predict on the parser's own arrays.
+  served_path = os.path.join(root, f"served-{seed}.tfrecord")
+  write_tfrecords(served_path, SERVED_RECORDS, seed=100 + seed)
+  served = list(tfrecord.read_tfrecords(served_path))
+  got = predictor.predict_examples(served)["inference_output"]
+  preprocessor = model.preprocessor
+  features, _ = ExampleParser(preprocessor.get_in_feature_specification(
+      modes.PREDICT)).parse_batch(served)
+  features, _ = preprocessor.preprocess(features, None, modes.PREDICT)
+  want = predictor.predict(features)["inference_output"]
+  if ss.spatial_softmax.launches != REACH_EPISODES + 2:
+    raise AssertionError(f"serving launched K1 "
+                         f"{ss.spatial_softmax.launches_by_kernel}")
+  if not (got.shape == (SERVED_RECORDS, 2) and np.isfinite(got).all()
+          and np.array_equal(got, want)):
+    raise AssertionError("predict_examples disagrees with predict")
+  result.update({
+      "steps": POSE_STEPS, "resumed_at": RECORD_HALF, "checkpoints": saved,
+      "k1_launches_training": launches,
+      "k1_launches_served": dict(ss.spatial_softmax.launches_by_kernel),
+      "k1_plain_calls_on_gpu": plain.cuda_calls,
+      "step_ms_median": float(np.median([first["step_ms_median"],
+                                         second["step_ms_median"]])),
+      "loop_stats": [first, second],
+      "input_wait_ms_median": float(np.median(
+          [first["input_wait_ms_median"], second["input_wait_ms_median"]])),
+      "input_wait_share": (first["input_wait_share"]
+                           + second["input_wait_share"]) / 2,
+      "success_rate": reach["success_rate"],
+      "success_rate_at_0.1": reach["success_rate_at_0.1"],
+      "reach_bar": REACH_BAR, "predict_examples_equal": True,
+      "train_s": train_s, "seconds": time.perf_counter() - start,
+  })
+  emit("pose_records", **result)
+  if not reach["success_rate"] >= REACH_BAR:
+    raise AssertionError(f"seed {seed}: reach success "
+                         f"{reach['success_rate']} within {REACH_THRESHOLD} "
+                         f"is under {REACH_BAR}")
+  return result
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -1271,6 +1475,27 @@ def main(argv=None) -> int:
                                             pose["images"], pose["poses"]))
     emit("pose_train_eval", **run_train_eval(torch, dev, args.seed, tmp))
 
+  # Slice 6's main path: the same run from jpeg records through the CLI,
+  # model_dir and a resume, at two seeds.
+  records = [crc_rates()]
+  with tempfile.TemporaryDirectory() as tmp:
+    for seed in RECORD_SEEDS:
+      records.append(run_pose_records(torch, ss, dev, seed, tmp))
+  emit("pose_records_summary", **records[0],
+       success_rates={r["seed"]: r["success_rate"] for r in records[1:]},
+       success_rates_at_0_1={r["seed"]: r["success_rate_at_0.1"]
+                             for r in records[1:]},
+       step_ms_median={r["seed"]: r["step_ms_median"] for r in records[1:]},
+       input_wait_ms_median={r["seed"]: r["input_wait_ms_median"]
+                             for r in records[1:]},
+       input_wait_share={r["seed"]: r["input_wait_share"]
+                         for r in records[1:]},
+       write_s={r["seed"]: r["write_s"] for r in records[1:]},
+       phase_s={r["seed"]: r["seconds"] for r in records[1:]},
+       parser_records_per_s_4_threads=records[1][
+           "parser_records_per_s_4_threads"],
+       sha256_first_16_records_seed_0=records[1]["sha256_first_16_records"])
+
   # Slice 2's main path: train the SNAIL stack through K2, K3 and K4.
   snail = run_snail_slice(torch, fa, dev, args.seed)
   emit("snail_slice", **snail)
@@ -1298,10 +1523,13 @@ def main(argv=None) -> int:
       "route": "cuda",
       "source": "tensor2robot_tpu_torch/csrc/spatial_softmax.cu",
       "replaces": "tensor2robot_tpu/ops/spatial_softmax.py:50",
-      "launches": (launches + POSE_STEPS + REACH_EPISODES),
+      "launches": (launches + POSE_STEPS + REACH_EPISODES + len(
+          RECORD_SEEDS) * (POSE_STEPS + REACH_EPISODES + 2)),
       "launches_by_path": {
           "serve_slice": by_kernel, "pose_train": pose["k1_launches_training"],
-          "pose_reach": pose["k1_launches_served"]},
+          "pose_reach": pose["k1_launches_served"],
+          **{f"pose_records_{r['seed']}_{part}": r[f"k1_launches_{part}"]
+             for r in records[1:] for part in ("training", "served")}},
       "kernel": main_row["kernel"],
       "max_abs_err": main_row["max_abs_err"],
       "ms": main_row["ms"],

@@ -8,7 +8,8 @@ package, variables live apart from the network: they are a state_dict
 with ``torch.func.functional_call``, so a predictor or a trainer can swap
 them without touching the module. The module runs in ``compute_dtype``
 (bfloat16 by default) with parameters in ``param_dtype``. EMA
-(``use_avg_model_params``) is declared here and run by the trainer.
+(``use_avg_model_params``) and warm start (``init_from_checkpoint``) are
+declared here and run by the trainer.
 
 The module's buffers are its mutable state, flax's ``batch_stats``
 collection: a TRAIN-mode pass updates copies of them and returns the
@@ -65,7 +66,10 @@ class AbstractT2RModel(abc.ABC):
                use_avg_model_params: bool = False,
                avg_model_params_decay: float = 0.9999,
                compute_dtype: torch.dtype = torch.bfloat16,
-               param_dtype: torch.dtype = torch.float32):
+               param_dtype: torch.dtype = torch.float32,
+               init_from_checkpoint: Optional[str] = None,
+               init_from_checkpoint_assignment_map: Optional[
+                   Dict[str, str]] = None):
     """Args:
       optimizer_fn: parameters -> ``torch.optim.Optimizer``, as the
         factories of ``utils/optimizers.py`` return; None gives
@@ -75,12 +79,22 @@ class AbstractT2RModel(abc.ABC):
       avg_model_params_decay: EMA decay.
       compute_dtype: activation dtype inside the network.
       param_dtype: master parameter dtype.
+      init_from_checkpoint: where to warm-start the parameters from before
+        step 0: a port run or step directory, or a variables.npz (either
+        package's export); see ``train/checkpoints.py::restore_params``.
+      init_from_checkpoint_assignment_map: optional {source_prefix:
+        target_prefix} renames over flax param paths, in
+        tf.train.init_from_checkpoint's direction (checkpoint name on the
+        left, current-model name on the right).
     """
     self._optimizer_fn = optimizer_fn
     self.use_avg_model_params = use_avg_model_params
     self.avg_model_params_decay = avg_model_params_decay
     self.compute_dtype = compute_dtype
     self.param_dtype = param_dtype
+    self.init_from_checkpoint = init_from_checkpoint
+    self.init_from_checkpoint_assignment_map = (
+        init_from_checkpoint_assignment_map)
     self._module: Optional[nn.Module] = None
     self._preprocessor: Optional[AbstractPreprocessor] = None
 

@@ -10,6 +10,14 @@ as the JAX ``CheckpointPredictor`` does, and serves the export's
 ``variables.npz`` through the weight bridge. When the export carries its
 spec asset (``t2r_assets.json``), its feature keys, shapes and dtypes must
 match the model's PREDICT feature spec.
+
+``predict_examples`` serves serialized tf.Example records, the format the
+data-collection fleet logs. It parses them with the model's preprocessor's
+PREDICT in-spec (for pose_env, a jpeg-encoded uint8 image), runs the
+preprocessor on the host, then ``predict``. The JAX native predictor
+parses with the export's model-ready spec instead; where the preprocessor
+passes features through unchanged the two are the same, and where it does
+not (pose_env's jpeg records) the JAX predictor cannot parse the records.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ class ExportedModelPredictor(AbstractPredictor):
         model.get_feature_specification(modes.PREDICT))
     self._variables = None
     self._version = -1
+    self._example_parser = None
 
   @property
   def device(self) -> torch.device:
@@ -109,6 +118,19 @@ class ExportedModelPredictor(AbstractPredictor):
     return {k: _to_numpy(v) for k, v in
             export_utils.normalize_serving_outputs(outputs).items()}
 
+  def predict_examples(self, serialized) -> Dict[str, np.ndarray]:
+    """Serves a batch of serialized tf.Example records (no TensorFlow):
+    parse with the preprocessor's PREDICT in-spec, preprocess, predict."""
+    from tensor2robot_tpu_torch.data.parser import ExampleParser
+    self.assert_is_loaded()
+    preprocessor = self._model.preprocessor
+    if self._example_parser is None:
+      self._example_parser = ExampleParser(
+          preprocessor.get_in_feature_specification(modes.PREDICT))
+    features, _ = self._example_parser.parse_batch(list(serialized))
+    features, _ = preprocessor.preprocess(features, None, modes.PREDICT)
+    return self.predict(features)
+
   def get_feature_specification(self) -> ts.TensorSpecStruct:
     return self._feature_spec
 
@@ -118,4 +140,5 @@ class ExportedModelPredictor(AbstractPredictor):
 
   def close(self) -> None:
     self._variables = None
+    self._example_parser = None
     self._version = -1  # assert_is_loaded fails cleanly after close()

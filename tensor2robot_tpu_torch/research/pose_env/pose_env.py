@@ -216,3 +216,30 @@ def collect_episodes(
     images[i] = obs["image"]
     poses[i] = obs["target_pose"]
   return images, poses
+
+
+def write_tfrecords(path: str, num_episodes: int, seed: int = 0,
+                    image_size: int = IMAGE_SIZE,
+                    num_distractors: int = 4,
+                    occlusion: bool = True) -> str:
+  """Collects episodes and writes them as one TFRecord file of
+  tf.Examples with a jpeg-encoded image and a float target pose: the JAX
+  package's ``write_tfrecords`` file, byte for byte on the same PIL build.
+  Clutter knobs pass through to `collect_episodes`."""
+  from tensor2robot_tpu_torch.data import example_proto, tfrecord
+  from tensor2robot_tpu_torch.utils.image import encode_jpeg
+
+  images, poses = collect_episodes(num_episodes, seed=seed,
+                                   image_size=image_size,
+                                   num_distractors=num_distractors,
+                                   occlusion=occlusion)
+
+  def records():
+    for image, pose in zip(images, poses):
+      yield example_proto.encode_example({
+          "image": [encode_jpeg(image)],
+          "target_pose": pose.tolist(),
+      })
+
+  tfrecord.write_tfrecords(path, records())
+  return path

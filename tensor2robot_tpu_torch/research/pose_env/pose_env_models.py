@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from tensor2robot_tpu_torch import modes
+from tensor2robot_tpu_torch.config import configurable
 from tensor2robot_tpu_torch.layers.vision_layers import (
     ImageFeaturesToPose,
     ImagesToFeatures,
@@ -47,6 +48,7 @@ class _PoseEnvModule(nn.Module):
     return ts.TensorSpecStruct({"inference_output": pose})
 
 
+@configurable
 class PoseEnvRegressionModel(RegressionModel):
   """Image -> 2D target pose (MSE)."""
 

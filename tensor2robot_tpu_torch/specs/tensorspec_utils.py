@@ -4,8 +4,10 @@ Counterpart of ``tensor2robot_tpu/specs/tensorspec_utils.py``:
 ``ExtendedTensorSpec``, ``TensorSpecStruct``, ``flatten_spec_structure``,
 ``assert_valid_spec_structure``, ``validate_and_flatten``, the random
 batches of the mock input stack (``make_random_batch``, the same draws as
-the JAX package's from the same generator) and the JSON serialisation of
-an export's spec assets (``to_serialized`` / ``from_serialized``). Plain
+the JAX package's from the same generator), the record parser's schema
+(``tensorspec_to_feature_dict``, ``pad_or_clip_array``) and the JSON
+serialisation of an export's spec assets (``to_serialized`` /
+``from_serialized``). Plain
 numpy: no pytree registration, and dtypes are numpy's own (an export's
 spec that names ``bfloat16`` is refused).
 """
@@ -373,6 +375,94 @@ def validate_and_flatten(
           f"{spec.dtype.name}.")
     out[key] = value
   return out
+
+
+# ---------------------------------------------------------------------------
+# Record parsing schema
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureSchema:
+  """Parser schema for one feature inside a serialized tf.Example (the
+  analogue of tf.FixedLenFeature / tf.VarLenFeature).
+
+  Attributes:
+    kind: 'fixed' | 'varlen' | 'image': image means a length-1 bytes
+      feature holding an encoded jpeg/png that decodes to `shape`.
+    shape: the per-example dense shape after parsing (and decode/pad).
+    dtype: output dtype.
+    default_value: pad value for varlen, or None.
+    data_format: image encoding for kind='image'.
+  """
+
+  kind: str
+  shape: tuple[int, ...]
+  dtype: np.dtype
+  default_value: Optional[float] = None
+  data_format: Optional[str] = None
+
+
+def tensorspec_to_feature_dict(
+    spec_structure: SpecStructure, decode_images: bool = True
+) -> "OrderedDict[str, FeatureSchema]":
+  """Builds the per-key parsing schema for serialized tf.Example records.
+
+  Keys in the returned dict are the *record* feature names: spec.name if
+  set, else the flat path's last component.
+  """
+  flat = flatten_spec_structure(spec_structure)
+  out: OrderedDict[str, FeatureSchema] = OrderedDict()
+  for key, spec in flat.items():
+    if not isinstance(spec, ExtendedTensorSpec):
+      raise ValueError(f"Spec leaf {key!r} is not an ExtendedTensorSpec.")
+    feature_name = spec.name or key.rsplit("/", 1)[-1]
+    if is_encoded_image_spec(spec) and decode_images:
+      schema = FeatureSchema(
+          kind="image", shape=spec.shape, dtype=spec.dtype,
+          data_format=spec.data_format)
+    elif spec.is_sequence or spec.varlen_default_value is not None:
+      default = spec.varlen_default_value
+      schema = FeatureSchema(
+          kind="varlen", shape=spec.shape, dtype=spec.dtype,
+          default_value=0.0 if default is None else default)
+    else:
+      schema = FeatureSchema(kind="fixed", shape=spec.shape, dtype=spec.dtype)
+    if feature_name in out:
+      # Two spec paths may read one record feature (MAML's condition/ and
+      # inference/ views of one episode), if they agree on the whole parse
+      # rule (kind, shape, dtype, padding, encoding).
+      if out[feature_name] != schema:
+        raise ValueError(
+            f"Feature name {feature_name!r} is produced by multiple specs "
+            f"with conflicting parse schemas: {out[feature_name]!r} vs "
+            f"{schema!r} (spec at {key!r}). Give the specs distinct names."
+        )
+      continue
+    out[feature_name] = schema
+  return out
+
+
+def pad_or_clip_array(
+    array: np.ndarray,
+    target_length: int,
+    axis: int = 0,
+    pad_value: float = 0.0,
+) -> np.ndarray:
+  """Pads/clips `array` along `axis` to exactly `target_length` (host side,
+  where the input pipeline's shapes may still be ragged)."""
+  array = np.asarray(array)
+  length = array.shape[axis]
+  if length == target_length:
+    return array
+  if length > target_length:
+    index = [slice(None)] * array.ndim
+    index[axis] = slice(0, target_length)
+    return array[tuple(index)]
+  pad_widths = [(0, 0)] * array.ndim
+  pad_widths[axis] = (0, target_length - length)
+  return np.pad(array, pad_widths, mode="constant",
+                constant_values=pad_value)
 
 
 def make_random_array(

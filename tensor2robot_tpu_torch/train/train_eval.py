@@ -1,12 +1,16 @@
 """train_eval_model: train, evaluate and export one model, on one device.
 
 Counterpart of ``tensor2robot_tpu/train/train_eval.py::train_eval_model``,
-a subset: wire the input generators to the model's specs, train over
+single host: wire the input generators to the model's specs, train over
 ``prefetch_to_device`` with a bounded number of steps in flight, log the
 metrics every ``log_every_steps``, evaluate every ``eval_interval_steps``
-and at the end, and export the final variables. What the JAX loop also
-does raises ``NotImplementedError`` when asked for, naming the
-``ROADMAP.md`` item it waits for; nothing is skipped quietly.
+and at the end, and export the final variables. Under ``model_dir`` it
+also checkpoints every ``save_checkpoints_steps`` (and at the end), resumes
+from the latest checkpoint, writes ``metrics.jsonl`` and an event file,
+dumps the operative config, and on SIGTERM or SIGINT leaves the loop
+through the final checkpoint. What the JAX loop also does raises
+``NotImplementedError`` when asked for, naming the ``ROADMAP.md`` item it
+waits for; nothing is skipped quietly.
 """
 
 from __future__ import annotations
@@ -14,30 +18,36 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import os
+import signal
+import threading
+import time
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from tensor2robot_tpu_torch import Device, modes
+from tensor2robot_tpu_torch.config import configurable, operative_config_str
 from tensor2robot_tpu_torch.data.prefetch import prefetch_to_device
 from tensor2robot_tpu_torch.export import export_utils
+from tensor2robot_tpu_torch.train.checkpoints import CheckpointManager
 from tensor2robot_tpu_torch.train.train_state import TrainState
 from tensor2robot_tpu_torch.train.trainer import Trainer
+from tensor2robot_tpu_torch.utils.metric_writer import MetricWriter
 
 _log = logging.getLogger(__name__)
 
 # What the JAX loop does and this one does not yet, by argument: the value
 # that asks for nothing, and the ROADMAP.md item it waits for.
 _WAITING = {
-    "model_dir": (None, "Queue 1 item 3, train/checkpoints.py: checkpoints, "
-                        "resume and the metric files under model_dir"),
     "create_exporters_fn": (None, "the flagship list's item 13, the "
                                   "training harness: eval exporters"),
     "hook_builders": ((), "the flagship list's item 13, the training "
                           "harness: hooks"),
-    "iterations_per_loop": (1, "the flagship list's item 4, the train "
+    "iterations_per_loop": (1, "Queue 1 item 2, the rest of the train "
                                "step: several steps a dispatch"),
-    "gradient_accumulation_steps": (1, "the flagship list's item 4, the "
+    "gradient_accumulation_steps": (1, "Queue 1 item 2, the rest of the "
                                        "train step: gradient accumulation"),
     "mesh": (None, "the flagship list's item 15, the parallel tier"),
     "param_specs": (None, "the flagship list's item 15, the parallel tier"),
@@ -45,6 +55,47 @@ _WAITING = {
                                      "parallel tier"),
     "fsdp": (False, "the flagship list's item 15, the parallel tier"),
 }
+
+
+class _PreemptionGuard:
+  """SIGTERM/SIGINT -> finish the current step, checkpoint, exit cleanly.
+
+  Installed only on the main thread and only while the train loop runs;
+  the previous handlers come back on exit. A second signal goes to the
+  previous handler, so a double Ctrl-C still kills.
+  """
+
+  def __init__(self, enabled: bool = True):
+    self._enabled = enabled
+    self.requested = False
+    self._previous = {}
+
+  def __enter__(self):
+    if (not self._enabled
+        or threading.current_thread() is not threading.main_thread()):
+      return self  # signal.signal is main-thread-only; run unguarded
+
+    def handler(signum, frame):
+      if self.requested:  # second signal: defer to the original handler
+        previous = self._previous.get(signum)
+        if callable(previous):
+          previous(signum, frame)
+          return
+        raise KeyboardInterrupt
+      self.requested = True
+      _log.warning(
+          "Signal %d received: checkpointing at the next loop boundary "
+          "and exiting.", signum)
+
+    for signum in (signal.SIGTERM, signal.SIGINT):
+      self._previous[signum] = signal.signal(signum, handler)
+    return self
+
+  def __exit__(self, *exc):
+    for signum, previous in self._previous.items():
+      signal.signal(signum, previous)
+    self._previous = {}
+    return False
 
 
 @dataclasses.dataclass
@@ -55,6 +106,7 @@ class TrainEvalResult:
   export_dir: Optional[str]
 
 
+@configurable
 def train_eval_model(
     model,
     input_generator_train=None,
@@ -62,13 +114,16 @@ def train_eval_model(
     max_train_steps: int = 1000,
     eval_steps: int = 10,
     eval_interval_steps: int = 0,
+    model_dir: Optional[str] = None,
+    save_checkpoints_steps: int = 0,
+    keep_checkpoint_max: int = 5,
     export_generator=None,
     export_keep: int = 5,
     seed: int = 0,
     log_every_steps: int = 100,
     prefetch_depth: int = 2,
+    handle_preemption: bool = True,
     device: Device = None,
-    model_dir: Optional[str] = None,
     create_exporters_fn=None,
     hook_builders: Sequence = (),
     iterations_per_loop: int = 1,
@@ -81,10 +136,16 @@ def train_eval_model(
   """Trains (and optionally evaluates and exports) `model`.
 
   Args:
-    max_train_steps: optimizer steps to take.
+    max_train_steps: total steps, counted from the restored step when the
+      run resumes (Estimator's max_steps).
     eval_steps: eval batches per evaluation.
     eval_interval_steps: evaluate every N train steps (0 = only the final
       evaluation, when an eval generator is given).
+    model_dir: the run directory: ``checkpoints/``, ``metrics.jsonl``, the
+      event file, ``operative_config.txt``, and the exports when
+      `export_generator` has no root of its own. None writes none of it.
+    save_checkpoints_steps: checkpoint cadence (0 = only the final one).
+    keep_checkpoint_max: checkpoints kept.
     export_generator: exports the final variables (EMA when kept) under its
       export_root, keeping the newest `export_keep` versions.
     seed: the trainer's init seed.
@@ -92,12 +153,19 @@ def train_eval_model(
       come back in `train_metrics`.
     prefetch_depth: batches copied ahead of the step, and the bound on
       steps issued ahead of the device.
+    handle_preemption: trap SIGTERM/SIGINT during the train loop and leave
+      through the final checkpoint, so the run resumes where it stopped.
     device: where to train; the GPU unless 'cpu' is asked for.
-    model_dir ... fsdp: the JAX loop's checkpoints, hooks, exporters,
-      fused steps, accumulation and parallelism; any value but the default
+    create_exporters_fn ... fsdp: the JAX loop's exporters, hooks, fused
+      steps, accumulation and parallelism; any value but the default
       raises NotImplementedError naming the ROADMAP.md item it waits for.
+
+  The loop logs its timing once, at the end of training, as the record's
+  ``loop_stats`` (``extra``): the host-clock time of each step from
+  asking for its batch to the next such ask, and the time blocked in
+  ``next()`` on the prefetch iterator.
   """
-  asked = dict(model_dir=model_dir, create_exporters_fn=create_exporters_fn,
+  asked = dict(create_exporters_fn=create_exporters_fn,
                hook_builders=tuple(hook_builders),
                iterations_per_loop=iterations_per_loop,
                gradient_accumulation_steps=gradient_accumulation_steps,
@@ -113,6 +181,22 @@ def train_eval_model(
 
   trainer = Trainer(model, seed=seed, device=device)
   state = trainer.create_train_state()
+
+  checkpoint_manager = None
+  metric_writer = None
+  if model_dir:
+    os.makedirs(model_dir, exist_ok=True)
+    checkpoint_manager = CheckpointManager(
+        os.path.join(model_dir, "checkpoints"),
+        max_to_keep=keep_checkpoint_max,
+        save_interval_steps=save_checkpoints_steps)
+    if checkpoint_manager.latest_step() is not None:
+      state = checkpoint_manager.restore(state)
+      _log.info("Resumed from step %d", state.step)
+    metric_writer = MetricWriter(model_dir)
+    with open(os.path.join(model_dir, "operative_config.txt"), "w") as f:
+      f.write(operative_config_str())
+
   train_metrics: Dict[str, float] = {}
   eval_metrics: Dict[str, float] = {}
 
@@ -122,32 +206,79 @@ def train_eval_model(
     return _evaluate(trainer, model, input_generator_eval, state, eval_steps,
                      prefetch_depth)
 
-  if input_generator_train is not None and max_train_steps > 0:
-    input_generator_train.set_specification_from_model(model, modes.TRAIN)
-    train_iter = prefetch_to_device(
-        input_generator_train.create_dataset_fn(modes.TRAIN)(),
-        device=trainer.device, depth=prefetch_depth)
-    # CUDA steps return before the device finishes them; waiting on the
-    # step `prefetch_depth` back keeps the host from queueing stale work.
-    inflight = collections.deque()
-    while state.step < max_train_steps:
-      features, labels = next(train_iter)
-      state, metrics = trainer.train_step(state, features, labels)
-      if trainer.device.type == "cuda":
-        inflight.append(torch.cuda.Event())
-        inflight[-1].record(torch.cuda.current_stream(trainer.device))
-        if len(inflight) > max(2, prefetch_depth):
-          inflight.popleft().synchronize()
-      if (log_every_steps > 0 and state.step % log_every_steps == 0
-          ) or state.step == max_train_steps:
-        train_metrics = {k: float(v) for k, v in metrics.items()}
-        _log.info("step %d: %s", state.step, train_metrics)
-      if (eval_interval_steps > 0 and state.step % eval_interval_steps == 0
-          and state.step < max_train_steps):
-        eval_metrics = run_eval(state)
-        _log.info("eval at step %d: %s", state.step, eval_metrics)
+  def crossed(cadence: int, prev: int, now: int) -> bool:
+    return cadence > 0 and now // cadence > prev // cadence
 
-  eval_metrics = run_eval(state) or eval_metrics
+  # The guard stays armed through the final checkpoint: a signal landing
+  # during the save must not kill the writer mid-file.
+  with _PreemptionGuard(enabled=(handle_preemption
+                                 and input_generator_train is not None
+                                 and max_train_steps > 0)) as preemption:
+    if input_generator_train is not None and state.step < max_train_steps:
+      input_generator_train.set_specification_from_model(model, modes.TRAIN)
+      host_iter = input_generator_train.create_dataset_fn(modes.TRAIN)()
+      pipeline_stats = getattr(input_generator_train, "pipeline_stats",
+                               None)
+      if pipeline_stats:
+        _log.info("train input pipeline: %s", pipeline_stats)
+      train_iter = prefetch_to_device(host_iter, device=trainer.device,
+                                      depth=prefetch_depth)
+      # CUDA steps return before the device finishes them; waiting on the
+      # step `prefetch_depth` back keeps the host from queueing stale work.
+      inflight = collections.deque()
+      wait_s, step_s = [], []
+      while state.step < max_train_steps and not preemption.requested:
+        begin = time.perf_counter()
+        features, labels = next(train_iter)
+        wait_s.append(time.perf_counter() - begin)
+        prev_step = state.step
+        state, metrics = trainer.train_step(state, features, labels)
+        if trainer.device.type == "cuda":
+          inflight.append(torch.cuda.Event())
+          inflight[-1].record(torch.cuda.current_stream(trainer.device))
+          if len(inflight) > max(2, prefetch_depth):
+            inflight.popleft().synchronize()
+        step = state.step
+        if (crossed(log_every_steps, prev_step, step)
+            or step == max_train_steps):
+          train_metrics = {k: float(v) for k, v in metrics.items()}
+          if metric_writer:
+            metric_writer.write_scalars(step, train_metrics)
+          _log.info("step %d: %s", step, train_metrics)
+        if checkpoint_manager and checkpoint_manager.should_save(
+            step, last_step=prev_step):
+          checkpoint_manager.save(step, state)
+        if (crossed(eval_interval_steps, prev_step, step)
+            and step < max_train_steps):
+          eval_metrics = run_eval(state)
+          if metric_writer and eval_metrics:
+            metric_writer.write_scalars(
+                step, {f"eval/{k}": v for k, v in eval_metrics.items()})
+        step_s.append(time.perf_counter() - begin)
+      host_iter.close()  # stops a record generator's reader and parsers
+      if preemption.requested:
+        _log.warning("Preempted at step %d; the final checkpoint below is "
+                     "the resume point.", state.step)
+      loop_stats = {
+          "steps": len(step_s),
+          "step_ms_median": float(np.median(step_s)) * 1e3,
+          "input_wait_ms_median": float(np.median(wait_s)) * 1e3,
+          "input_wait_share": float(np.sum(wait_s) / np.sum(step_s)),
+      } if step_s else {"steps": 0}
+      _log.info("train loop: %s", loop_stats,
+                extra={"loop_stats": loop_stats})
+
+    # Final checkpoint (also the resume point for a follow-on run).
+    if checkpoint_manager and (checkpoint_manager.latest_step()
+                               != state.step):
+      checkpoint_manager.save(state.step, state, force=True)
+
+  final_eval = run_eval(state)
+  if final_eval:
+    eval_metrics = final_eval
+    if metric_writer:
+      metric_writer.write_scalars(
+          state.step, {f"eval/{k}": v for k, v in eval_metrics.items()})
   export_dir = None
   if export_generator is not None:
     export_generator.set_specification_from_model(model)
@@ -156,6 +287,10 @@ def train_eval_model(
         export_utils.fetch_variables_to_host(state.variables(use_ema=True)),
         keep=export_keep, global_step=state.step)
     _log.info("Exported the final model to %s", export_dir)
+  if checkpoint_manager:
+    checkpoint_manager.close()
+  if metric_writer:
+    metric_writer.close()
   return TrainEvalResult(state=state, train_metrics=train_metrics,
                          eval_metrics=eval_metrics, export_dir=export_dir)
 

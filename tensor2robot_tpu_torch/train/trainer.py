@@ -71,10 +71,32 @@ class Trainer:
         for key, value in state_dict.items() if key not in params}
     ema = ({name: p.detach().clone() for name, p in params.items()}
            if self.model.use_avg_model_params else None)
-    return TrainState(
+    state = TrainState(
         step=0, params=params, model_state=model_state,
         opt_state=self.model.create_optimizer(list(params.values())),
         ema_params=ema)
+    if self.model.init_from_checkpoint:
+      state = self._warm_start(state, self.model.init_from_checkpoint)
+    return state
+
+  def _warm_start(self, state: TrainState, checkpoint_path: str
+                  ) -> TrainState:
+    """Loads the parameters that match by (mapped) flax path and shape
+    from `checkpoint_path` into `state`, in place; the EMA re-seeds from
+    them (at decay ~0.9999 an EMA left on the random init would poison
+    eval and export for tens of thousands of steps)."""
+    from tensor2robot_tpu_torch.train import checkpoints
+    restored = checkpoints.restore_params(checkpoint_path)
+    merged = checkpoints.merge_params(
+        bridge.state_dict_to_variables(state.params)["params"], restored,
+        assignment_map=self.model.init_from_checkpoint_assignment_map)
+    params = bridge.params_to_state_dict(merged, self.model.module)
+    with torch.no_grad():
+      for name, tensor in state.params.items():
+        tensor.copy_(params[name])
+        if state.ema_params is not None:
+          state.ema_params[name].copy_(params[name])
+    return state
 
   # --- steps ---------------------------------------------------------------
 

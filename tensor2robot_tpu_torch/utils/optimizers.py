@@ -13,7 +13,12 @@ same names, defaults and update rules as the optax one:
   rate by every scale whose boundary the update count has reached, as
   ``optax.piecewise_constant_schedule``. It is a ``LambdaLR`` that advances
   after each ``step()`` by itself, as an optax schedule lives inside its
-  transformation.
+  transformation; it hangs on the optimizer as ``lr_schedule``, so that a
+  checkpoint saves its counter.
+
+The factories are ``@configurable``: a config file binds their arguments,
+and ``@create_adam_optimizer()`` calls the factory at injection time, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from __future__ import annotations
 from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import torch
+
+from tensor2robot_tpu_torch.config import configurable
 
 OptimizerFn = Callable[[Iterable], torch.optim.Optimizer]
 BoundariesAndScales = Optional[Sequence[Tuple[int, float]]]
@@ -44,6 +51,7 @@ def _with_schedule(optimizer: torch.optim.Optimizer,
 
   scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
   optimizer.register_step_post_hook(lambda *_: scheduler.step())
+  optimizer.lr_schedule = scheduler
   return optimizer
 
 
@@ -80,6 +88,7 @@ class RMSprop(torch.optim.Optimizer):
     return loss
 
 
+@configurable
 def create_adam_optimizer(
     learning_rate: float = 1e-4,
     b1: float = 0.9,
@@ -93,6 +102,7 @@ def create_adam_optimizer(
       boundaries_and_scales)
 
 
+@configurable
 def create_momentum_optimizer(
     learning_rate: float = 1e-2,
     momentum: float = 0.9,
@@ -105,6 +115,7 @@ def create_momentum_optimizer(
       boundaries_and_scales)
 
 
+@configurable
 def create_sgd_optimizer(
     learning_rate: float = 1e-2,
     boundaries_and_scales: BoundariesAndScales = None,
@@ -113,6 +124,7 @@ def create_sgd_optimizer(
       torch.optim.SGD(params, lr=learning_rate), boundaries_and_scales)
 
 
+@configurable
 def create_rmsprop_optimizer(
     learning_rate: float = 1e-3,
     decay: float = 0.9,

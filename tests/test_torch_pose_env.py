@@ -393,6 +393,8 @@ print(json.dumps({"imported": names, "banned": banned}))
                           cwd=_REPO_ROOT, capture_output=True, text=True,
                           timeout=120, check=True)
   report = json.loads(result.stdout.strip().splitlines()[-1])
-  assert "tensor2robot_tpu_torch.predictors.exported_model_predictor" in (
-      report["imported"])
+  for name in ("predictors.exported_model_predictor", "data.tfrecord",
+               "data.parser", "train.checkpoints", "config.registrations",
+               "bin.run_t2r_trainer", "research.pose_env.collect_data"):
+    assert f"tensor2robot_tpu_torch.{name}" in report["imported"]
   assert report["banned"] == []

@@ -733,8 +733,14 @@ class TestTrainEval:
       ("hook_builders", [object()]), ("iterations_per_loop", 50),
       ("gradient_accumulation_steps", 2), ("mesh", object()),
       ("param_specs", {}), ("shard_optimizer_state", True), ("fsdp", True)])
-  def test_what_waits_raises(self, name, value):
+  def test_what_waits_raises(self, name, value, tmp_path):
     _, model = _models()
+    if name == "model_dir":  # no longer waits: the run directory is written
+      train_eval.train_eval_model(model, max_train_steps=0, device="cpu",
+                                  model_dir=str(tmp_path / value))
+      assert os.path.isfile(tmp_path / value / "operative_config.txt")
+      assert os.listdir(tmp_path / value / "checkpoints") == ["0"]
+      return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
       train_eval.train_eval_model(model, max_train_steps=0, device="cpu",
                                   **{name: value})

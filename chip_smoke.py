@@ -8,7 +8,7 @@ the CUDA toolkit. It builds every kernel from ``csrc/`` and holds each
 against its plain PyTorch version: K1 (spatial softmax; a channel-group
 kernel for channel-contiguous maps, a warp-per-channel kernel for other
 layouts) and K2-K4 (flash attention forward, dq, dk+dv; bfloat16 on the
-tensor cores, float32 on the CUDA cores). Then it drives both slices:
+tensor cores, float32 on the CUDA cores). Then it drives every slice:
 
 - slice 1 serves the pose_env regression model (BASELINE config #1 at its
   published width: 64x64 RGB, convs 3->32->48->64, a 16x16x64 map,
@@ -33,7 +33,22 @@ tensor cores, float32 on the CUDA cores). Then it drives both slices:
   CLI (``bin/run_t2r_trainer.py``) and ``pose_env_train.cfg`` into a
   ``model_dir``, in two calls of 750 steps (the second resumes from the
   checkpoint), then ``model_dir/export/latest`` served to the same reach
-  bar, and records served through ``predict_examples``.
+  bar, and records served through ``predict_examples``; since slice 7
+  with ``iterations_per_loop=50``, as the JAX check trains, so each
+  call's stacks after the first are CUDA graph replays of 50 steps.
+- slice 7 trains pose_env's step and the QT-Opt critic's at its published
+  size (472x472 float images, bf16, batch 32, Adam 1e-4, EMA kept) as
+  one ``Trainer.train_steps`` CUDA graph against the same steps eagerly
+  (bit for bit, cuDNN deterministic), holds ``impl="fast"`` against
+  "parity" and the float32 eval forward against the CPU's, times the CEM
+  control step at the serving defaults (64/6/3), holds one
+  ``train_step_accum`` of 4 microbatches on the card against the CPU,
+  and runs the port's ``check_qtopt`` at the JAX package's full scale:
+  8000 logged grasps written as jpeg records, 2500 Adam 1e-3 steps at
+  batch 64 through ``train_eval_model(iterations_per_loop=50)`` into a
+  ``model_dir``, the native export served through ``CEMPolicy``
+  (128/10/4) over 200 held-out scenes; grasp success must reach 0.72 and
+  beat random grasps.
 
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
@@ -156,6 +171,31 @@ BN_FED_BIASES = ("tower.conv0.bias", "tower.conv1.bias", "tower.conv2.bias")
 # and its softmax weights to bfloat16 (the flash kernels keep float32), so
 # each step's loss may differ by bf16 noise averaged over 16384 outputs.
 LOSS_RTOL = 1e-2
+
+# Slice 7: the QT-Opt critic. The JAX check_qtopt's full scale, uncut
+# (tensor2robot_tpu/bin/run_capability_checks.py: 8000 logged grasps at
+# 128x128, 2500 Adam 1e-3 steps at batch 64 with iterations_per_loop=50,
+# CEM 128/10/4 over 200 held-out scenes; bar 0.72 and above random). The
+# flagship critic at its published defaults (472x472 float images, bf16,
+# batch norm, conv stem, parity impl, batch 32, Adam 1e-4) for the graph
+# and the serving checks, with the EMA kept so the graph must carry it.
+FLAGSHIP_STEPS = 20
+FLAGSHIP_SCENES = 128
+FLAGSHIP_WARM_STEPS = 2
+# CEM at the flagship's serving defaults (cem.CEMPolicy's).
+CEM_SERVING = dict(num_samples=64, num_elites=6, iterations=3)
+CEM_CALLS = 20
+# impl="fast" against impl="parity", and the GPU's eval forward against
+# the CPU's, both at float32 with TF32 off: the same sums in another
+# order over up to 472x472 pixels; logits are O(1).
+FLAGSHIP_F32_ATOL = 1e-4
+# pose_env under iterations_per_loop: one 50-step stack as one graph
+# against 50 eager steps, as the JAX check trains (K = 50).
+GRAPH_STEPS = 50
+QTOPT_SCENES = 200  # check_qtopt's held-out scenes
+# Gradient accumulation: m microbatches of 16, float32 (TF32 off), the
+# card against the CPU: the pose_train_f32 bars.
+ACCUM_MICRO, ACCUM_BATCH = 4, 16
 
 
 def emit(phase: str, **fields) -> None:
@@ -1224,12 +1264,14 @@ def parse_rate(path: str, threads: int = 4) -> float:
   return batches * BATCH / (time.perf_counter() - start)
 
 
-def run_pose_records(torch, ss, dev, seed: int, root: str) -> dict:
+def run_pose_records(torch, ss, gl, dev, seed: int, root: str) -> dict:
   """Slice 6's main path at one seed: BASELINE config #1 as its users run
   it. Write 2000 episodes as jpeg TFRecords with the port, train through
   the port's CLI and config (two calls into one model_dir, the second
-  resuming at RECORD_HALF on the GPU), serve model_dir/export/latest to
-  the reach bar, and serve records through predict_examples."""
+  resuming at RECORD_HALF on the GPU) with iterations_per_loop=50, as the
+  JAX check trains (so from slice 7 each call's 50-step stacks after the
+  first are CUDA graph replays), serve model_dir/export/latest to the
+  reach bar, and serve records through predict_examples."""
   from tensor2robot_tpu_torch import config, modes
   from tensor2robot_tpu_torch.bin import run_t2r_trainer
   from tensor2robot_tpu_torch.data import tfrecord
@@ -1266,7 +1308,7 @@ def run_pose_records(torch, ss, dev, seed: int, root: str) -> dict:
   reset_spatial_softmax_counts(ss)
   train_start = time.perf_counter()
   try:
-    with CountPlainSpatialSoftmax(ss) as plain:
+    with CountPlainSpatialSoftmax(ss) as plain, CountReplays(gl) as replays:
       for steps in (RECORD_HALF, POSE_STEPS):
         config.clear_config()
         run_t2r_trainer.main([
@@ -1278,6 +1320,8 @@ def run_pose_records(torch, ss, dev, seed: int, root: str) -> dict:
             "--binding", f"DefaultRecordInputGenerator.seed = {seed + 1}",
             "--binding", f"train_eval_model.seed = {seed}",
             "--binding", f"train_eval_model.max_train_steps = {steps}",
+            "--binding",
+            f"train_eval_model.iterations_per_loop = {GRAPH_STEPS}",
             "--model_dir", model_dir, "--device", dev.type])
   finally:
     loop_logger.removeHandler(handler)
@@ -1291,10 +1335,15 @@ def run_pose_records(torch, ss, dev, seed: int, root: str) -> dict:
     raise AssertionError(f"training called K1's plain version on the GPU "
                          f"{plain.cuda_calls} times")
   first, second = handler.loop_stats
-  if (first["steps"], second["steps"]) != (RECORD_HALF,
-                                           POSE_STEPS - RECORD_HALF):
-    raise AssertionError(f"the calls took {first['steps']} and "
-                         f"{second['steps']} steps")
+  taken = tuple(stats["steps"] * stats["steps_per_dispatch"]
+                for stats in (first, second))
+  if taken != (RECORD_HALF, POSE_STEPS - RECORD_HALF):
+    raise AssertionError(f"the calls took {taken} steps")
+  # Each call's first stack runs eagerly (the warm-up), the rest replay.
+  want_replays = POSE_STEPS // GRAPH_STEPS - 2
+  if replays.replays != want_replays:
+    raise AssertionError(f"{replays.replays} graph replays; want "
+                         f"{want_replays}")
   if f"Resumed from step {RECORD_HALF}" not in handler.messages:
     raise AssertionError(f"the second call did not resume at {RECORD_HALF}")
   saved = sorted(int(name) for name in os.listdir(
@@ -1340,10 +1389,16 @@ def run_pose_records(torch, ss, dev, seed: int, root: str) -> dict:
       "k1_launches_served": dict(ss.spatial_softmax.launches_by_kernel),
       "k1_plain_calls_on_gpu": plain.cuda_calls,
       "step_ms_median": float(np.median([first["step_ms_median"],
-                                         second["step_ms_median"]])),
+                                         second["step_ms_median"]]))
+                        / GRAPH_STEPS,
+      "dispatch_ms_median": float(np.median([first["step_ms_median"],
+                                             second["step_ms_median"]])),
+      "steps_per_dispatch": GRAPH_STEPS, "graph_replays": replays.replays,
+      "k1_launches_from_replays": replays.launches,
       "loop_stats": [first, second],
       "input_wait_ms_median": float(np.median(
-          [first["input_wait_ms_median"], second["input_wait_ms_median"]])),
+          [first["input_wait_ms_median"], second["input_wait_ms_median"]]))
+                              / GRAPH_STEPS,
       "input_wait_share": (first["input_wait_share"]
                            + second["input_wait_share"]) / 2,
       "success_rate": reach["success_rate"],
@@ -1357,6 +1412,416 @@ def run_pose_records(torch, ss, dev, seed: int, root: str) -> dict:
                          f"{reach['success_rate']} within {REACH_THRESHOLD} "
                          f"is under {REACH_BAR}")
   return result
+
+
+class CountReplays:
+  """While installed, counts CUDA graph replays and the kernel launches
+  they add, by kernel (the trainer adds them through
+  ``graph_launches.replayed``)."""
+
+  def __init__(self, graph_launches):
+    self._module = graph_launches
+    self._replayed = graph_launches.replayed
+    self.replays = 0
+    self.launches = {}
+
+  def __enter__(self):
+    def counted(tally, times=1):
+      self.replays += times
+      for (_, kernel), n in tally.items():
+        self.launches[kernel] = self.launches.get(kernel, 0) + n * times
+      self._replayed(tally, times)
+    self._module.replayed = counted
+    return self
+
+  def __exit__(self, *exc):
+    self._module.replayed = self._replayed
+    return False
+
+
+def state_diff(torch, a, b) -> dict:
+  """The largest |a - b| of two train states on one device, by part:
+  parameters, optimizer moments (and step counts), EMA, statistics."""
+  def largest(pairs):
+    return max((float((x.detach().float() - y.detach().float()).abs().max())
+                for x, y in pairs), default=0.0)
+  moments = []
+  for name, param in a.params.items():
+    mine, theirs = a.opt_state.state[param], b.opt_state.state[b.params[name]]
+    moments += [(mine[key], theirs[key]) for key in mine
+                if torch.is_tensor(mine[key])]
+  return {
+      "params": largest((a.params[k], b.params[k]) for k in a.params),
+      "moments": largest(moments),
+      "ema": largest((a.ema_params[k], b.ema_params[k])
+                     for k in (a.ema_params or {})),
+      "statistics": largest((a.model_state[k], b.model_state[k])
+                            for k in a.model_state),
+  }
+
+
+def stacked(torch, batches, dev):
+  """(features, labels) numpy batches -> K-stacked tensors on `dev`."""
+  from tensor2robot_tpu_torch.utils.tree import tree_map
+  return tree_map(lambda *leaves: torch.from_numpy(np.stack(leaves)).to(dev),
+                  *batches)
+
+
+def graph_vs_eager(torch, ss, gl, model, dev, seed: int, warm, stack,
+                   out_dir: str, name: str) -> dict:
+  """One K-stack trained as one ``train_steps`` CUDA graph and as K eager
+  ``train_step`` calls from the same state (after the same warm-up
+  steps, which the graphed trainer runs eagerly on its side stream): the
+  two states and the last step's metrics must agree bit for bit (cuDNN
+  deterministic). Then times both: host clock per step, device time per
+  step (CUDA events around a replay; the profiler over 10 eager steps),
+  kernels per step, idle share, peak memory, and the profiler's view of
+  one replay; and counts K1's launches through the replays."""
+  from tensor2robot_tpu_torch.train.trainer import Trainer, _index
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  graphed, eager = (Trainer(model, seed=seed, device=dev) for _ in range(2))
+  g_state, e_state = graphed.create_train_state(), eager.create_train_state()
+  steps = next(iter(stack[0].values())).shape[0]
+  g_state, _ = graphed.train_steps(g_state, *warm)
+  for i in range(next(iter(warm[0].values())).shape[0]):
+    e_state, _ = eager.train_step(e_state, *_index(warm, i))
+  torch.cuda.synchronize()
+  before = ss.spatial_softmax.launches
+  torch.cuda.reset_peak_memory_stats()
+  start = time.perf_counter()
+  replays = CountReplays(gl)
+  with replays:
+    g_state, g_metrics = graphed.train_steps(g_state, *stack)
+    torch.cuda.synchronize()
+  capture_ms = (time.perf_counter() - start) * 1e3
+  graph_launches_k1 = ss.spatial_softmax.launches - before
+  first_replay = dict(replays.launches)
+  peak = torch.cuda.max_memory_allocated()
+  e_ms = []
+  for i in range(steps):
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    e_state, e_metrics = eager.train_step(e_state, *_index(stack, i))
+    torch.cuda.synchronize()
+    e_ms.append((time.perf_counter() - begin) * 1e3)
+  eager_launches_k1 = (ss.spatial_softmax.launches - before
+                       - graph_launches_k1)
+  diff = state_diff(torch, g_state, e_state)
+  diff["metrics"] = max(abs(float(g_metrics[k]) - float(e_metrics[k]))
+                        for k in e_metrics)
+  torch.backends.cudnn.deterministic = deterministic
+  # Timing: replays of the same stack, then 10 eager steps profiled.
+  g_ms, device_ms_step = [], []
+  with replays:
+    for _ in range(3):
+      torch.cuda.synchronize()
+      begin = time.perf_counter()
+      start_event = torch.cuda.Event(enable_timing=True)
+      end_event = torch.cuda.Event(enable_timing=True)
+      start_event.record()
+      g_state, _ = graphed.train_steps(g_state, *stack)
+      end_event.record()
+      torch.cuda.synchronize()
+      g_ms.append((time.perf_counter() - begin) * 1e3 / steps)
+      device_ms_step.append(start_event.elapsed_time(end_event) / steps)
+  # One replay under the profiler: the graph's kernels, as the trace
+  # shows them (no host gaps inside a replay).
+  with replays, torch.profiler.profile(activities=[
+      torch.profiler.ProfilerActivity.CPU,
+      torch.profiler.ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    g_state, _ = graphed.train_steps(g_state, *stack)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - begin) * 1e3
+  trace = os.path.join(out_dir, f"{name}_graphed.json")
+  prof.export_chrome_trace(trace)
+  graphed_profile = trace_summary(trace, steps, wall_ms)
+  batches = [_index(stack, i) for i in range(PROFILED_STEPS + 3)]
+  e_state, profile = profile_steps(torch, eager, e_state, batches, out_dir,
+                                   f"{name}_eager")
+  host_graph = float(np.median(g_ms))
+  device_graph = float(np.median(device_ms_step))
+  result = {
+      "steps": steps, "warm_steps": next(iter(warm[0].values())).shape[0],
+      "max_abs_diff": diff, "bitwise_equal": not any(diff.values()),
+      "cudnn_deterministic": True,
+      "graph_replays": replays.replays,
+      "k1_launches_graphed": graph_launches_k1,
+      "k1_launches_first_replay": first_replay,
+      "k1_launches_from_replays": replays.launches,
+      "k1_launches_eager": eager_launches_k1,
+      "capture_and_first_replay_ms": capture_ms,
+      "eager_step_ms_median": float(np.median(e_ms)),
+      "graphed_step_ms_median": host_graph,
+      "graphed_device_ms_per_step": device_graph,
+      "graphed_device_idle_share": 1.0 - device_graph / host_graph,
+      "graphed_profiled": {key: graphed_profile[key] for key in (
+          "device_ms_per_step", "kernels_per_step", "device_idle_share")},
+      "eager_device_ms_per_step": profile["device_ms_per_step"],
+      "eager_kernels_per_step": profile["kernels_per_step"],
+      "eager_device_idle_share_of_step": 1.0 - profile[
+          "device_ms_per_step"] / float(np.median(e_ms)),
+      "top_device_ms_per_step": profile["top_device_ms_per_step"],
+      "peak_mib_graphed": peak / 2 ** 20,
+      "loss": float(e_metrics["loss"]),
+  }
+  if not result["bitwise_equal"]:
+    raise AssertionError(f"{name}: {steps} graphed steps differ from "
+                         f"{steps} eager ones: {diff}")
+  return result
+
+
+def pose_graph(torch, ss, gl, dev, seed: int, images, poses,
+               root: str) -> dict:
+  """pose_env's train step, bf16 at batch 64, as one 50-step graph
+  against 50 eager steps: K1 runs 50 times a replay."""
+  from tensor2robot_tpu_torch.research.pose_env import PoseEnvRegressionModel
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+  model = PoseEnvRegressionModel(optimizer_fn=create_adam_optimizer(POSE_LR),
+                                 use_avg_model_params=True)
+  rng = np.random.default_rng(seed + 7)
+  reset_spatial_softmax_counts(ss)
+  warm = stacked(torch, list(pose_batches(
+      model.preprocessor, images, poses, FLAGSHIP_WARM_STEPS, rng)), dev)
+  stack = stacked(torch, list(pose_batches(
+      model.preprocessor, images, poses, GRAPH_STEPS, rng)), dev)
+  result = graph_vs_eager(torch, ss, gl, model, dev, seed, warm, stack,
+                          root, "pose_graph")
+  result["k1_launches_phase"] = dict(ss.spatial_softmax.launches_by_kernel)
+  if (result["k1_launches_graphed"] != GRAPH_STEPS
+      or result["k1_launches_first_replay"] != {"channels": GRAPH_STEPS}
+      or result["k1_launches_eager"] != GRAPH_STEPS):
+    raise AssertionError(f"K1 launches through the graph: {result}")
+  return result
+
+
+def flagship_batches(torch, dev, seed: int, steps: int, rng):
+  """`steps` flagship batches (32 scenes at 472x472 as float images in
+  [0, 1], uniform actions, their success labels) stacked on `dev`."""
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_grasping as sg
+  from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+      IMAGE_SIZE,
+      QTOptGraspingModel,
+  )
+  batch = QTOptGraspingModel.benchmark_batch_size
+  images, targets = sg.sample_scenes(FLAGSHIP_SCENES, IMAGE_SIZE, seed)
+  scenes = torch.from_numpy(images).to(dev)
+  picks = [rng.choice(FLAGSHIP_SCENES, batch, replace=False)
+           for _ in range(steps)]
+  actions = rng.uniform(-1, 1, (steps, batch, 4)).astype(np.float32)
+  labels = np.stack([sg.grasp_success(targets[p], a)
+                     for p, a in zip(picks, actions)]).astype(np.float32)
+  index = torch.from_numpy(np.stack(picks)).to(dev)
+  return ({"image": scenes[index].float() / 255.0,
+           "action": torch.from_numpy(actions).to(dev)},
+          {"target_q": torch.from_numpy(labels).to(dev)})
+
+
+def run_qtopt_flagship(torch, ss, gl, dev, seed: int, root: str) -> dict:
+  """The flagship critic at its published size: (a) a 20-step
+  ``train_steps`` graph against 20 eager steps, bit for bit; (b) impl
+  "fast" against "parity" on the same variables in eval mode; (c) the
+  float32 eval forward on the GPU against the CPU at batch 2; (d) the
+  CEM control step at the serving defaults, timed."""
+  from tensor2robot_tpu_torch.predictors.exported_model_predictor import (
+      ExportedModelPredictor,
+  )
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_grasping as sg
+  from tensor2robot_tpu_torch.research.qtopt.cem import CEMPolicy
+  from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+      IMAGE_SIZE,
+      QTOptGraspingModel,
+  )
+  start = time.perf_counter()
+  model = QTOptGraspingModel(use_avg_model_params=True)
+  rng = np.random.default_rng(seed + 11)
+  warm = flagship_batches(torch, dev, seed, FLAGSHIP_WARM_STEPS, rng)
+  stack = flagship_batches(torch, dev, seed, FLAGSHIP_STEPS, rng)
+  result = graph_vs_eager(torch, ss, gl, model, dev, seed, warm, stack,
+                          root, "qtopt_flagship")
+  result["parameters"] = sum(p.numel() for p in model.module.parameters())
+  del warm, stack
+
+  # (b), (c): float32, TF32 off, random weights with random statistics.
+  tf32 = (torch.backends.cudnn.allow_tf32,
+          torch.backends.cuda.matmul.allow_tf32)
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  parity, fast = (QTOptGraspingModel(impl=impl, compute_dtype=torch.float32)
+                  for impl in ("parity", "fast"))
+  variables = parity.init_variables(torch.Generator().manual_seed(seed),
+                                    device="cpu")
+  stats_rng = np.random.default_rng(seed)
+  for key, value in variables.items():
+    if key.endswith("running_var"):
+      value.copy_(torch.from_numpy(stats_rng.uniform(
+          0.5, 2.0, tuple(value.shape)).astype(np.float32)))
+    elif key.endswith("running_mean") or key.endswith("bias"):
+      value.add_(torch.from_numpy(0.2 * stats_rng.standard_normal(
+          tuple(value.shape)).astype(np.float32)))
+  images, _ = sg.sample_scenes(2, IMAGE_SIZE, seed + 1)
+  features = {"image": images.astype(np.float32) / 255.0,
+              "action": stats_rng.uniform(-1, 1, (2, 4)).astype(np.float32)}
+
+  def q(model, device):
+    on = {k: v.to(device) for k, v in variables.items()}
+    out = model.predict_fn(on, {k: torch.from_numpy(v).to(device)
+                                for k, v in features.items()})
+    return out["q_predicted"].float().cpu().numpy()
+
+  q_parity_gpu = q(parity, dev)
+  result["fast_vs_parity_max_abs_err"] = float(np.abs(
+      q(fast, dev) - q_parity_gpu).max())
+  q_parity_cpu = q(parity, "cpu")
+  result["gpu_vs_cpu_f32_max_abs_err"] = float(np.abs(
+      q_parity_gpu - q_parity_cpu).max())
+  result["f32_atol"] = FLAGSHIP_F32_ATOL
+  result["q_f32"] = q_parity_cpu.tolist()
+  torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+      tf32)
+  if not (np.isfinite(q_parity_gpu).all()
+          and result["fast_vs_parity_max_abs_err"] <= FLAGSHIP_F32_ATOL
+          and result["gpu_vs_cpu_f32_max_abs_err"] <= FLAGSHIP_F32_ATOL):
+    raise AssertionError(f"flagship eval forward: {result}")
+
+  # (d): the control step at the serving defaults, bf16, random weights:
+  # a CUDA graph replay against the same step run eagerly, on the same
+  # noise, then timed (host clock, synchronised by the action's copy).
+  predictor = ExportedModelPredictor(model, os.path.join(root, "unused"),
+                                     device=dev)
+  predictor.init_randomly()
+  policy = CEMPolicy(predictor, action_size=4, seed=seed, **CEM_SERVING)
+  scene = images[0].astype(np.float32) / 255.0
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  noise = torch.randn((CEM_SERVING["iterations"],
+                       CEM_SERVING["num_samples"], 4),
+                      generator=torch.Generator(dev).manual_seed(seed),
+                      device=dev)
+  graphed_action = policy(scene, noise=noise)
+  fn, variables = predictor.device_fn()
+
+  def eager_step():
+    with torch.inference_mode():
+      return policy._control(fn, variables, torch.from_numpy(scene),
+                             noise).cpu().numpy()
+
+  eager_action = eager_step()
+  torch.backends.cudnn.deterministic = deterministic
+  if not np.array_equal(graphed_action, eager_action):
+    raise AssertionError(f"the graphed CEM step gives {graphed_action}, "
+                         f"the eager one {eager_action}")
+  control_ms, actions = [], []
+  for _ in range(CEM_CALLS + 3):
+    begin = time.perf_counter()
+    actions.append(policy(scene))
+    control_ms.append((time.perf_counter() - begin) * 1e3)
+  actions = np.stack(actions)
+  if not (actions.shape == (CEM_CALLS + 3, 4) and np.isfinite(actions).all()
+          and np.abs(actions).max() <= 1.0):
+    raise AssertionError(f"CEM actions {actions}")
+  result.update({
+      "cem": CEM_SERVING, "cem_graph_equals_eager": True,
+      "cem_step_ms_median": float(np.median(control_ms[3:])),
+      "cem_eager_step_ms_median": host_ms(torch, eager_step, reps=CEM_CALLS),
+      "seconds": time.perf_counter() - start})
+  return result
+
+
+def run_qtopt_capability(torch, gl, dev, root: str) -> dict:
+  """The port's check_qtopt at the JAX package's full scale: records,
+  2500 steps through train_eval_model (iterations_per_loop=50: the first
+  stack eager, 49 graph replays), the native export served through
+  CEMPolicy on the device (a graph replay a control step), 200 held-out
+  scenes; the bar must hold."""
+  from tensor2robot_tpu_torch.bin import run_capability_checks as checks
+  start = time.perf_counter()
+  scale = checks._SCALES["qtopt"]["full"]
+  with CountReplays(gl) as replays:
+    result = checks.check_qtopt("full", root, dev.type)
+  bar = checks._EXPECT[("qtopt", "full")]
+  result.update({"scale": scale, "bar": bar,
+                 "graph_replays": replays.replays,
+                 "step_ms_median_per_step": result["step_ms_median"]
+                 / checks.ITERATIONS_PER_LOOP,
+                 "seconds": time.perf_counter() - start})
+  emit("qtopt_capability", **result)
+  # Training replays each stack after the first (eager) one; serving
+  # replays one control step a scene.
+  want = scale["steps"] // checks.ITERATIONS_PER_LOOP - 1 + QTOPT_SCENES
+  if replays.replays != want:
+    raise AssertionError(f"{replays.replays} graph replays; want {want}")
+  if not (result["success_rate"] >= bar
+          and result["success_rate"] > result["random_success_rate"]):
+    raise AssertionError(f"grasp success {result['success_rate']} against "
+                         f"the bar {bar} and random "
+                         f"{result['random_success_rate']}")
+  return result
+
+
+def accum_gpu_vs_cpu(torch, ss, dev, seed: int, images, poses) -> dict:
+  """One ``train_step_accum`` over ACCUM_MICRO microbatches of
+  ACCUM_BATCH at float32 (TF32 off) on the card and on the CPU from one
+  init: metrics and statistics within the pose_train_f32 bars, the
+  averaged gradients within GRAD_NOISE_SHARE of each tensor's largest,
+  each side's update Adam's rule on its own gradient."""
+  from tensor2robot_tpu_torch.research.pose_env import PoseEnvRegressionModel
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+  model = PoseEnvRegressionModel(compute_dtype=torch.float32,
+                                 optimizer_fn=create_adam_optimizer(POSE_LR))
+  batches = list(pose_batches(model.preprocessor, images, poses,
+                              ACCUM_MICRO, np.random.default_rng(seed + 5)))
+  batches = [tuple({k: v[:ACCUM_BATCH] for k, v in tree.items()}
+                   for tree in batch) for batch in batches]
+  tf32 = (torch.backends.cudnn.allow_tf32,
+          torch.backends.cuda.matmul.allow_tf32)
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  runs = []
+  reset_spatial_softmax_counts(ss)
+  for device in (dev, torch.device("cpu")):
+    trainer = Trainer(model, seed=seed, device=device)
+    state = trainer.create_train_state()
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    state, metrics = trainer.train_step_accum(state, *stacked(
+        torch, batches, device))
+    runs.append((state, {k: float(v) for k, v in metrics.items()}, before))
+  k1_launches = ss.spatial_softmax.launches
+  torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+      tf32)
+  (gpu, gpu_metrics, _), (cpu, cpu_metrics, before) = runs
+  report = {"microbatches": ACCUM_MICRO, "microbatch": ACCUM_BATCH,
+            "metrics_gpu": gpu_metrics, "metrics_cpu": cpu_metrics,
+            "k1_launches": k1_launches,
+            "max_rel_metric_diff": max(
+                abs(gpu_metrics[k] - cpu_metrics[k]) / abs(cpu_metrics[k])
+                for k in cpu_metrics),
+            "stats_max_abs_err": max(
+                float((gpu.model_state[k].cpu() - v).abs().max())
+                for k, v in cpu.model_state.items()),
+            "grad_err_share": {}, "adam_max_abs_err": 0.0,
+            "loss_rtol": TRAIN_F32_RTOL, "atol": TRAIN_F32_ATOL,
+            "grad_noise_share": GRAD_NOISE_SHARE, "adam_atol": ADAM_ATOL}
+  for key, param in cpu.params.items():
+    gpu_grad = gpu.params[key].grad.cpu()
+    if key not in BN_FED_BIASES:
+      report["grad_err_share"][key] = float(
+          (gpu_grad - param.grad).abs().max() / param.grad.abs().max())
+    for new, grad in ((gpu.params[key].detach().cpu(), gpu_grad),
+                      (param.detach(), param.grad)):
+      want = adam_reference(torch, before[key], grad, None, 1, POSE_LR)
+      report["adam_max_abs_err"] = max(report["adam_max_abs_err"], float(
+          (new.double() - want).abs().max()))
+  if not (k1_launches == ACCUM_MICRO
+          and report["max_rel_metric_diff"] <= TRAIN_F32_RTOL
+          and report["stats_max_abs_err"] <= TRAIN_F32_ATOL
+          and max(report["grad_err_share"].values()) <= GRAD_NOISE_SHARE
+          and report["adam_max_abs_err"] <= ADAM_ATOL):
+    raise AssertionError(f"GPU and CPU accumulation disagree: {report}")
+  return report
 
 
 def main(argv=None) -> int:
@@ -1379,6 +1844,7 @@ def main(argv=None) -> int:
       evaluate_policy,
   )
   ss = importlib.import_module("tensor2robot_tpu_torch.ops.spatial_softmax")
+  gl = importlib.import_module("tensor2robot_tpu_torch.ops.graph_launches")
   dev = torch.device("cuda")
   smi = nvidia_smi()
   emit("device", name=torch.cuda.get_device_name(0),
@@ -1480,7 +1946,7 @@ def main(argv=None) -> int:
   records = [crc_rates()]
   with tempfile.TemporaryDirectory() as tmp:
     for seed in RECORD_SEEDS:
-      records.append(run_pose_records(torch, ss, dev, seed, tmp))
+      records.append(run_pose_records(torch, ss, gl, dev, seed, tmp))
   emit("pose_records_summary", **records[0],
        success_rates={r["seed"]: r["success_rate"] for r in records[1:]},
        success_rates_at_0_1={r["seed"]: r["success_rate_at_0.1"]
@@ -1499,6 +1965,20 @@ def main(argv=None) -> int:
   # Slice 2's main path: train the SNAIL stack through K2, K3 and K4.
   snail = run_snail_slice(torch, fa, dev, args.seed)
   emit("snail_slice", **snail)
+
+  # Slice 7's main paths: pose_env's step and the flagship critic's as
+  # CUDA graphs against eager steps, gradient accumulation on the card
+  # against the CPU, and the QT-Opt capability check at full scale.
+  with tempfile.TemporaryDirectory() as tmp:
+    graphed_pose = pose_graph(torch, ss, gl, dev, args.seed, pose["images"],
+                              pose["poses"], tmp)
+    emit("pose_graph", **graphed_pose)
+    accum = accum_gpu_vs_cpu(torch, ss, dev, args.seed, pose["images"],
+                             pose["poses"])
+    emit("grad_accum", **accum)
+    emit("qtopt_flagship", **run_qtopt_flagship(torch, ss, gl, dev,
+                                                args.seed, tmp))
+    run_qtopt_capability(torch, gl, dev, tmp)
 
   timing = time_spatial_softmax(torch, ss, feature_map)
   emit("kernel_timing", spatial_softmax=timing)
@@ -1524,12 +2004,20 @@ def main(argv=None) -> int:
       "source": "tensor2robot_tpu_torch/csrc/spatial_softmax.cu",
       "replaces": "tensor2robot_tpu/ops/spatial_softmax.py:50",
       "launches": (launches + POSE_STEPS + REACH_EPISODES + len(
-          RECORD_SEEDS) * (POSE_STEPS + REACH_EPISODES + 2)),
+          RECORD_SEEDS) * (POSE_STEPS + REACH_EPISODES + 2)
+                   + sum(graphed_pose["k1_launches_phase"].values())
+                   + accum["k1_launches"]),
       "launches_by_path": {
           "serve_slice": by_kernel, "pose_train": pose["k1_launches_training"],
           "pose_reach": pose["k1_launches_served"],
           **{f"pose_records_{r['seed']}_{part}": r[f"k1_launches_{part}"]
-             for r in records[1:] for part in ("training", "served")}},
+             for r in records[1:] for part in ("training", "served")},
+          "pose_graph": graphed_pose["k1_launches_phase"],
+          "grad_accum": {"channels": accum["k1_launches"]}},
+      "launches_from_graph_replays": {
+          **{f"pose_records_{r['seed']}": r["k1_launches_from_replays"]
+             for r in records[1:]},
+          "pose_graph": graphed_pose["k1_launches_from_replays"]},
       "kernel": main_row["kernel"],
       "max_abs_err": main_row["max_abs_err"],
       "ms": main_row["ms"],

@@ -1,0 +1,223 @@
+"""Runs the per-family capability checks on the port, one JSON line each.
+
+    python -m tensor2robot_tpu_torch.bin.run_capability_checks \
+        --checks pose_env,qtopt --scale full
+
+Counterpart of ``tensor2robot_tpu/bin/run_capability_checks.py``: each
+check runs the real pipeline (data written as jpeg records, training
+through ``train_eval_model`` with ``iterations_per_loop=50`` into a
+``model_dir``, the native export, serving) and prints its measured
+outcome beside its bar, the JAX package's ``_EXPECT``. The exit code is
+non-zero when a check misses its bar. ``--device`` (default ``cuda``;
+``cpu`` on a machine without a GPU) is where everything runs. grasp2vec,
+vrgripper and maml raise NotImplementedError naming the ROADMAP.md item
+they wait for.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+# (fast, full) knobs per check: the JAX package's.
+_SCALES = {
+    "pose_env": {"fast": dict(episodes=1000, steps=800, image=64),
+                 "full": dict(episodes=2000, steps=1500, image=64)},
+    "qtopt": {"fast": dict(grasps=3000, steps=1200, image=64),
+              "full": dict(grasps=8000, steps=2500, image=128)},
+    "grasp2vec": {"fast": dict(triplets=2048, steps=600, image=64),
+                  "full": dict(triplets=8192, steps=1500, image=64)},
+    "vrgripper": {"fast": dict(demos=2000, steps=800, image=64),
+                  "full": dict(demos=4000, steps=1500, image=64)},
+    "maml": {"fast": dict(steps=800, image=64),
+             "full": dict(steps=2000, image=64)},
+}
+# The bar of each (check, scale): the JAX package's.
+_EXPECT = {
+    ("pose_env", "fast"): 0.65, ("pose_env", "full"): 0.80,
+    ("qtopt", "fast"): 0.40, ("qtopt", "full"): 0.72,
+    ("grasp2vec", "fast"): 0.38, ("grasp2vec", "full"): 0.62,
+    ("vrgripper", "fast"): 0.65, ("vrgripper", "full"): 0.80,
+    ("maml", "fast"): 0.75, ("maml", "full"): 0.80,
+}
+ITERATIONS_PER_LOOP = 50
+
+
+def _train_and_restore_predictor(model, record_path, steps, run_dir,
+                                 device):
+  """The record half shared by the checks: train -> native export ->
+  predictor. Returns (predictor, the train loop's loop_stats)."""
+  from tensor2robot_tpu_torch.data.default_input_generator import (
+      DefaultRecordInputGenerator,
+  )
+  from tensor2robot_tpu_torch.export.native_export_generator import (
+      NativeExportGenerator,
+  )
+  from tensor2robot_tpu_torch.predictors.exported_model_predictor import (
+      ExportedModelPredictor,
+  )
+  from tensor2robot_tpu_torch.train.train_eval import train_eval_model
+
+  result = train_eval_model(
+      model,
+      input_generator_train=DefaultRecordInputGenerator(
+          file_patterns=record_path, batch_size=64, seed=1),
+      max_train_steps=steps, iterations_per_loop=ITERATIONS_PER_LOOP,
+      model_dir=run_dir, export_generator=NativeExportGenerator(),
+      log_every_steps=max(100, steps), device=device)
+  predictor = ExportedModelPredictor(
+      model, os.path.join(run_dir, "export", "latest"), device=device)
+  if not predictor.restore(timeout_s=10.0):
+    raise RuntimeError(
+        f"No export appeared under {run_dir}/export/latest")
+  return predictor, result.loop_stats
+
+
+def check_pose_env(scale: str, workdir: str, device: str) -> dict:
+  from tensor2robot_tpu_torch.research.pose_env import (
+      PoseEnvRegressionModel,
+      evaluate_policy,
+      pose_env,
+  )
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+
+  knobs = _SCALES["pose_env"][scale]
+  rec = os.path.join(workdir, "pose.tfrecord")
+  pose_env.write_tfrecords(rec, num_episodes=knobs["episodes"], seed=0,
+                           image_size=knobs["image"])
+  model = PoseEnvRegressionModel(image_size=knobs["image"],
+                                 optimizer_fn=create_adam_optimizer(1e-3))
+  predictor, _ = _train_and_restore_predictor(
+      model, rec, knobs["steps"], os.path.join(workdir, "pose_run"), device)
+  # The tight 0.05 reach bar, and 0.10 from the same 200 rollouts.
+  result = evaluate_policy(predictor, num_episodes=200, seed=1234,
+                           image_size=knobs["image"],
+                           success_threshold=0.05,
+                           extra_thresholds=(0.10,))
+  return {"success_rate": result["success_rate"],
+          "success_rate_at_0p10": result[f"success_rate_at_{0.10:g}"],
+          "mean_reward": result["mean_reward"],
+          "metric": "reach success within 0.05"}
+
+
+def check_qtopt(scale: str, workdir: str, device: str) -> dict:
+  from tensor2robot_tpu_torch.research.qtopt import (
+      synthetic_grasping as sg,
+  )
+  from tensor2robot_tpu_torch.research.qtopt.cem import CEMPolicy
+  from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+      QTOptGraspingModel,
+  )
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+
+  knobs = _SCALES["qtopt"][scale]
+  rec = os.path.join(workdir, "grasps.tfrecord")
+  start = time.perf_counter()
+  sg.write_tfrecords(rec, num_examples=knobs["grasps"],
+                     image_size=knobs["image"], seed=0)
+  write_s = time.perf_counter() - start
+  model = QTOptGraspingModel(image_size=knobs["image"],
+                             in_image_size=knobs["image"],
+                             optimizer_fn=create_adam_optimizer(1e-3))
+  start = time.perf_counter()
+  predictor, loop_stats = _train_and_restore_predictor(
+      model, rec, knobs["steps"], os.path.join(workdir, "qtopt_run"),
+      device)
+  train_s = time.perf_counter() - start
+  policy = CEMPolicy(predictor, action_size=4, num_samples=128,
+                     num_elites=10, iterations=4, seed=7)
+  control_ms = []
+
+  def timed_policy(image):
+    begin = time.perf_counter()
+    action = policy(image)  # numpy: the step has finished on the device
+    control_ms.append((time.perf_counter() - begin) * 1e3)
+    return action
+
+  cem = sg.evaluate_grasp_policy(timed_policy, num_scenes=200, seed=5555,
+                                 image_size=knobs["image"])
+  rng = np.random.default_rng(0)
+  rand = sg.evaluate_grasp_policy(
+      lambda im: rng.uniform(-1, 1, 4), num_scenes=200, seed=5555,
+      image_size=knobs["image"])
+  return {"success_rate": cem["success_rate"],
+          "random_success_rate": rand["success_rate"],
+          "mean_distance": cem["mean_distance"],
+          "write_s": write_s, "train_s": train_s,
+          "step_ms_median": loop_stats.get("step_ms_median"),
+          "steps_per_dispatch": loop_stats.get("steps_per_dispatch"),
+          "input_wait_ms_median": loop_stats.get("input_wait_ms_median"),
+          "input_wait_share": loop_stats.get("input_wait_share"),
+          "cem_step_ms_median": float(np.median(control_ms))}
+
+
+def _waiting(item: str):
+  def check(scale: str, workdir: str, device: str) -> dict:
+    raise NotImplementedError(f"this check waits for ROADMAP.md {item}.")
+  return check
+
+
+_CHECKS = {
+    "pose_env": check_pose_env,
+    "qtopt": check_qtopt,
+    "grasp2vec": _waiting("the flagship list's item 14, grasp2vec"),
+    "vrgripper": _waiting("the flagship list's item 14, vrgripper"),
+    "maml": _waiting("the flagship list's item 12, MAML"),
+}
+
+
+def main(argv=None) -> int:
+  parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument("--checks", default="all",
+                      help="comma list of %s or 'all'" % sorted(_CHECKS))
+  parser.add_argument("--scale", choices=("fast", "full"), default="fast")
+  parser.add_argument("--workdir", default=None,
+                      help="scratch dir (default: a TemporaryDirectory)")
+  parser.add_argument("--device", default="cuda",
+                      help="cuda (the default) or cpu")
+  args = parser.parse_args(argv)
+  names = (sorted(_CHECKS) if args.checks == "all"
+           else [n.strip() for n in args.checks.split(",")])
+  unknown = [n for n in names if n not in _CHECKS]
+  if unknown:
+    parser.error(f"Unknown checks {unknown}; have {sorted(_CHECKS)}")
+
+  failures = 0
+  with tempfile.TemporaryDirectory() as default_dir:
+    workdir_root = args.workdir or default_dir
+    for name in names:
+      start = time.time()
+      # A fresh directory each check: train_eval_model resumes from what
+      # it finds.
+      workdir = os.path.join(workdir_root, f"{name}_{args.scale}")
+      shutil.rmtree(workdir, ignore_errors=True)
+      os.makedirs(workdir)
+      record = {"check": name, "scale": args.scale, "device": args.device}
+      try:
+        result = _CHECKS[name](args.scale, workdir, args.device)
+        expect = _EXPECT[(name, args.scale)]
+        passed = bool(result["success_rate"] >= expect)
+        record.update(
+            {k: (round(float(v), 4) if isinstance(v, (int, float))
+                 else v)
+             for k, v in result.items()})
+        record["expected_at_least"] = expect
+      except Exception as e:  # one failing check must not hide the rest
+        passed = False
+        record["error"] = f"{type(e).__name__}: {e}"
+      failures += not passed
+      record["passed"] = passed
+      record["seconds"] = round(time.time() - start, 1)
+      print(json.dumps(record), flush=True)
+  return 1 if failures else 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

@@ -12,6 +12,9 @@ leaf at ``<collection>/<scope...>/<name>`` maps to the state_dict key
     params/<scope>/bias                          -> bias
     batch_stats/<scope>/mean                     -> running_mean
     batch_stats/<scope>/var                      -> running_var
+    params/stem_s2d_kernel, params/stem_s2d_bias -> the same names, as they
+                           are (the QT-Opt critic's folded stem, which keeps
+                           the JAX op's (8, 2, 4C, O) layout in the port)
 
 A params-only tree (the EMA copy a JAX ``TrainState`` keeps in
 ``ema_params``) maps with ``params_to_state_dict`` onto the module's
@@ -33,6 +36,8 @@ from tensor2robot_tpu_torch.export.variables_io import to_tensor
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS_BACK = {v: k for k, v in _STATS.items()}
+# Top-level parameters that keep their flax name and layout.
+_VERBATIM = ("stem_s2d_kernel", "stem_s2d_bias")
 
 
 def _leaves(tree: Mapping[str, Any], prefix=()):
@@ -48,6 +53,8 @@ def _to_torch(collection: str, path, leaf) -> tuple:
   *scope, name = path
   tensor = to_tensor(leaf)
   where = "/".join((collection,) + tuple(path))
+  if collection == "params" and not scope and name in _VERBATIM:
+    return name, tensor
   if not scope:
     raise KeyError(f"Flax leaf {where!r} has no module scope.")
   if collection == "params" and name == "kernel" and tensor.dim() == 4:
@@ -116,6 +123,9 @@ def state_dict_to_variables(
   for key, tensor in state_dict.items():
     *scope, name = key.split(".")
     tensor = tensor.detach().cpu()
+    if not scope and name in _VERBATIM:
+      tree.setdefault("params", {})[name] = tensor.contiguous()
+      continue
     if name == "weight" and tensor.dim() == 4:
       collection, leaf, tensor = "params", "kernel", tensor.permute(2, 3, 1, 0)
     elif name == "weight" and tensor.dim() == 3:

@@ -10,13 +10,13 @@ a batch becomes tensors and nothing is in flight.
 from __future__ import annotations
 
 import collections
-from typing import Any, Callable, Iterator, Mapping
+from typing import Any, Iterator
 
 import numpy as np
 import torch
 
 from tensor2robot_tpu_torch import Device, resolve_device
-from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+from tensor2robot_tpu_torch.utils.tree import tree_map
 
 
 class PrefetchExhausted(Exception):
@@ -31,20 +31,6 @@ class PrefetchExhausted(Exception):
         f"prefetch stream {name!r} exhausted after {batches} batches")
     self.name = name
     self.batches = batches
-
-
-def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-  """Applies `fn` to every leaf of nested TensorSpecStructs, mappings,
-  tuples and lists, keeping their types; None stays None."""
-  if tree is None:
-    return None
-  if isinstance(tree, ts.TensorSpecStruct):
-    return ts.TensorSpecStruct((k, fn(v)) for k, v in tree.items())
-  if isinstance(tree, Mapping):
-    return {k: _tree_map(fn, v) for k, v in tree.items()}
-  if isinstance(tree, (tuple, list)):
-    return type(tree)(_tree_map(fn, v) for v in tree)
-  return fn(tree)
 
 
 def prefetch_to_device(
@@ -72,12 +58,12 @@ def prefetch_to_device(
                  else None)
 
   def push(batch: Any):
-    host = _tree_map(lambda a: torch.from_numpy(np.array(a)), batch)
+    host = tree_map(lambda a: torch.from_numpy(np.array(a)), batch)
     if copy_stream is None:
       return host, None
-    host = _tree_map(lambda t: t.pin_memory(), host)
+    host = tree_map(lambda t: t.pin_memory(), host)
     with torch.cuda.stream(copy_stream):
-      moved = _tree_map(lambda t: t.to(device, non_blocking=True), host)
+      moved = tree_map(lambda t: t.to(device, non_blocking=True), host)
       done = torch.cuda.Event()
       done.record(copy_stream)
     # The pinned tensors stay referenced until the copy has been waited on.
@@ -90,7 +76,7 @@ def prefetch_to_device(
       compute.wait_event(pending[0])
       # The copy stream allocated these; tell the allocator the compute
       # stream uses them, so it reuses none before that use is done.
-      _tree_map(lambda t: t.record_stream(compute), moved)
+      tree_map(lambda t: t.record_stream(compute), moved)
     return moved
 
   buffer: collections.deque = collections.deque()

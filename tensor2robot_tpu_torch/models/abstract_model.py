@@ -46,7 +46,8 @@ def flax_default_init_(module: nn.Module,
   """Re-initialises `module` in place as flax's defaults would.
 
   Conv and Dense kernels draw from lecun_normal, their biases are zero;
-  norm layers keep their constructors' ones and zeros.
+  norm layers keep their constructors' ones and zeros. A module with
+  parameters of its own kind draws them in its ``flax_init_(generator)``.
   """
   with torch.no_grad():
     for layer in module.modules():
@@ -57,6 +58,8 @@ def flax_default_init_(module: nn.Module,
                               generator=generator)
         if layer.bias is not None:
           layer.bias.zero_()
+      if hasattr(layer, "flax_init_"):
+        layer.flax_init_(generator)
 
 
 class AbstractT2RModel(abc.ABC):

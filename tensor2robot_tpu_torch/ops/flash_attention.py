@@ -39,7 +39,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from tensor2robot_tpu_torch.ops import _build
+from tensor2robot_tpu_torch.ops import _build, graph_launches
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64  # rows of the kernels' query and key tiles
@@ -173,7 +173,11 @@ def _launch(entry: str, counter: str, q, k, v, causal, scale, *, o=None,
     raise RuntimeError(
         f"flash_attention {counter} kernel launch failed with CUDA error "
         f"{err}.")
-  flash_attention.launches[counter] += 1
+  graph_launches.count(_add_launches, counter)
+
+
+def _add_launches(counter: str, n: int) -> None:
+  flash_attention.launches[counter] += n
 
 
 def _check_rows(q, lse, delta) -> None:
@@ -336,6 +340,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # Kernel launches by kernel (CUDA cores: forward, dq, dkv; tensor cores:
-# forward_tc, dq_tc, dkv_tc); the plain versions count none.
+# forward_tc, dq_tc, dkv_tc); the plain versions count none. A launch
+# inside a CUDA graph counts at each replay (``graph_launches``).
 flash_attention.launches = {"forward": 0, "dq": 0, "dkv": 0,
                             "forward_tc": 0, "dq_tc": 0, "dkv_tc": 0}

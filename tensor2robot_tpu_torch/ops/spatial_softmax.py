@@ -29,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from tensor2robot_tpu_torch.ops import _build
+from tensor2robot_tpu_torch.ops import _build, graph_launches
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID = 1 << 30  # H*W bound of the kernels' 32-bit grid index
@@ -122,9 +122,13 @@ def _launch(features: torch.Tensor, temperature: float,
     raise RuntimeError(
         f"spatial_softmax {kernel} kernel launch failed with CUDA error "
         f"{err}.")
-  spatial_softmax.launches += 1
-  spatial_softmax.launches_by_kernel[kernel] += 1
+  graph_launches.count(_add_launches, kernel)
   return out
+
+
+def _add_launches(kernel: str, n: int) -> None:
+  spatial_softmax.launches += n
+  spatial_softmax.launches_by_kernel[kernel] += n
 
 
 class _SpatialSoftmaxFn(torch.autograd.Function):
@@ -180,6 +184,7 @@ def spatial_softmax(features: torch.Tensor,
   return _launch(features, temperature)
 
 
-# Kernel launches, in all and by kernel; the plain version counts none.
+# Kernel launches, in all and by kernel; the plain version counts none. A
+# launch inside a CUDA graph counts at each replay (``graph_launches``).
 spatial_softmax.launches = 0
 spatial_softmax.launches_by_kernel = {"warp": 0, "channels": 0}

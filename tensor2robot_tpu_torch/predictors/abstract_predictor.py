@@ -2,7 +2,8 @@
 
 Counterpart of ``tensor2robot_tpu/predictors/abstract_predictor.py``:
 predict / restore / init_randomly / model_version /
-get_feature_specification / close, with restore-with-timeout semantics.
+get_feature_specification / device_fn / close, with restore-with-timeout
+semantics.
 """
 
 from __future__ import annotations
@@ -49,6 +50,18 @@ class AbstractPredictor(abc.ABC):
     """Initializes with random weights (bring-up). Optional: default raises."""
     raise NotImplementedError(
         f"{type(self).__name__} does not support init_randomly.")
+
+  def device_fn(self):
+    """The device-resident serving entry: (fn, variables).
+
+    ``fn(variables, features)`` runs the PREDICT forward on tensors that
+    are already on the predictor's device and returns its outputs there,
+    with no host copy, so a caller such as the QT-Opt CEM policy keeps a
+    whole control step on the device. Optional: predictors without one
+    raise, and callers fall back to ``predict``.
+    """
+    raise NotImplementedError(
+        f"{type(self).__name__} has no device-resident serving path.")
 
   def close(self) -> None:
     """Releases resources."""

@@ -131,6 +131,13 @@ class ExportedModelPredictor(AbstractPredictor):
     features, _ = preprocessor.preprocess(features, None, modes.PREDICT)
     return self.predict(features)
 
+  def device_fn(self):
+    """(fn, variables): ``fn(variables, features)`` is the model's PREDICT
+    forward on tensors already on this predictor's device; the variables
+    are the served ones, on that device."""
+    self.assert_is_loaded()
+    return self._model.predict_fn, self._variables
+
   def get_feature_specification(self) -> ts.TensorSpecStruct:
     return self._feature_spec
 

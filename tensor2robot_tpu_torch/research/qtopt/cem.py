@@ -1,0 +1,305 @@
+"""CEM action optimizer for serving-time Q maximization.
+
+Counterpart of ``tensor2robot_tpu/research/qtopt/cem.py``, the float32
+tier: at each control step sample N candidate actions around a Gaussian,
+score them with the Q-function in one batched call, refit the Gaussian to
+the top k, iterate, and act with the final mean.
+
+The JAX package draws its samples with ``jax.random.normal(fold_in(rng,
+i), (N, A))``. threefry and Philox cannot match, so every entry point here
+also takes ``noise``: the (iterations, N, A) standard-normal draws to use
+in place of its own, which is how a test feeds both packages the same
+draws. Without it the draws come from a ``torch.Generator`` on the
+scores' device.
+
+The search arithmetic (sampling, elite refit, clipping) is float32. The
+bf16 and int8 scoring tiers and ``fleet_cem_optimize`` wait for
+``ROADMAP.md``'s flagship items 11 and 9; asking for them raises by name.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tensor2robot_tpu_torch.ops import graph_launches
+
+# The JAX package's scoring tiers; only "f32" is ported.
+SCORING_PRECISIONS = ("f32", "bf16", "int8")
+_WAITING_TIERS = "the flagship list's item 11, the precision tiers"
+
+
+def validate_precision(precision: str) -> str:
+  """Rejects unknown tiers with the valid set named; the low-precision
+  tiers raise NotImplementedError naming the ROADMAP.md item they wait
+  for."""
+  if precision not in SCORING_PRECISIONS:
+    raise ValueError(
+        f"unknown scoring precision {precision!r}; supported tiers: "
+        f"{SCORING_PRECISIONS}")
+  if precision != "f32":
+    raise NotImplementedError(
+        f"the {precision!r} scoring tier waits for ROADMAP.md "
+        f"{_WAITING_TIERS}.")
+  return precision
+
+
+def scoring_dtype(precision: str) -> torch.dtype:
+  """The dtype Q-scoring runs in under `precision`."""
+  validate_precision(precision)
+  return torch.float32
+
+
+def fleet_cem_optimize(*args, **kwargs):
+  """Per-request-keyed CEM for the serving fleet: not ported yet."""
+  raise NotImplementedError(
+      "fleet_cem_optimize waits for ROADMAP.md's flagship item 9, "
+      "CEMFleetPolicy and the fleet tier.")
+
+
+def draw_noise(generator: Optional[torch.Generator], iterations: int,
+               num_samples: int, action_size: int,
+               device: torch.device) -> torch.Tensor:
+  """(iterations, N, A) standard-normal draws from `generator`."""
+  return torch.randn((iterations, num_samples, action_size),
+                     generator=generator, device=device)
+
+
+def _refit(samples: torch.Tensor, scores: torch.Tensor,
+           num_elites: int) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Elite selection and the Gaussian refit (the shared CEM iteration).
+
+  The population std (``jnp.std``'s), floored by 1e-3 so the search does
+  not collapse to a point before its last iteration. ``torch.topk`` on a
+  GPU promises no order among tied scores where ``jax.lax.top_k`` takes
+  the lower index, so the packages agree only where no scores tie.
+  """
+  _, elite_idx = torch.topk(scores, num_elites)
+  elites = samples[elite_idx]
+  return elites.mean(dim=0), elites.std(dim=0, correction=0) + 1e-3
+
+
+def _search(score_fn: Callable[[torch.Tensor], torch.Tensor],
+            noise: torch.Tensor, num_elites: int,
+            initial_mean: torch.Tensor, initial_std: float,
+            action_low: float, action_high: float) -> torch.Tensor:
+  """The CEM iterations over `noise` (iterations, N, A): the final mean,
+  clipped to the box."""
+  mean = initial_mean
+  std = torch.full_like(mean, initial_std)
+  for step_noise in noise:
+    samples = torch.clamp(mean + std * step_noise, action_low, action_high)
+    mean, std = _refit(samples, score_fn(samples), num_elites)
+  return torch.clamp(mean, action_low, action_high)
+
+
+def cem_optimize(
+    score_fn: Callable[[torch.Tensor], torch.Tensor],
+    generator: Optional[torch.Generator],
+    action_size: int,
+    num_samples: int = 64,
+    num_elites: int = 6,
+    iterations: int = 3,
+    initial_mean: Optional[torch.Tensor] = None,
+    initial_std: float = 0.5,
+    action_low: float = -1.0,
+    action_high: float = 1.0,
+    noise: Optional[torch.Tensor] = None,
+    device: Optional[torch.device] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Maximizes score_fn over a single state's action.
+
+  Args:
+    score_fn: (num_samples, action_size) -> (num_samples,) scores.
+    generator: draws the samples' noise (unused when `noise` is given).
+    action_size: action dimensionality.
+    num_samples/num_elites/iterations: CEM's knobs.
+    initial_mean: optional warm-start mean (e.g. the last control step's).
+    initial_std: the initial per-dim std.
+    action_low/high: the clipping box.
+    noise: (iterations, num_samples, action_size) standard-normal draws.
+    device: where the search runs when `noise` is None (default: the
+      generator's device).
+
+  Returns:
+    (best_action, best_score): the final elite mean and its score.
+  """
+  if noise is None:
+    device = device or (generator.device if generator is not None
+                        else torch.device("cpu"))
+    noise = draw_noise(generator, iterations, num_samples, action_size,
+                       device)
+  if tuple(noise.shape) != (iterations, num_samples, action_size):
+    raise ValueError(f"noise must be {(iterations, num_samples, action_size)}"
+                     f", got {tuple(noise.shape)}")
+  noise = noise.float()
+  if initial_mean is None:
+    initial_mean = torch.zeros(action_size, device=noise.device)
+  mean = _search(score_fn, noise, num_elites, initial_mean.float(),
+                 initial_std, action_low, action_high)
+  return mean, score_fn(mean[None])[0]
+
+
+def batched_cem_optimize(
+    score_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    states: torch.Tensor,
+    generator: Optional[torch.Generator],
+    action_size: int,
+    noise: Optional[torch.Tensor] = None,
+    **kwargs,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+  """CEM over a batch of states, one state after another.
+
+  Args:
+    score_fn: (state, (N, A) actions) -> (N,) scores for ONE state.
+    states: (B, ...) states.
+    noise: optional (B, iterations, N, A) draws, one block a state.
+
+  Returns:
+    (B, A) best actions, (B,) their scores.
+  """
+  results = [
+      cem_optimize(lambda actions, s=state: score_fn(s, actions), generator,
+                   action_size, noise=None if noise is None else noise[i],
+                   device=state.device, **kwargs)
+      for i, state in enumerate(states)]
+  return (torch.stack([best for best, _ in results]),
+          torch.stack([score for _, score in results]))
+
+
+def make_tiled_q_score_fn(fn, variables, precision: str = "f32"):
+  """The per-state Q score_fn: tiles ONE state's image across its
+  candidate actions (a broadcast view) and scores them through a
+  ``(variables, features) -> {"q_predicted"}`` function, such as a
+  predictor's ``device_fn``. The image keeps its wire dtype; the actions
+  go in as float32."""
+  validate_precision(precision)
+
+  def score(image: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
+    tiled = image[None].expand((actions.shape[0],) + tuple(image.shape))
+    outputs = fn(variables, {"image": tiled, "action": actions.float()})
+    return outputs["q_predicted"].reshape(-1)
+
+  return score
+
+
+class CEMPolicy:
+  """Serving-side policy: a predictor + CEM (the robot's control step).
+
+  Wraps any predictor whose outputs hold the Q-value under
+  ``q_predicted`` given (image, action) features. When the predictor has
+  a device-resident entry (``device_fn``), the whole control step runs on
+  its device: the image goes there once, every CEM iteration's batched Q
+  call, top-k, refit and clipping follow with no host sync, and one
+  action comes back. A predictor without one is served through
+  ``predict`` (``_host_call``): one host round trip per iteration. On a
+  GPU the device step is a CUDA graph (``_replay``), captured again when
+  the predictor serves new variables.
+
+  The samples' noise comes from one ``torch.Generator`` seeded with
+  `seed`, drawn in call order; a call may pass its own `noise` instead.
+  """
+
+  def __init__(self, predictor, action_size: int = 4,
+               num_samples: int = 64, num_elites: int = 6,
+               iterations: int = 3, seed: int = 0):
+    self._predictor = predictor
+    self._action_size = action_size
+    self._num_samples = num_samples
+    self._num_elites = num_elites
+    self._iterations = iterations
+    self._seed = seed
+    self._generators = {}
+    self._graph = None  # (key, graph, tally, image, noise, best) on a GPU
+
+  def _noise(self, device: torch.device) -> torch.Tensor:
+    generator = self._generators.get(device)
+    if generator is None:
+      generator = torch.Generator(device).manual_seed(self._seed)
+      self._generators[device] = generator
+    return draw_noise(generator, self._iterations, self._num_samples,
+                      self._action_size, device)
+
+  def __call__(self, image, noise: Optional[torch.Tensor] = None
+               ) -> np.ndarray:
+    """One control step: image (H, W, C) -> best action (A,)."""
+    try:
+      fn, variables = self._predictor.device_fn()
+    except NotImplementedError:
+      return self._host_call(image, noise)
+    device = next(iter(variables.values())).device
+    image = torch.from_numpy(np.ascontiguousarray(image))
+    noise = (self._noise(device) if noise is None
+             else noise.to(device, torch.float32))
+    if device.type == "cuda":
+      return self._replay(fn, variables, image, noise)
+    with torch.inference_mode():
+      return self._control(fn, variables, image, noise).numpy()
+
+  def _control(self, fn, variables, image: torch.Tensor,
+               noise: torch.Tensor) -> torch.Tensor:
+    """The control step on the noise's device: tiled scoring, top-k,
+    refit and clipping for every iteration; the final mean."""
+    score = make_tiled_q_score_fn(fn, variables)
+    state = image.to(noise.device)
+    return _search(lambda actions: score(state, actions), noise,
+                   self._num_elites,
+                   torch.zeros(self._action_size, device=noise.device), 0.5,
+                   -1.0, 1.0)
+
+  def _replay(self, fn, variables, image: torch.Tensor,
+              noise: torch.Tensor) -> np.ndarray:
+    """The control step as one CUDA graph, captured at the first call
+    for these variables (after two eager warm-up steps on a side stream)
+    and replayed with the image and the noise copied into its inputs:
+    three dispatches a step in place of each iteration's kernels."""
+    key = (self._predictor.model_version, tuple(image.shape), image.dtype,
+           tuple(noise.shape),
+           tuple(v.data_ptr() for v in variables.values()))
+    if self._graph is None or self._graph[0] != key:
+      self._graph = None  # the previous version's graph and buffers go
+      static_image = image.to(noise.device)
+      static_noise = noise.clone()
+      stream = torch.cuda.Stream(noise.device)
+      stream.wait_stream(torch.cuda.current_stream(noise.device))
+      graph = torch.cuda.CUDAGraph()
+      with torch.inference_mode():
+        with torch.cuda.stream(stream):
+          for _ in range(2):
+            self._control(fn, variables, static_image, static_noise)
+        with graph_launches.recording() as tally:
+          with torch.cuda.graph(graph, stream=stream,
+                                capture_error_mode="thread_local"):
+            best = self._control(fn, variables, static_image, static_noise)
+      torch.cuda.current_stream(noise.device).wait_stream(stream)
+      self._graph = (key, graph, tally, static_image, static_noise, best)
+    _, graph, tally, static_image, static_noise, best = self._graph
+    static_image.copy_(image)
+    static_noise.copy_(noise)
+    graph.replay()
+    graph_launches.replayed(tally)
+    return best.cpu().numpy()
+
+  def _host_call(self, image, noise: Optional[torch.Tensor] = None
+                 ) -> np.ndarray:
+    """predict()-based path: one batched predict per CEM iteration."""
+    predictor = self._predictor
+    # One dense tile a control step, reused by every iteration; the image
+    # keeps the model's wire dtype.
+    image = np.asarray(image)
+    tiled = np.ascontiguousarray(np.broadcast_to(
+        image[None], (self._num_samples,) + image.shape))
+
+    def score(actions: torch.Tensor) -> torch.Tensor:
+      outputs = predictor.predict({"image": tiled,
+                                   "action": actions.numpy()})
+      return torch.from_numpy(
+          np.asarray(outputs["q_predicted"]).reshape(-1))
+
+    cpu = torch.device("cpu")
+    noise = self._noise(cpu) if noise is None else noise.to(cpu).float()
+    return _search(score, noise, self._num_elites,
+                   torch.zeros(self._action_size), 0.5, -1.0,
+                   1.0).numpy()

@@ -34,6 +34,7 @@ import torch
 from tensor2robot_tpu_torch import bridge
 from tensor2robot_tpu_torch.export import export_utils, variables_io
 from tensor2robot_tpu_torch.train.train_state import TrainState
+from tensor2robot_tpu_torch.utils import optimizers
 
 _log = logging.getLogger(__name__)
 
@@ -138,7 +139,7 @@ class CheckpointManager:
     if state.ema_params is not None:
       _copy_into(state.ema_params, payload["ema_params"], "EMA params")
     optimizer = state.opt_state
-    optimizer.load_state_dict(payload["optimizer"])
+    optimizers.load_state(optimizer, payload["optimizer"])
     schedule = getattr(optimizer, "lr_schedule", None)
     if (schedule is None) != (payload["schedule"] is None):
       raise ValueError("checkpoint and optimizer disagree on having a "

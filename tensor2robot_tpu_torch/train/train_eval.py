@@ -4,7 +4,11 @@ Counterpart of ``tensor2robot_tpu/train/train_eval.py::train_eval_model``,
 single host: wire the input generators to the model's specs, train over
 ``prefetch_to_device`` with a bounded number of steps in flight, log the
 metrics every ``log_every_steps``, evaluate every ``eval_interval_steps``
-and at the end, and export the final variables. Under ``model_dir`` it
+and at the end, and export the final variables. With
+``iterations_per_loop`` K > 1 it feeds K-stacked batches to
+``Trainer.train_steps`` (on the GPU one CUDA graph replay for K steps);
+with ``gradient_accumulation_steps`` m > 1, m-stacked microbatches to
+``Trainer.train_step_accum``. Under ``model_dir`` it
 also checkpoints every ``save_checkpoints_steps`` (and at the end), resumes
 from the latest checkpoint, writes ``metrics.jsonl`` and an event file,
 dumps the operative config, and on SIGTERM or SIGINT leaves the loop
@@ -35,6 +39,7 @@ from tensor2robot_tpu_torch.train.checkpoints import CheckpointManager
 from tensor2robot_tpu_torch.train.train_state import TrainState
 from tensor2robot_tpu_torch.train.trainer import Trainer
 from tensor2robot_tpu_torch.utils.metric_writer import MetricWriter
+from tensor2robot_tpu_torch.utils.tree import tree_map
 
 _log = logging.getLogger(__name__)
 
@@ -45,10 +50,6 @@ _WAITING = {
                                   "training harness: eval exporters"),
     "hook_builders": ((), "the flagship list's item 13, the training "
                           "harness: hooks"),
-    "iterations_per_loop": (1, "Queue 1 item 2, the rest of the train "
-                               "step: several steps a dispatch"),
-    "gradient_accumulation_steps": (1, "Queue 1 item 2, the rest of the "
-                                       "train step: gradient accumulation"),
     "mesh": (None, "the flagship list's item 15, the parallel tier"),
     "param_specs": (None, "the flagship list's item 15, the parallel tier"),
     "shard_optimizer_state": (False, "the flagship list's item 15, the "
@@ -104,6 +105,7 @@ class TrainEvalResult:
   train_metrics: Dict[str, float]
   eval_metrics: Dict[str, float]
   export_dir: Optional[str]
+  loop_stats: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 @configurable
@@ -156,19 +158,24 @@ def train_eval_model(
     handle_preemption: trap SIGTERM/SIGINT during the train loop and leave
       through the final checkpoint, so the run resumes where it stopped.
     device: where to train; the GPU unless 'cpu' is asked for.
-    create_exporters_fn ... fsdp: the JAX loop's exporters, hooks, fused
-      steps, accumulation and parallelism; any value but the default
-      raises NotImplementedError naming the ROADMAP.md item it waits for.
+    iterations_per_loop: K steps a dispatch over K-stacked batches; the
+      step advances by K (a final stack covers what is left).
+    gradient_accumulation_steps: m microbatches a step, their gradients
+      averaged; each step consumes m generator batches. The two are
+      mutually exclusive.
+    create_exporters_fn, hook_builders, mesh ... fsdp: the JAX loop's
+      exporters, hooks and parallelism; any value but the default raises
+      NotImplementedError naming the ROADMAP.md item it waits for.
 
   The loop logs its timing once, at the end of training, as the record's
   ``loop_stats`` (``extra``): the host-clock time of each step from
   asking for its batch to the next such ask, and the time blocked in
-  ``next()`` on the prefetch iterator.
+  ``next()`` on the prefetch iterator; with ``iterations_per_loop`` a
+  "step" there is the dispatch of one stack (``steps_per_dispatch``). The
+  result carries them as ``loop_stats`` too.
   """
   asked = dict(create_exporters_fn=create_exporters_fn,
                hook_builders=tuple(hook_builders),
-               iterations_per_loop=iterations_per_loop,
-               gradient_accumulation_steps=gradient_accumulation_steps,
                mesh=mesh, param_specs=param_specs,
                shard_optimizer_state=shard_optimizer_state, fsdp=fsdp)
   for name, value in asked.items():
@@ -176,6 +183,17 @@ def train_eval_model(
     if value != default:
       raise NotImplementedError(
           f"train_eval_model({name}={value!r}) waits for ROADMAP.md {item}.")
+  if iterations_per_loop < 1:
+    raise ValueError(f"iterations_per_loop must be >= 1, got "
+                     f"{iterations_per_loop}")
+  if gradient_accumulation_steps < 1:
+    raise ValueError(f"gradient_accumulation_steps must be >= 1, got "
+                     f"{gradient_accumulation_steps}")
+  if gradient_accumulation_steps > 1 and iterations_per_loop > 1:
+    raise ValueError(
+        "gradient_accumulation_steps and iterations_per_loop are mutually "
+        "exclusive: one trades memory for compute, the other fuses "
+        "dispatches — accumulate inside a scanned loop is not supported.")
   if export_generator is not None:
     export_utils.resolve_export_root(export_generator, model_dir)
 
@@ -199,6 +217,7 @@ def train_eval_model(
 
   train_metrics: Dict[str, float] = {}
   eval_metrics: Dict[str, float] = {}
+  loop_stats: Dict[str, float] = {}
 
   def run_eval(state: TrainState) -> Dict[str, float]:
     if input_generator_eval is None:
@@ -221,7 +240,20 @@ def train_eval_model(
                                None)
       if pipeline_stats:
         _log.info("train input pipeline: %s", pipeline_stats)
-      train_iter = prefetch_to_device(host_iter, device=trainer.device,
+      if iterations_per_loop > 1 or gradient_accumulation_steps > 1:
+        # Both feed (K, batch, ...) stacks: a stack is K steps, or the
+        # m microbatches of one step (so the stream holds steps x m
+        # batches, every stack full).
+        remaining = max_train_steps - state.step
+        if iterations_per_loop > 1:
+          stack, total = iterations_per_loop, remaining
+        else:
+          stack = gradient_accumulation_steps
+          total = remaining * stack
+        host_batches = _stack_batches(host_iter, stack, total)
+      else:
+        host_batches = host_iter
+      train_iter = prefetch_to_device(host_batches, device=trainer.device,
                                       depth=prefetch_depth)
       # CUDA steps return before the device finishes them; waiting on the
       # step `prefetch_depth` back keeps the host from queueing stale work.
@@ -232,7 +264,12 @@ def train_eval_model(
         features, labels = next(train_iter)
         wait_s.append(time.perf_counter() - begin)
         prev_step = state.step
-        state, metrics = trainer.train_step(state, features, labels)
+        if iterations_per_loop > 1:
+          state, metrics = trainer.train_steps(state, features, labels)
+        elif gradient_accumulation_steps > 1:
+          state, metrics = trainer.train_step_accum(state, features, labels)
+        else:
+          state, metrics = trainer.train_step(state, features, labels)
         if trainer.device.type == "cuda":
           inflight.append(torch.cuda.Event())
           inflight[-1].record(torch.cuda.current_stream(trainer.device))
@@ -261,6 +298,7 @@ def train_eval_model(
                      "the resume point.", state.step)
       loop_stats = {
           "steps": len(step_s),
+          "steps_per_dispatch": iterations_per_loop,
           "step_ms_median": float(np.median(step_s)) * 1e3,
           "input_wait_ms_median": float(np.median(wait_s)) * 1e3,
           "input_wait_share": float(np.sum(wait_s) / np.sum(step_s)),
@@ -292,7 +330,20 @@ def train_eval_model(
   if metric_writer:
     metric_writer.close()
   return TrainEvalResult(state=state, train_metrics=train_metrics,
-                         eval_metrics=eval_metrics, export_dir=export_dir)
+                         eval_metrics=eval_metrics, export_dir=export_dir,
+                         loop_stats=loop_stats)
+
+
+def _stack_batches(host_iter, stack: int, total: int):
+  """Groups the host batches into (K, batch, ...) stacks for `total`
+  batches: full stacks of `stack` and, when `stack` does not divide
+  `total`, one final smaller stack (which takes a graph of its own)."""
+  remaining = total
+  while remaining > 0:
+    size = min(stack, remaining)
+    batches = [next(host_iter) for _ in range(size)]
+    remaining -= size
+    yield tree_map(lambda *leaves: np.stack(leaves), *batches)
 
 
 def _evaluate(trainer: Trainer, model, input_generator_eval,

@@ -3,11 +3,18 @@
 Counterpart of ``tensor2robot_tpu/train/trainer.py`` for a single device:
 one step is the model's TRAIN-mode forward pass, its loss, the backward
 pass, the optimizer's step, the new batch statistics and the EMA update
-(``optax.incremental_update``'s rule). The JAX trainer's mesh, parameter
-shardings, ZeRO, AOT executables, health reductions, scanned multi-steps
-and gradient accumulation are not part of this one: they come with the
-parallel tier (``ROADMAP.md``, the flagship list's item 15) and the train
-step's extras (its item 4).
+(``optax.incremental_update``'s rule, as ``lerp_``). Every state tensor
+(parameters, optimizer moments, batch statistics, EMA) is updated in
+place, so a state keeps its tensors from step to step.
+
+``train_steps`` runs K steps over a K-stacked batch, the JAX trainer's
+scanned multi-step (``iterations_per_loop``). On the GPU they are one
+CUDA graph of the fixed-shape step, captured once per (K, shapes, dtypes)
+and replayed: one dispatch for K steps. ``train_step_accum`` takes one
+optimizer step over m microbatches. The JAX trainer's mesh, parameter
+shardings, ZeRO, AOT executables and health reductions come with the
+parallel tier and the train step's extras (``ROADMAP.md``, the flagship
+list's items 15 and 4).
 """
 
 from __future__ import annotations
@@ -18,9 +25,108 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import torch
 
 from tensor2robot_tpu_torch import Device, bridge, resolve_device
+from tensor2robot_tpu_torch.ops import graph_launches
 from tensor2robot_tpu_torch.train.train_state import TrainState
+from tensor2robot_tpu_torch.utils import optimizers
+from tensor2robot_tpu_torch.utils.tree import tree_leaves, tree_map
 
 Metrics = Dict[str, torch.Tensor]
+
+
+def _index(tree: Any, i: int) -> Any:
+  """Entry `i` along the leading axis of every leaf."""
+  return tree_map(lambda t: t[i], tree)
+
+
+def _leading(tree: Any) -> int:
+  return next(tree_leaves(tree)).shape[0]
+
+
+def _signature(tree: Any) -> Tuple:
+  return tuple((tuple(t.shape), t.dtype) for t in tree_leaves(tree))
+
+
+def check_graphable(optimizer: torch.optim.Optimizer) -> None:
+  """Raises NotImplementedError, by name, for an optimizer whose update a
+  CUDA graph cannot replay: a replay runs no Python, so it runs no
+  learning-rate schedule (a host-side hook), and Adam must keep its step
+  count on the device (``capturable=True``)."""
+  name = type(optimizer).__name__
+  if getattr(optimizer, "lr_schedule", None) is not None:
+    raise NotImplementedError(
+        f"train_steps cannot graph {name} with a learning-rate schedule: "
+        "the schedule steps on the host after each update, which a CUDA "
+        "graph replay does not run. Train it with train_step.")
+  if isinstance(optimizer, torch.optim.Adam):
+    if not all(group.get("capturable") for group in optimizer.param_groups):
+      raise NotImplementedError(
+          f"train_steps cannot graph {name} built without capturable=True "
+          "(utils/optimizers.create_adam_optimizer builds it so on the GPU).")
+  elif not isinstance(optimizer, (torch.optim.SGD, optimizers.RMSprop)):
+    raise NotImplementedError(
+        f"train_steps cannot graph {name}: only Adam (capturable), SGD and "
+        "RMSprop are known to update by device ops alone.")
+
+
+def _state_tensors(state: TrainState) -> Tuple[torch.Tensor, ...]:
+  """Every tensor a captured step reads or writes in place."""
+  tensors = [*state.params.values(), *state.model_state.values(),
+             *(state.ema_params or {}).values()]
+  for moments in state.opt_state.state.values():
+    tensors += [v for v in moments.values() if torch.is_tensor(v)]
+  return tuple(tensors)
+
+
+def _hyperparameters(optimizer: torch.optim.Optimizer) -> str:
+  """The optimizer's settings, which a capture bakes in."""
+  return repr([{k: v for k, v in group.items() if k != "params"}
+               for group in optimizer.param_groups])
+
+
+class _GraphedSteps:
+  """K train steps captured in one CUDA graph, over static input buffers.
+
+  The graph holds the addresses of the state's tensors and of the
+  buffers the stacked batch is copied into; ``holds`` says whether a
+  state still has those tensors (a checkpoint restore, for one, gives the
+  optimizer new moments).
+  """
+
+  def __init__(self, trainer: "Trainer", state: TrainState, features,
+               labels, stream: torch.cuda.Stream):
+    self.steps = _leading(features)
+    self.features = tree_map(torch.empty_like, features)
+    self.labels = tree_map(torch.empty_like, labels)
+    self.graph = torch.cuda.CUDAGraph()
+    state.opt_state.zero_grad(set_to_none=True)
+    stream.wait_stream(torch.cuda.current_stream(trainer.device))
+    try:
+      with graph_launches.recording() as self.tally:
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode="thread_local"):
+          for i in range(self.steps):
+            _, metrics = trainer.train_step(state, _index(self.features, i),
+                                            _index(self.labels, i))
+    except RuntimeError as e:
+      raise NotImplementedError(
+          f"train_steps cannot capture {type(trainer.model).__name__}'s "
+          f"train step in a CUDA graph: {e}") from e
+    torch.cuda.current_stream(trainer.device).wait_stream(stream)
+    self.metrics = metrics
+    self._tensors = [t.data_ptr() for t in _state_tensors(state)]
+    self._hyperparameters = _hyperparameters(state.opt_state)
+
+  def holds(self, state: TrainState) -> bool:
+    return ([t.data_ptr() for t in _state_tensors(state)] == self._tensors
+            and _hyperparameters(state.opt_state) == self._hyperparameters)
+
+  def replay(self, features, labels) -> Metrics:
+    for static, value in zip(tree_leaves((self.features, self.labels)),
+                             tree_leaves((features, labels))):
+      static.copy_(value, non_blocking=True)
+    self.graph.replay()
+    graph_launches.replayed(self.tally)
+    return {key: value.clone() for key, value in self.metrics.items()}
 
 
 class Trainer:
@@ -35,6 +141,9 @@ class Trainer:
     self.model = model
     self.seed = seed
     self.device = resolve_device(device)
+    self._graphs: Dict[Tuple, _GraphedSteps] = {}
+    self._warmed = set()  # per-step signatures run eagerly on the side
+    self._side_stream = None
 
   # --- state ---------------------------------------------------------------
 
@@ -100,25 +209,99 @@ class Trainer:
 
   # --- steps ---------------------------------------------------------------
 
+  def _finish_step(self, state: TrainState, new_model_state) -> None:
+    """The optimizer's step, then the statistics and the EMA, in place."""
+    state.opt_state.step()
+    with torch.no_grad():
+      for key, value in new_model_state.items():
+        state.model_state[key].copy_(value)
+      if state.ema_params is not None:
+        names = list(state.params)
+        torch._foreach_lerp_([state.ema_params[n] for n in names],
+                             [state.params[n] for n in names],
+                             1.0 - self.model.avg_model_params_decay)
+
   def train_step(self, state: TrainState, features, labels=None
                  ) -> Tuple[TrainState, Metrics]:
-    """One optimizer step. Spends `state`: go on with the one returned."""
-    optimizer = state.opt_state
-    optimizer.zero_grad(set_to_none=True)
+    """One optimizer step; the state's tensors update in place. Go on with
+    the state returned (its step is one more)."""
+    state.opt_state.zero_grad(set_to_none=True)
     loss, (metrics, new_model_state) = self.model.model_train_fn(
         state.variables(), features, labels)
     loss.backward()
-    optimizer.step()
-    ema = state.ema_params
-    if ema is not None:
-      rate = 1.0 - self.model.avg_model_params_decay
-      with torch.no_grad():
-        ema = {name: rate * p + (1.0 - rate) * ema[name]
-               for name, p in state.params.items()}
-    return dataclasses.replace(
-        state, step=state.step + 1,
-        model_state={**state.model_state, **new_model_state},
-        ema_params=ema), {k: v.detach() for k, v in metrics.items()}
+    self._finish_step(state, new_model_state)
+    return (dataclasses.replace(state, step=state.step + 1),
+            {k: v.detach() for k, v in metrics.items()})
+
+  def train_steps(self, state: TrainState, features, labels=None
+                  ) -> Tuple[TrainState, Metrics]:
+    """K optimizer steps over a K-stacked batch (the leading axis of every
+    leaf); returns the last step's metrics.
+
+    On the CPU, K ``train_step`` calls. On the GPU, a CUDA graph of the K
+    steps: the first stack of a per-step shape runs eagerly on a side
+    stream (it warms up cuDNN, cuBLAS, the kernels' builds and the
+    optimizer's state), and each later (K, shapes, dtypes) is captured
+    once, then replayed with the stack copied into the graph's input
+    buffers. A final stack of another K gets a graph of its own. An
+    optimizer or a model the graph cannot hold raises NotImplementedError
+    (``check_graphable``); nothing falls back to eager steps.
+    """
+    steps = _leading(features)
+    if self.device.type != "cuda":
+      for i in range(steps):
+        state, metrics = self.train_step(state, _index(features, i),
+                                         _index(labels, i))
+      return state, metrics
+    check_graphable(state.opt_state)
+    if self._side_stream is None:
+      self._side_stream = torch.cuda.Stream(self.device)
+    per_step = (_signature(_index(features, 0)),
+                _signature(_index(labels, 0)))
+    if per_step not in self._warmed:
+      stream, current = self._side_stream, torch.cuda.current_stream(
+          self.device)
+      stream.wait_stream(current)
+      with torch.cuda.stream(stream):
+        for i in range(steps):
+          state, metrics = self.train_step(state, _index(features, i),
+                                           _index(labels, i))
+      current.wait_stream(stream)
+      self._warmed.add(per_step)
+      return state, metrics
+    key = (steps,) + per_step
+    graph = self._graphs.get(key)
+    if graph is None or not graph.holds(state):
+      graph = self._graphs[key] = _GraphedSteps(
+          self, state, features, labels, self._side_stream)
+    metrics = graph.replay(features, labels)
+    return dataclasses.replace(state, step=state.step + steps), metrics
+
+  def train_step_accum(self, state: TrainState, features, labels=None
+                       ) -> Tuple[TrainState, Metrics]:
+    """One optimizer step over m microbatches (the leading axis of every
+    leaf): their gradients summed in order and divided by m, the batch
+    statistics threaded through them in order, the metrics their means."""
+    micro = _leading(features)
+    state.opt_state.zero_grad(set_to_none=True)
+    model_state = dict(state.model_state)
+    per_micro = []
+    for i in range(micro):
+      loss, (metrics, new_model_state) = self.model.model_train_fn(
+          {**state.params, **model_state}, _index(features, i),
+          _index(labels, i))
+      loss.backward()  # adds into .grad
+      model_state.update(new_model_state)
+      per_micro.append({k: v.detach() for k, v in metrics.items()})
+    with torch.no_grad():
+      for param in state.params.values():
+        if param.grad is not None:
+          param.grad.div_(micro)
+    self._finish_step(state, {key: model_state[key]
+                              for key in state.model_state})
+    return (dataclasses.replace(state, step=state.step + 1),
+            {key: torch.stack([m[key] for m in per_micro]).mean(dim=0)
+             for key in per_micro[0]})
 
   def eval_step(self, state: TrainState, features, labels=None) -> Metrics:
     """Eval metrics of one batch (EMA parameters when kept)."""

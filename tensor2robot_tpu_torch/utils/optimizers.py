@@ -9,6 +9,10 @@ same names, defaults and update rules as the optax one:
   as ``optax.adam`` (and ``torch.optim.Adam``) do;
 - RMSprop adds eps inside the square root, as ``optax.rmsprop`` does by
   default (``torch.optim.RMSprop`` adds it outside), so it has its own class;
+- Adam over CUDA parameters is built ``capturable=True``: its step count
+  lives on the device, so ``Trainer.train_steps`` can capture its update
+  in a CUDA graph (momentum SGD and RMSprop create their state at their
+  first step and need no flag);
 - a piecewise-constant schedule ``[(boundary, scale), ...]`` multiplies the
   rate by every scale whose boundary the update count has reached, as
   ``optax.piecewise_constant_schedule``. It is a ``LambdaLR`` that advances
@@ -97,9 +101,33 @@ def create_adam_optimizer(
     boundaries_and_scales: BoundariesAndScales = None,
 ) -> OptimizerFn:
   """Adam (the reference's default optimizer family)."""
-  return lambda params: _with_schedule(
-      torch.optim.Adam(params, lr=learning_rate, betas=(b1, b2), eps=eps),
-      boundaries_and_scales)
+
+  def build(params):
+    params = list(params)
+    return _with_schedule(
+        torch.optim.Adam(params, lr=learning_rate, betas=(b1, b2), eps=eps,
+                         capturable=any(p.is_cuda for p in params)),
+        boundaries_and_scales)
+
+  return build
+
+
+def load_state(optimizer: torch.optim.Optimizer, state_dict) -> None:
+  """``optimizer.load_state_dict`` that keeps the ``capturable`` flag the
+  optimizer was built with (``load_state_dict`` takes the saving one's):
+  a CUDA run's checkpoint resumes on the CPU, and a CPU run's on the GPU
+  stays graphable. Adam's step counts move to where the flag puts them."""
+  built = [group.get("capturable") for group in optimizer.param_groups]
+  optimizer.load_state_dict(state_dict)
+  for group, capturable in zip(optimizer.param_groups, built):
+    if capturable is None:
+      continue
+    group["capturable"] = capturable
+    for param in group["params"]:
+      state = optimizer.state.get(param, {})
+      if "step" in state:
+        state["step"] = state["step"].to(
+            param.device if capturable else "cpu", torch.float32)
 
 
 @configurable

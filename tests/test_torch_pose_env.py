@@ -395,6 +395,11 @@ print(json.dumps({"imported": names, "banned": banned}))
   report = json.loads(result.stdout.strip().splitlines()[-1])
   for name in ("predictors.exported_model_predictor", "data.tfrecord",
                "data.parser", "train.checkpoints", "config.registrations",
-               "bin.run_t2r_trainer", "research.pose_env.collect_data"):
+               "bin.run_t2r_trainer", "research.pose_env.collect_data",
+               "models.critic_model", "replay.smoke", "ops.graph_launches",
+               "ops.stem_conv", "ops.strided_conv", "ops.pool",
+               "research.qtopt.t2r_models", "research.qtopt.cem",
+               "research.qtopt.synthetic_grasping",
+               "bin.run_capability_checks"):
     assert f"tensor2robot_tpu_torch.{name}" in report["imported"]
   assert report["banned"] == []

@@ -510,8 +510,9 @@ class TestTrainer:
     assert state.ema_params is not None
     _assert_trees_close(state.ema_params,
                         {"params": jax.device_get(want_state.ema_params)}, 3)
-    # The EMA is the rule itself on the port's own parameters.
-    previous = dict(state.ema_params)
+    # The EMA is the rule itself on the port's own parameters (updated in
+    # place: keep copies of the old values).
+    previous = {key: ema.clone() for key, ema in state.ema_params.items()}
     state, _ = trainer.train_step(state, *_torch_batch(batches[0]))
     for key, ema in state.ema_params.items():
       torch.testing.assert_close(
@@ -740,6 +741,12 @@ class TestTrainEval:
                                   model_dir=str(tmp_path / value))
       assert os.path.isfile(tmp_path / value / "operative_config.txt")
       assert os.listdir(tmp_path / value / "checkpoints") == ["0"]
+      return
+    if name in ("iterations_per_loop", "gradient_accumulation_steps"):
+      # No longer wait: tests/test_torch_train_steps.py trains with them.
+      result = train_eval.train_eval_model(model, max_train_steps=0,
+                                           device="cpu", **{name: value})
+      assert result.state.step == 0
       return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
       train_eval.train_eval_model(model, max_train_steps=0, device="cpu",

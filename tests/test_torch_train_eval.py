@@ -506,8 +506,8 @@ class TestConfig:
 
 
 @pytest.mark.parametrize("name, value, item", [
-    ("iterations_per_loop", 50, "Queue 1 item 2"),
-    ("gradient_accumulation_steps", 2, "Queue 1 item 2"),
+    ("mesh", object(), "item 15"),
+    ("shard_optimizer_state", True, "item 15"),
     ("hook_builders", [object()], "item 13"),
     ("create_exporters_fn", lambda m: [], "item 13"),
     ("fsdp", True, "item 15")])

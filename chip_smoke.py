@@ -49,6 +49,15 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   ``model_dir``, the native export served through ``CEMPolicy``
   (128/10/4) over 200 held-out scenes; grasp success must reach 0.72 and
   beat random grasps.
+- slice 8 trains the QT-Opt critic on Bellman targets through the
+  learner's host path (sample the prioritized ring, label with fleet CEM
+  against the lagged target net, train, TD errors, priority write-back):
+  the JAX smoke's off-policy bar (TinyQ, eval TD error against the retry
+  env's Q* down 30%) at seeds 0 and 1, the JAX learner bench's host path,
+  the production learner at full width (the 64x64 uint8 GroupNorm critic,
+  batch 32, CEM 64/6/3, a 4-shard ring of 50,000 filled past 2,000 by
+  collector threads) for 200 steps with each stage's host and device
+  time and the card's idle share, and one label at 472x472.
 
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
@@ -196,6 +205,23 @@ QTOPT_SCENES = 200  # check_qtopt's held-out scenes
 # Gradient accumulation: m microbatches of 16, float32 (TF32 off), the
 # card against the CPU: the pose_train_f32 bars.
 ACCUM_MICRO, ACCUM_BATCH = 4, 16
+# Slice 8: the QT-Opt learner on Bellman targets. (a) The JAX smoke's
+# off-policy bar (replay/smoke.py: eval TD error against the retry env's
+# Q* down 30%) at two seeds; (c) the production learner of
+# run_qtopt_replay's non-smoke config (tensor2robot_tpu/bin/
+# run_qtopt_replay.py: 64x64 uint8 images, GroupNorm, Adam 1e-4, batch 32,
+# CEM 64/6/3, gamma 0.8, a 4-shard prioritized ring of 50,000 filled past
+# 2,000 by 4 collectors of 8 envs); (d) one label at the published
+# 472x472.
+LEARNER_SEEDS = (0, 1)
+LEARNER_BAR = 0.30
+LEARNER_WARM_STEPS = 10
+LEARNER_STEPS = 200
+LEARNER_PROFILED_STEPS = 20
+LABEL_472_REPEATS = 3
+# TinyQ's factored label against its tiled one on the same draws: float32
+# (no TF32 in matmuls), the same products summed in other shapes.
+LABEL_FACTORED_ATOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -1824,6 +1850,244 @@ def accum_gpu_vs_cpu(torch, ss, dev, seed: int, images, poses) -> dict:
   return report
 
 
+def production_learner_config(seed: int):
+  """run_qtopt_replay's non-smoke ReplayLoopConfig (the JAX CLI's
+  build_config), on the port's host path."""
+  from tensor2robot_tpu_torch.replay.loop import ReplayLoopConfig
+  return ReplayLoopConfig(
+      image_size=64, batch_size=32, capacity=50_000, min_fill=2_000,
+      num_buffer_shards=4, num_collectors=4, envs_per_collector=8,
+      queue_capacity=10_000, cem_num_samples=64, cem_num_elites=6,
+      cem_iterations=3, refresh_every=200, eval_every=500,
+      eval_batches=8, log_every=50, learning_rate=1e-4, seed=seed,
+      megastep_inner=50, ingest_chunk=256, anakin_inner=200,
+      anakin_bank_scenes=4096)
+
+
+def fill_with_collectors(config):
+  """The config's 4-shard prioritized ring, filled past min_fill by
+  num_collectors CollectorWorker threads with seeded uniform logged
+  policies (plus each worker's epsilon and scripted mix); the main thread
+  drains the queue into the ring. Returns (buffer, workers, seconds)."""
+  from tensor2robot_tpu_torch.replay import ingest, learner_bench, loop
+  from tensor2robot_tpu_torch.replay.ring_buffer import ShardedReplayBuffer
+  c = config
+  buffer = ShardedReplayBuffer(
+      loop.transition_spec(c.image_size, c.action_size), c.capacity,
+      c.batch_size, num_shards=c.num_buffer_shards, seed=c.seed,
+      prioritized=c.prioritized)
+  queue = ingest.TransitionQueue(c.queue_capacity)
+  feeder = ingest.ReplayFeeder(queue, buffer, c.min_fill)
+  workers = [
+      loop.CollectorWorker(
+          learner_bench.uniform_policy(c.action_size, c.seed + 7 + i),
+          queue, c.image_size, num_envs=c.envs_per_collector,
+          max_attempts=c.max_attempts, seed=c.seed + i,
+          grasp_radius=c.grasp_radius,
+          exploration_epsilon=c.exploration_epsilon,
+          scripted_fraction=c.scripted_fraction)
+      for i in range(c.num_collectors)]
+  start = time.perf_counter()
+  for worker in workers:
+    worker.start()
+  try:
+    while not feeder.ready():
+      if time.perf_counter() - start > c.min_fill_timeout_s:
+        raise AssertionError(f"the ring holds {buffer.size} after "
+                             f"{c.min_fill_timeout_s} s")
+      feeder.drain()
+      time.sleep(0.005)
+  finally:
+    for worker in workers:
+      worker.request_stop()
+    for worker in workers:
+      worker.stop()
+  feeder.drain()
+  return buffer, workers, time.perf_counter() - start
+
+
+def time_tinyq_labels(torch, dev, seed: int) -> dict:
+  """TinyQ's Bellman label at the learner bench's shape (batch 32, CEM
+  16/4/2) through the tiled score and the factored one (each next image
+  encoded once, the codes scored); the same draws, the two within
+  LABEL_FACTORED_ATOL. Host clock around synchronised labels."""
+  from tensor2robot_tpu_torch.replay import bellman
+  from tensor2robot_tpu_torch.replay.smoke import TinyQCriticModel
+  model = TinyQCriticModel()
+  variables = model.init_variables(torch.Generator().manual_seed(seed),
+                                   device=dev)
+  rng = np.random.default_rng(seed)
+  batch = [torch.from_numpy(a).to(dev) for a in (
+      rng.integers(0, 256, (32, 16, 16, 3), np.uint8),
+      (rng.random(32) < 0.3).astype(np.float32),
+      (rng.random(32) < 0.3).astype(np.float32))]
+  noise = torch.randn((32, 2, 16, 4), device=dev,
+                      generator=torch.Generator(dev).manual_seed(seed))
+  out = {}
+  for name, factored in (("tiled", False), ("factored", True)):
+    fn = bellman.make_bellman_targets_fn(model, 4, 0.8, 16, 4, 2, True,
+                                         factored=factored)
+    with torch.inference_mode():
+      out[name] = fn(variables, *batch, noise)[0]
+      out[f"{name}_ms"] = host_ms(torch, lambda: fn(variables, *batch,
+                                                    noise))
+  err = float((out["tiled"] - out["factored"]).abs().max())
+  if not err <= LABEL_FACTORED_ATOL:
+    raise AssertionError(f"TinyQ factored vs tiled labels: {err}")
+  return {"tiled_ms": out["tiled_ms"], "factored_ms": out["factored_ms"],
+          "max_abs_diff": err, "atol": LABEL_FACTORED_ATOL}
+
+
+def run_qtopt_learner(torch, dev, seed: int, out_dir: str, smi: str) -> dict:
+  """Slice 8: the QT-Opt learner's host path on the card, parts (a)-(d)
+  (see the constants above). Raises when a bar or a check fails."""
+  from tensor2robot_tpu_torch.replay import bellman, learner_bench
+  from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+      IMAGE_SIZE,
+      QTOptGraspingModel,
+  )
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  from tensor2robot_tpu_torch.utils import optimizers
+  result = {"card": smi}
+
+  # (a) The off-policy bar: TinyQ, logged episodes, a frozen ring.
+  bars = {}
+  for s in LEARNER_SEEDS:
+    run = learner_bench.off_policy_td_reduction(seed=s, device=dev)
+    bars[s] = run
+    emit("qtopt_learner_offpolicy", card=smi, **run)
+  result["offpolicy"] = {s: {"initial_eval_td": r["initial_eval"][
+      "eval_td_error"], "final_eval_td": r["final_eval"]["eval_td_error"],
+                             "reduction": r["eval_td_reduction"]}
+                         for s, r in bars.items()}
+  if not all(r["eval_td_reduction"] >= LEARNER_BAR for r in bars.values()):
+    raise AssertionError(f"eval TD reductions {result['offpolicy']} under "
+                         f"the bar {LEARNER_BAR}")
+
+  # (b) The JAX bench's host path at its defaults.
+  bench = learner_bench.measure_learner_throughput(device=dev)
+  emit("qtopt_learner_bench", card=smi, **bench)
+  result["bench_host_path"] = bench["host_path"]
+  result["tinyq_label"] = time_tinyq_labels(torch, dev, seed)
+  emit("qtopt_learner_tinyq_label", card=smi, **result["tinyq_label"])
+
+  # (c) The production learner at full width.
+  config = production_learner_config(seed)
+  buffer, workers, fill_s = fill_with_collectors(config)
+  model = QTOptGraspingModel(
+      image_size=config.image_size, uint8_images=True, norm="group",
+      optimizer_fn=optimizers.create_adam_optimizer(config.learning_rate))
+  trainer = Trainer(model, seed=seed, device=dev)
+  state = trainer.create_train_state()
+  updater = bellman.BellmanUpdater(
+      model, state.variables(use_ema=True), action_size=config.action_size,
+      gamma=config.gamma, num_samples=config.cem_num_samples,
+      num_elites=config.cem_num_elites, iterations=config.cem_iterations,
+      seed=seed + 13, polyak_tau=config.polyak_tau, device=dev)
+  for _ in range(LEARNER_WARM_STEPS):
+    state, _, _ = learner_bench.host_learner_step(trainer, updater, buffer,
+                                                  state)
+  clock = learner_bench.StageClock(dev)
+  losses = []
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  for step in range(1, LEARNER_STEPS + 1):
+    state, metrics, td = learner_bench.host_learner_step(
+        trainer, updater, buffer, state, clock)
+    losses.append(metrics["loss"])
+    if step % config.refresh_every == 0:
+      updater.refresh(state.variables(use_ema=True), step)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - start
+  stages = clock.summary()
+  losses = torch.stack(losses).cpu().numpy()
+  with torch.profiler.profile(activities=[
+      torch.profiler.ProfilerActivity.CPU,
+      torch.profiler.ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LEARNER_PROFILED_STEPS):
+      state, _, _ = learner_bench.host_learner_step(trainer, updater,
+                                                    buffer, state)
+    torch.cuda.synchronize()
+    profiled_ms = (time.perf_counter() - t0) * 1e3
+  trace = os.path.join(out_dir, "qtopt_learner.json")
+  prof.export_chrome_trace(trace)
+  # GroupNorm's statistics, the largest kernel family in the trace.
+  profile = trace_summary(trace, LEARNER_PROFILED_STEPS, profiled_ms,
+                          match=r"RowwiseMomentsCUDAKernel")
+  production = {
+      "config": "run_qtopt_replay non-smoke (64x64 uint8, GroupNorm, Adam "
+                "1e-4, batch 32, CEM 64/6/3, gamma 0.8, 4-shard ring "
+                "50000)",
+      "fill_seconds": fill_s, "ring_size": buffer.size,
+      "episodes": sum(w.episodes for w in workers),
+      "successes": sum(w.successes for w in workers),
+      "steps": LEARNER_STEPS, "steps_per_s": LEARNER_STEPS / wall,
+      "step_ms": wall * 1e3 / LEARNER_STEPS, "stages": stages,
+      "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+      "refreshes": updater.refresh_count,
+      "compile_counts": dict(updater.compile_counts),
+      "profiled_step_ms": profiled_ms / LEARNER_PROFILED_STEPS,
+      **{k: v for k, v in profile.items() if k != "device_idle_share"},
+      # The profiler stretches its window's steps: the idle share of the
+      # unprofiled step is the one the learner runs at.
+      "device_idle_share_of_step": 1.0 - profile["device_ms_per_step"] / (
+          wall * 1e3 / LEARNER_STEPS),
+      "device_idle_share_profiled": profile["device_idle_share"],
+      "priority_entropy": buffer.priority_entropy(),
+  }
+  emit("qtopt_learner_production", card=smi, **production)
+  if not (np.isfinite(losses).all() and np.isfinite(td).all()
+          and buffer.size >= config.min_fill
+          and updater.compile_counts == {"bellman_targets": 1,
+                                         "td_error": 1}
+          and updater.refresh_count == LEARNER_STEPS // config.refresh_every):
+    raise AssertionError(f"production learner: {production}")
+  result["production"] = {k: production[k] for k in (
+      "steps_per_s", "step_ms", "stages", "device_idle_share_of_step",
+      "device_idle_share_profiled", "device_ms_per_step")}
+
+  # (d) One Bellman label at the published size.
+  model = QTOptGraspingModel(uint8_images=True, norm="group")
+  variables = model.init_variables(torch.Generator().manual_seed(seed),
+                                   device=dev)
+  updater = bellman.BellmanUpdater(
+      model, variables, action_size=config.action_size, gamma=config.gamma,
+      num_samples=config.cem_num_samples, num_elites=config.cem_num_elites,
+      iterations=config.cem_iterations, seed=seed + 13, device=dev)
+  rng = np.random.default_rng(seed)
+  batch = {
+      "next_image": rng.integers(0, 256, (config.batch_size, IMAGE_SIZE,
+                                          IMAGE_SIZE, 3), np.uint8),
+      "reward": (rng.random(config.batch_size) < 0.3).astype(np.float32),
+      "done": (rng.random(config.batch_size) < 0.3).astype(np.float32)}
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  times = []
+  for _ in range(1 + LABEL_472_REPEATS):
+    t0 = time.perf_counter()
+    targets, q_next = updater.compute_targets(batch)
+    times.append((time.perf_counter() - t0) * 1e3)
+  label = {
+      "image_size": IMAGE_SIZE, "batch": config.batch_size,
+      "cem": [config.cem_num_samples, config.cem_num_elites,
+              config.cem_iterations],
+      "images_per_cem_iteration": config.batch_size
+                                  * config.cem_num_samples,
+      "chunking": f"none: all {config.batch_size} states in one pass",
+      "first_label_ms": times[0],
+      "label_ms_median": float(np.median(times[1:])), "label_ms": times[1:],
+      "max_memory_allocated_mib": torch.cuda.max_memory_allocated() / 2**20,
+  }
+  emit("qtopt_learner_label_472", card=smi, **label)
+  if not (np.isfinite(targets).all() and np.isfinite(q_next).all()
+          and (targets >= 0).all() and (targets <= 1).all()):
+    raise AssertionError(f"472x472 label: targets {targets}")
+  result["label_472"] = label
+  return result
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -1979,6 +2243,12 @@ def main(argv=None) -> int:
     emit("qtopt_flagship", **run_qtopt_flagship(torch, ss, gl, dev,
                                                 args.seed, tmp))
     run_qtopt_capability(torch, gl, dev, tmp)
+
+  # Slice 8's main path: the QT-Opt learner on Bellman targets (the
+  # learner's host path; no TPU kernel runs on it).
+  with tempfile.TemporaryDirectory() as tmp:
+    emit("qtopt_learner", **run_qtopt_learner(torch, dev, args.seed, tmp,
+                                              smi))
 
   timing = time_spatial_softmax(torch, ss, feature_map)
   emit("kernel_timing", spatial_softmax=timing)

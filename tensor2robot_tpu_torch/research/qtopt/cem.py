@@ -12,9 +12,15 @@ in place of its own, which is how a test feeds both packages the same
 draws. Without it the draws come from a ``torch.Generator`` on the
 scores' device.
 
+``fleet_cem_optimize`` searches a batch of states at once: each CEM
+iteration scores every state's candidates in ONE forward of B*N tiled
+images, and each state brings its own (iterations, N, A) draws, so its
+action depends only on (state, its draws, model), never on which states
+shared the batch (the JAX per-state-key contract).
+
 The search arithmetic (sampling, elite refit, clipping) is float32. The
-bf16 and int8 scoring tiers and ``fleet_cem_optimize`` wait for
-``ROADMAP.md``'s flagship items 11 and 9; asking for them raises by name.
+bf16 and int8 scoring tiers wait for ``ROADMAP.md``'s flagship item 11;
+asking for them raises by name.
 """
 
 from __future__ import annotations
@@ -52,13 +58,6 @@ def scoring_dtype(precision: str) -> torch.dtype:
   return torch.float32
 
 
-def fleet_cem_optimize(*args, **kwargs):
-  """Per-request-keyed CEM for the serving fleet: not ported yet."""
-  raise NotImplementedError(
-      "fleet_cem_optimize waits for ROADMAP.md's flagship item 9, "
-      "CEMFleetPolicy and the fleet tier.")
-
-
 def draw_noise(generator: Optional[torch.Generator], iterations: int,
                num_samples: int, action_size: int,
                device: torch.device) -> torch.Tensor:
@@ -69,28 +68,33 @@ def draw_noise(generator: Optional[torch.Generator], iterations: int,
 
 def _refit(samples: torch.Tensor, scores: torch.Tensor,
            num_elites: int) -> Tuple[torch.Tensor, torch.Tensor]:
-  """Elite selection and the Gaussian refit (the shared CEM iteration).
+  """Elite selection and the Gaussian refit (the shared CEM iteration),
+  row by row over any leading axes: samples (..., N, A), scores (..., N).
 
   The population std (``jnp.std``'s), floored by 1e-3 so the search does
   not collapse to a point before its last iteration. ``torch.topk`` on a
   GPU promises no order among tied scores where ``jax.lax.top_k`` takes
   the lower index, so the packages agree only where no scores tie.
   """
-  _, elite_idx = torch.topk(scores, num_elites)
-  elites = samples[elite_idx]
-  return elites.mean(dim=0), elites.std(dim=0, correction=0) + 1e-3
+  _, elite_idx = torch.topk(scores, num_elites, dim=-1)
+  elites = torch.gather(
+      samples, -2, elite_idx[..., None].expand(*elite_idx.shape,
+                                                samples.shape[-1]))
+  return elites.mean(dim=-2), elites.std(dim=-2, correction=0) + 1e-3
 
 
 def _search(score_fn: Callable[[torch.Tensor], torch.Tensor],
             noise: torch.Tensor, num_elites: int,
             initial_mean: torch.Tensor, initial_std: float,
             action_low: float, action_high: float) -> torch.Tensor:
-  """The CEM iterations over `noise` (iterations, N, A): the final mean,
-  clipped to the box."""
+  """The CEM iterations over `noise` (..., iterations, N, A), from
+  `initial_mean` (..., A): the final mean, clipped to the box. With
+  leading axes, `score_fn` scores (..., N, A) candidates to (..., N)."""
   mean = initial_mean
   std = torch.full_like(mean, initial_std)
-  for step_noise in noise:
-    samples = torch.clamp(mean + std * step_noise, action_low, action_high)
+  for step_noise in noise.unbind(-3):
+    samples = torch.clamp(mean.unsqueeze(-2) + std.unsqueeze(-2) * step_noise,
+                          action_low, action_high)
     mean, std = _refit(samples, score_fn(samples), num_elites)
   return torch.clamp(mean, action_low, action_high)
 
@@ -142,45 +146,76 @@ def cem_optimize(
   return mean, score_fn(mean[None])[0]
 
 
-def batched_cem_optimize(
+def fleet_cem_optimize(
     score_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     states: torch.Tensor,
-    generator: Optional[torch.Generator],
+    noise: torch.Tensor,
     action_size: int,
-    noise: Optional[torch.Tensor] = None,
-    **kwargs,
+    num_samples: int = 64,
+    num_elites: int = 6,
+    iterations: int = 3,
+    initial_std: float = 0.5,
+    action_low: float = -1.0,
+    action_high: float = 1.0,
+    precision: str = "f32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """CEM over a batch of states, one state after another.
+  """CEM over a batch of states, each with its own draws.
 
   Args:
-    score_fn: (state, (N, A) actions) -> (N,) scores for ONE state.
+    score_fn: (states (B, ...), actions (B, N, A)) -> (B, N) scores, in
+      one batched call (``make_batched_tiled_q_score_fn``).
     states: (B, ...) states.
-    noise: optional (B, iterations, N, A) draws, one block a state.
+    noise: (B, iterations, N, A) standard-normal draws, one block a
+      state: the port's form of the JAX package's per-state keys.
+    action_size / num_samples / num_elites / iterations: CEM's knobs.
+    initial_std, action_low/high: the initial std and the clipping box.
+    precision: the scoring tier `score_fn` was built at; only "f32".
 
   Returns:
     (B, A) best actions, (B,) their scores.
   """
-  results = [
-      cem_optimize(lambda actions, s=state: score_fn(s, actions), generator,
-                   action_size, noise=None if noise is None else noise[i],
-                   device=state.device, **kwargs)
-      for i, state in enumerate(states)]
-  return (torch.stack([best for best, _ in results]),
-          torch.stack([score for _, score in results]))
+  validate_precision(precision)
+  batch = states.shape[0]
+  want = (batch, iterations, num_samples, action_size)
+  if tuple(noise.shape) != want:
+    raise ValueError(f"noise must be {want}, got {tuple(noise.shape)}")
+  noise = noise.to(states.device, torch.float32)
+  best = _search(
+      lambda actions: score_fn(states, actions), noise, num_elites,
+      torch.zeros((batch, action_size), device=noise.device), initial_std,
+      action_low, action_high)
+  return best, score_fn(states, best[:, None])[:, 0]
+
+
+def make_batched_tiled_q_score_fn(fn, variables, precision: str = "f32"):
+  """The batched Q score_fn of ``fleet_cem_optimize``: tiles each state
+  across its candidate actions (``expand`` + ``reshape``) and scores all
+  B*N pairs in ONE call of a ``(variables, features) -> {"q_predicted"}``
+  function, such as a model's ``predict_fn``. The state keeps its wire
+  dtype; the actions go in as float32."""
+  validate_precision(precision)
+
+  def score(states: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
+    batch, samples = actions.shape[:2]
+    shape = tuple(states.shape[1:])
+    tiled = states[:, None].expand((batch, samples) + shape).reshape(
+        (batch * samples,) + shape)
+    outputs = fn(variables, {
+        "image": tiled,
+        "action": actions.reshape(batch * samples, -1).float()})
+    return outputs["q_predicted"].reshape(batch, samples)
+
+  return score
 
 
 def make_tiled_q_score_fn(fn, variables, precision: str = "f32"):
-  """The per-state Q score_fn: tiles ONE state's image across its
-  candidate actions (a broadcast view) and scores them through a
-  ``(variables, features) -> {"q_predicted"}`` function, such as a
-  predictor's ``device_fn``. The image keeps its wire dtype; the actions
-  go in as float32."""
-  validate_precision(precision)
+  """The per-state Q score_fn: ONE state's image tiled across its
+  candidate actions, (image, (N, A)) -> (N,); the batched form with a
+  batch of one."""
+  batched = make_batched_tiled_q_score_fn(fn, variables, precision)
 
   def score(image: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
-    tiled = image[None].expand((actions.shape[0],) + tuple(image.shape))
-    outputs = fn(variables, {"image": tiled, "action": actions.float()})
-    return outputs["q_predicted"].reshape(-1)
+    return batched(image[None], actions[None])[0]
 
   return score
 

@@ -400,6 +400,8 @@ print(json.dumps({"imported": names, "banned": banned}))
                "ops.stem_conv", "ops.strided_conv", "ops.pool",
                "research.qtopt.t2r_models", "research.qtopt.cem",
                "research.qtopt.synthetic_grasping",
-               "bin.run_capability_checks"):
+               "bin.run_capability_checks", "replay.sum_tree",
+               "replay.ring_buffer", "replay.ingest", "replay.bellman",
+               "replay.loop", "replay.learner_bench"):
     assert f"tensor2robot_tpu_torch.{name}" in report["imported"]
   assert report["banned"] == []

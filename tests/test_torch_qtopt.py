@@ -572,9 +572,10 @@ class TestCEM:
         predictor.predict({
             "image": np.repeat(image[None], 64, axis=0),
             "action": actions.numpy()})["q_predicted"], rtol=0, atol=1e-6)
-    best, scores = cem.batched_cem_optimize(
-        score, torch.from_numpy(np.stack([image, image])), None, 4,
-        noise=torch.stack([noise, noise]))
+    best, scores = cem.fleet_cem_optimize(
+        cem.make_batched_tiled_q_score_fn(fn, variables),
+        torch.from_numpy(np.stack([image, image])),
+        torch.stack([noise, noise]), 4)
     assert best.shape == (2, 4) and scores.shape == (2,)
     np.testing.assert_array_equal(best[0].numpy(), best[1].numpy())
 
@@ -585,8 +586,9 @@ class TestCEM:
         cem.make_tiled_q_score_fn(None, None, precision=tier)
     with pytest.raises(ValueError, match="supported tiers"):
       cem.validate_precision("fp8")
-    with pytest.raises(NotImplementedError, match="item 9"):
-      cem.fleet_cem_optimize()
+    with pytest.raises(NotImplementedError, match="item 11"):
+      cem.fleet_cem_optimize(None, torch.zeros(1, 2), torch.zeros(1, 3, 64, 4),
+                             4, precision="bf16")
 
 
 @pytest.fixture

@@ -58,6 +58,14 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   batch 32, CEM 64/6/3, a 4-shard ring of 50,000 filled past 2,000 by
   collector threads) for 200 steps with each stage's host and device
   time and the card's idle share, and one label at 472x472.
+- slice 9 closes the loop as ``run_qtopt_replay`` runs it: collector
+  threads acting through ``CEMFleetPolicy`` (one CUDA graph per bucket)
+  while the learner trains with the health sentinel and hot-reloads the
+  policy: the JAX smoke's bar at seeds 0 and 1, the production loop at
+  full width (the 64x64 critic, 4 collectors of 8 envs, a ring of
+  50,000), and the fleet policy at the published 472x472 at every rung,
+  its graph against its eager control bit for bit, captured once across
+  three reloads.
 
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
@@ -222,6 +230,25 @@ LABEL_472_REPEATS = 3
 # TinyQ's factored label against its tiled one on the same draws: float32
 # (no TF32 in matmuls), the same products summed in other shapes.
 LABEL_FACTORED_ATOL = 1e-5
+# Slice 9: the closed QT-Opt loop. (a) run_qtopt_replay --smoke (TinyQ,
+# the JAX smoke's bar) at two seeds; (b) the production loop of the JAX
+# CLI's non-smoke config (collectors acting through CEMFleetPolicy's
+# bucket-8 graph while the learner trains) for 200 steps, one hot reload
+# (the collector threads' env stepping holds the interpreter, and the
+# eager learner runs at ~1.3 steps/s beside them on an H100, against ~27
+# alone: scripts/profile_qtopt_loop.py); (c) CEMFleetPolicy at the published 472x472 at every rung, its
+# graph against its eager control bit for bit (cuDNN deterministic), and
+# at 64x64 float32 against the CPU.
+LOOP_SEEDS = (0, 1)
+LOOP_BAR = 0.30
+LOOP_SMOKE_STEPS = 300
+LOOP_PRODUCTION_STEPS = 200
+FLEET_RUNGS = (1, 2, 4, 8, 16)
+FLEET_RELOADS = 3
+FLEET_CALLS = 7
+# The fleet step on the card against the CPU, float32 with TF32 off: the
+# same sums in another order; logits and actions are O(1).
+FLEET_F32_ATOL = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -1985,15 +2012,15 @@ def run_qtopt_learner(torch, dev, seed: int, out_dir: str, smi: str) -> dict:
       num_elites=config.cem_num_elites, iterations=config.cem_iterations,
       seed=seed + 13, polyak_tau=config.polyak_tau, device=dev)
   for _ in range(LEARNER_WARM_STEPS):
-    state, _, _ = learner_bench.host_learner_step(trainer, updater, buffer,
-                                                  state)
+    state = learner_bench.host_learner_step(trainer, updater, buffer,
+                                            state).state
   clock = learner_bench.StageClock(dev)
   losses = []
   torch.cuda.synchronize()
   start = time.perf_counter()
   for step in range(1, LEARNER_STEPS + 1):
     state, metrics, td = learner_bench.host_learner_step(
-        trainer, updater, buffer, state, clock)
+        trainer, updater, buffer, state, clock)[:3]
     losses.append(metrics["loss"])
     if step % config.refresh_every == 0:
       updater.refresh(state.variables(use_ema=True), step)
@@ -2007,8 +2034,8 @@ def run_qtopt_learner(torch, dev, seed: int, out_dir: str, smi: str) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(LEARNER_PROFILED_STEPS):
-      state, _, _ = learner_bench.host_learner_step(trainer, updater,
-                                                    buffer, state)
+      state = learner_bench.host_learner_step(trainer, updater, buffer,
+                                              state).state
     torch.cuda.synchronize()
     profiled_ms = (time.perf_counter() - t0) * 1e3
   trace = os.path.join(out_dir, "qtopt_learner.json")
@@ -2085,6 +2112,210 @@ def run_qtopt_learner(torch, dev, seed: int, out_dir: str, smi: str) -> dict:
           and (targets >= 0).all() and (targets <= 1).all()):
     raise AssertionError(f"472x472 label: targets {targets}")
   result["label_472"] = label
+  return result
+
+
+def run_qtopt_loop(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
+  """Slice 9: the closed QT-Opt loop on the card, parts (a)-(c) (see the
+  constants above). Raises when a bar or a check fails."""
+  from tensor2robot_tpu_torch.bin import run_qtopt_replay
+  from tensor2robot_tpu_torch.replay.loop import (
+      ReplayTrainLoop,
+      _HotReloadPredictor,
+  )
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_grasping as sg
+  from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+      IMAGE_SIZE,
+      QTOptGraspingModel,
+  )
+  from tensor2robot_tpu_torch.serving import CEMFleetPolicy
+  result = {"card": smi}
+
+  # (a) The JAX smoke through the port's CLI entry, at two seeds.
+  smoke = {}
+  for s in LOOP_SEEDS:
+    start = time.perf_counter()
+    run = run_qtopt_replay.run(LOOP_SMOKE_STEPS, smoke=True,
+                               logdir=os.path.join(root, f"smoke_{s}"),
+                               seed=s, device=dev)
+    line = {
+        "seed": s, "steps": run["steps"],
+        "initial_eval_td": run["initial_eval"]["eval_td_error"],
+        "final_eval_td": run["final_eval"]["eval_td_error"],
+        "eval_td_reduction": run["eval_td_reduction"], "bar": LOOP_BAR,
+        "compile_counts": run["compile_counts"],
+        "episodes": run["episodes_collected"],
+        "env_steps": run["env_steps_collected"],
+        "param_refreshes": run["param_refreshes"],
+        "breach_count": run["health"]["breach_count"],
+        "seconds": time.perf_counter() - start}
+    emit("qtopt_loop_smoke", card=smi, **line)
+    smoke[s] = line
+    if not (run["eval_td_reduction"] >= LOOP_BAR
+            and set(run["compile_counts"].values()) == {1}
+            and run["health"]["breach_count"] == 0):
+      raise AssertionError(f"closed-loop smoke at seed {s}: {line}")
+  result["smoke"] = smoke
+
+  # (b) The production loop at full width.
+  config = run_qtopt_replay.build_config(False, seed)
+  replay = ReplayTrainLoop(config, os.path.join(root, "production"),
+                           device=dev)
+  marks = {}
+  wait_for_min_fill = replay._wait_for_min_fill
+
+  def timed_fill():
+    marks["fill_start"] = time.perf_counter()
+    wait_for_min_fill()
+    marks["learn_start"] = time.perf_counter()
+
+  replay._wait_for_min_fill = timed_fill
+  start = time.perf_counter()
+  with CountReplays(gl) as replays:
+    run = replay.run(LOOP_PRODUCTION_STEPS)
+  wall = time.perf_counter() - start
+  learn_s = time.perf_counter() - marks["learn_start"]
+  production = {
+      "config": "run_qtopt_replay non-smoke (64x64 uint8 GroupNorm critic, "
+                "batch 32, CEM 64/6/3, 4-shard ring 50000, min_fill 2000, "
+                "4 collectors x 8 envs)",
+      "steps": run["steps"], "wall_s": wall,
+      "fill_s": marks["learn_start"] - marks["fill_start"],
+      "learner_steps_per_s": run["steps"] / learn_s,
+      "env_steps_per_s": run["env_steps_collected"] / wall,
+      "env_steps": run["env_steps_collected"],
+      "episodes": run["episodes_collected"],
+      "collector_success_rate": run["collector_success_rate"],
+      "policy_graph_replays": replays.replays,
+      "param_refreshes": run["param_refreshes"],
+      "compile_counts": run["compile_counts"],
+      "eval_td_first": run["eval_history"][0]["eval_td_error"],
+      "eval_td_last": run["eval_history"][-1]["eval_td_error"],
+      "eval_history": run["eval_history"], "health": {
+          k: run["health"][k] for k in ("observations", "breach_count",
+                                        "breaches_per_rule",
+                                        "last_summary")},
+      "queue": run["queue"], "buffer": run["buffer"]}
+  emit("qtopt_loop_production", card=smi, **production)
+  if not (run["compile_counts"].get("cem_bucket_8") == 1
+          and set(run["compile_counts"].values()) == {1}
+          and run["param_refreshes"] == (LOOP_PRODUCTION_STEPS
+                                         // config.refresh_every)
+          and replays.replays > 0 and run["health"]["breach_count"] == 0
+          and np.isfinite(production["eval_td_last"])):
+    raise AssertionError(f"production loop: {production}")
+  result["production"] = {k: production[k] for k in (
+      "learner_steps_per_s", "env_steps_per_s", "fill_s", "eval_td_first",
+      "eval_td_last", "policy_graph_replays")}
+  del replay, run
+
+  # (c) CEMFleetPolicy at the published size, every rung, graph against
+  # eager bit for bit, captured once across the reloads.
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  model = QTOptGraspingModel(uint8_images=True, norm="group")
+
+  def variables(s):
+    return model.init_variables(torch.Generator().manual_seed(s), device=dev)
+
+  predictor = _HotReloadPredictor(model, variables(seed))
+  policy = CEMFleetPolicy(predictor, action_size=4, seed=seed,
+                          **CEM_SERVING)
+  scenes, _ = sg.sample_scenes(max(FLEET_RUNGS), IMAGE_SIZE, seed + 5)
+
+  def graph_vs_eager(bucket):
+    images = list(scenes[:bucket])
+    seeds = np.arange(bucket, dtype=np.uint32)
+    graphed, scores = policy(images, seeds, return_scores=True)
+    fn, _ = predictor.device_fn()
+    with torch.inference_mode():
+      eager, eager_scores = policy._control(
+          fn, torch.from_numpy(np.stack(images)).to(dev),
+          torch.from_numpy(policy.noise_for(seeds)).to(dev))
+    if not (np.array_equal(graphed, eager.cpu().numpy())
+            and np.array_equal(scores, eager_scores.cpu().numpy())
+            and np.isfinite(graphed).all()
+            and np.abs(graphed).max() <= 1.0):
+      raise AssertionError(f"bucket {bucket}: the graph gives {graphed}, "
+                           f"the eager control {eager.cpu().numpy()}")
+    return graphed
+
+  rungs = []
+  for bucket in FLEET_RUNGS:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_mib = torch.cuda.memory_allocated() / 2**20
+    begin = time.perf_counter()
+    graph_vs_eager(bucket)
+    first_s = time.perf_counter() - begin
+    images = list(scenes[:bucket])
+    calls = []
+    for _ in range(FLEET_CALLS):
+      begin = time.perf_counter()
+      policy(images)
+      calls.append((time.perf_counter() - begin) * 1e3)
+    key = (bucket, scenes.shape[1:], scenes.dtype)
+    rungs.append({
+        "bucket": bucket, "images_per_cem_iteration":
+            bucket * CEM_SERVING["num_samples"],
+        "graph_equals_eager": True, "first_call_s": first_s,
+        "request_ms_median": float(np.median(calls)),
+        "replay_device_ms": stream_ms(
+            torch, lambda: policy._buckets[key].graph.replay(), inner=3),
+        # The earlier rungs' graphs stay allocated: held_mib before this
+        # rung's first call, the peak of its capture and eager check.
+        "held_mib": held_mib,
+        "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20})
+    emit("qtopt_loop_fleet", card=smi, **rungs[-1])
+  before = graph_vs_eager(2)
+  for reload in range(1, FLEET_RELOADS + 1):
+    predictor.set_variables(variables(seed + reload))
+    for bucket in FLEET_RUNGS:
+      graph_vs_eager(bucket)
+  if np.array_equal(graph_vs_eager(2), before):
+    raise AssertionError("the reloaded variables did not change an action")
+  fleet = {"cem": CEM_SERVING, "image_size": IMAGE_SIZE,
+           "compile_counts": dict(policy.compile_counts),
+           "model_version": predictor.model_version, "rungs": rungs}
+  if policy.compile_counts != {b: 1 for b in FLEET_RUNGS}:
+    raise AssertionError(f"fleet captures across reloads: {fleet}")
+  torch.backends.cudnn.deterministic = deterministic
+  del policy, predictor
+  torch.cuda.empty_cache()
+
+  # The fleet step on the card against the CPU, float32 at 64x64.
+  tf32 = (torch.backends.cudnn.allow_tf32,
+          torch.backends.cuda.matmul.allow_tf32)
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  model32 = QTOptGraspingModel(image_size=64, uint8_images=True,
+                               norm="group", compute_dtype=torch.float32)
+  state = model32.init_variables(torch.Generator().manual_seed(seed),
+                                 device="cpu")
+  images = list(sg.sample_scenes(2, 64, seed + 6)[0])
+  out = {}
+  for name, device in (("gpu", dev), ("cpu", "cpu")):
+    on = {k: v.to(device) for k, v in state.items()}
+    out[name] = CEMFleetPolicy(_HotReloadPredictor(model32, on),
+                               action_size=4, seed=seed, **CEM_SERVING)(
+                                   images, [3, 9], return_scores=True)
+  torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+      tf32)
+  fleet["gpu_vs_cpu_f32"] = {
+      "bucket": 2, "image_size": 64, "atol": FLEET_F32_ATOL,
+      "actions_max_abs_err": float(np.abs(out["gpu"][0]
+                                          - out["cpu"][0]).max()),
+      "scores_max_abs_err": float(np.abs(out["gpu"][1]
+                                         - out["cpu"][1]).max())}
+  emit("qtopt_loop_fleet_summary", card=smi, **fleet)
+  if not (fleet["gpu_vs_cpu_f32"]["actions_max_abs_err"] <= FLEET_F32_ATOL
+          and fleet["gpu_vs_cpu_f32"]["scores_max_abs_err"]
+          <= FLEET_F32_ATOL):
+    raise AssertionError(f"fleet step, card vs CPU: {fleet}")
+  result["fleet"] = {"compile_counts": fleet["compile_counts"],
+                     "gpu_vs_cpu_f32": fleet["gpu_vs_cpu_f32"],
+                     "request_ms_median": {r["bucket"]: r[
+                         "request_ms_median"] for r in rungs}}
   return result
 
 
@@ -2249,6 +2480,14 @@ def main(argv=None) -> int:
   with tempfile.TemporaryDirectory() as tmp:
     emit("qtopt_learner", **run_qtopt_learner(torch, dev, args.seed, tmp,
                                               smi))
+
+  # Slice 9's main path: the closed QT-Opt loop (collectors acting through
+  # the fleet policy's CUDA graphs while the learner trains); no TPU
+  # kernel runs on it.
+  with tempfile.TemporaryDirectory() as tmp:
+    start = time.perf_counter()
+    loop_result = run_qtopt_loop(torch, gl, dev, args.seed, tmp, smi)
+    emit("qtopt_loop", seconds=time.perf_counter() - start, **loop_result)
 
   timing = time_spatial_softmax(torch, ss, feature_map)
   emit("kernel_timing", spatial_softmax=timing)

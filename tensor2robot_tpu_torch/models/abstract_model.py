@@ -14,12 +14,18 @@ declared here and run by the trainer.
 The module's buffers are its mutable state, flax's ``batch_stats``
 collection: a TRAIN-mode pass updates copies of them and returns the
 copies as the new model state.
+
+A functional call swaps the module's tensors while it runs, so a module
+is never shared between threads (the replay loop's collectors act while
+its learner trains): each thread fills a template of its own
+(``thread_module``).
 """
 
 from __future__ import annotations
 
 import abc
 import math
+import threading
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
@@ -99,6 +105,7 @@ class AbstractT2RModel(abc.ABC):
     self.init_from_checkpoint_assignment_map = (
         init_from_checkpoint_assignment_map)
     self._module: Optional[nn.Module] = None
+    self._thread_modules = threading.local()
     self._preprocessor: Optional[AbstractPreprocessor] = None
 
   # --- specs --------------------------------------------------------------
@@ -135,7 +142,19 @@ class AbstractT2RModel(abc.ABC):
     ``inference_network_fn`` fills with the variables it is given."""
     if self._module is None:
       self._module = self.build_module().to(self.param_dtype)
+      self._thread_modules.module = self._module
     return self._module
+
+  def thread_module(self) -> nn.Module:
+    """This thread's template for functional calls: ``module`` on the
+    thread that built it, a template of its own on every other thread."""
+    module = getattr(self._thread_modules, "module", None)
+    if module is None:
+      if self._module is None:
+        return self.module
+      module = self._thread_modules.module = self.build_module().to(
+          self.param_dtype)
+    return module
 
   def init_variables(self, generator: Optional[torch.Generator] = None,
                      device: Device = None) -> Variables:
@@ -156,14 +175,15 @@ class AbstractT2RModel(abc.ABC):
     mode = modes.validate_mode(mode)
     state = {}
     if mode == modes.TRAIN:
-      keys = [name for name, _ in self.module.named_buffers()]
+      keys = [name for name, _ in self.thread_module().named_buffers()]
       if keys and "batch_stats" not in self.mutable_collections():
         raise ValueError(
             f"{type(self).__name__} updates batch_stats in TRAIN mode, but "
             "mutable_collections() does not list it.")
       state = {key: variables[key].clone() for key in keys}
     outputs = torch.func.functional_call(
-        self.module, {**variables, **state}, (features, mode), strict=True)
+        self.thread_module(), {**variables, **state}, (features, mode),
+        strict=True)
     return outputs, state
 
   def mutable_collections(self) -> Tuple[str, ...]:

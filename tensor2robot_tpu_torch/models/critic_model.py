@@ -55,12 +55,13 @@ class CriticModel(AbstractT2RModel):
     consumer encodes each state once and scores candidate actions on the
     code, the same Q function with the image tower out of the loop.
     """
-    module = self.module
-    if not (hasattr(module, "encode") and hasattr(module, "q_from_code")):
+    if not (hasattr(self.module, "encode")
+            and hasattr(self.module, "q_from_code")):
       return None
 
     def bound(name):
       def fn(variables, features):
+        module = self.thread_module()
         with stateless._reparametrize_module(module, variables, strict=True):
           return getattr(module, name)(features)
       return fn

@@ -1,4 +1,4 @@
-"""The QT-Opt replay tier: the learner half of the JAX package's
+"""The QT-Opt replay tier: the host path of the JAX package's
 ``tensor2robot_tpu/replay``.
 
 - ``smoke.TinyQCriticModel``: the CPU-scale critic;
@@ -7,11 +7,46 @@
   ``ReplayFeeder``): host numpy, bit-identical to the JAX package's;
 - ``bellman``: CEM-maximized Bellman targets against a lagged target net;
 - ``loop``: the transition schema, ``ReplayLoopConfig``,
-  ``CollectorWorker`` and the eval against the retry env's Q*;
+  ``CollectorWorker``, the eval against the retry env's Q*, and the
+  closed loop, ``ReplayTrainLoop`` (collectors acting through
+  ``serving.CEMFleetPolicy`` over a hot-reloaded predictor while the
+  learner trains);
 - ``learner_bench``: the learner's host step, its throughput bench and
   the off-policy learning check.
 
-``ReplayTrainLoop``, the fleet policy and ``run_qtopt_replay`` come with
-``ROADMAP.md``'s flagship items 8 and 9; the device-resident and fused
-loops with item 10.
+The device-resident and fused loops wait for ``ROADMAP.md``'s flagship
+item 10.
 """
+
+from tensor2robot_tpu_torch.replay.bellman import (
+    BellmanUpdater,
+    TargetNetwork,
+)
+from tensor2robot_tpu_torch.replay.ingest import ReplayFeeder, TransitionQueue
+from tensor2robot_tpu_torch.replay.loop import (
+    CollectorWorker,
+    ReplayLoopConfig,
+    ReplayTrainLoop,
+    transition_spec,
+)
+from tensor2robot_tpu_torch.replay.ring_buffer import (
+    ReplayBuffer,
+    ShardedReplayBuffer,
+)
+from tensor2robot_tpu_torch.replay.smoke import TinyQCriticModel
+from tensor2robot_tpu_torch.replay.sum_tree import SumTree
+
+__all__ = [
+    "BellmanUpdater",
+    "CollectorWorker",
+    "ReplayBuffer",
+    "ReplayFeeder",
+    "ReplayLoopConfig",
+    "ReplayTrainLoop",
+    "ShardedReplayBuffer",
+    "SumTree",
+    "TargetNetwork",
+    "TinyQCriticModel",
+    "TransitionQueue",
+    "transition_spec",
+]

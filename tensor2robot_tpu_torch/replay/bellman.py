@@ -12,9 +12,10 @@ forward of B*N tiled images per CEM iteration).
 **The draws.** A state's CEM draws are a pure function of (seed, label
 seed), never of the batch it was labelled in or its position there, as in
 the JAX package. The port draws each state's (iterations, N, A) block on
-the host with ``np.random.default_rng((seed, label_seed))`` (float32
-standard normals), stacks the batch's blocks and copies them to the
-device once a label: the same draws on the CPU and the card. threefry and
+the host with ``cem.seeded_noise`` (``np.random.default_rng((seed,
+label_seed))``, float32 standard normals; the fleet policy draws a
+request's block the same way), stacks the batch's blocks and copies them
+to the device once a label: the same draws on the CPU and the card. threefry and
 Philox cannot agree, so a parity test passes the JAX package's own draws
 through ``compute_targets(noise=)``.
 
@@ -229,11 +230,9 @@ class BellmanUpdater(TargetNetwork):
 
   def label_noise(self, seeds) -> np.ndarray:
     """(B, iterations, N, A) float32 draws: state i's block from
-    ``np.random.default_rng((seed, seeds[i]))``."""
-    shape = (self._iterations, self._num_samples, self._action_size)
-    return np.stack([
-        np.random.default_rng((self._seed, int(s))).standard_normal(
-            shape, dtype=np.float32) for s in np.asarray(seeds)])
+    ``np.random.default_rng((seed, seeds[i]))`` (``cem.seeded_noise``)."""
+    return cem.seeded_noise(self._seed, seeds, self._iterations,
+                            self._num_samples, self._action_size)
 
   def compute_targets(self, batch: Mapping, seeds=None, noise=None
                       ) -> Tuple[np.ndarray, np.ndarray]:

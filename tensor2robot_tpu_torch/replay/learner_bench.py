@@ -20,7 +20,7 @@ from __future__ import annotations
 import contextlib
 import statistics
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -110,28 +110,43 @@ class StageClock:
     } for name in STAGES}
 
 
+class LearnerStep(NamedTuple):
+  """What one learner step leaves: the state after it, the train step's
+  metrics, and the batch's TD errors, targets, bootstrap Q and sample
+  info."""
+  state: Any
+  metrics: Dict[str, torch.Tensor]
+  td: np.ndarray
+  targets: np.ndarray
+  q_next: np.ndarray
+  info: Any
+
+
 def host_learner_step(trainer: Trainer, updater: BellmanUpdater, buffer,
-                      state, clock=None):
+                      state, clock=None, with_health: bool = False
+                      ) -> LearnerStep:
   """One learner step of the JAX ``ReplayTrainLoop._run_host``: sample,
-  label, train, TD errors, priority write-back. Returns (state, metrics,
-  td). `clock` (a StageClock) times each stage."""
+  label, train, TD errors, priority write-back. `clock` (a StageClock)
+  times each stage; `with_health` adds the gradients' norm and non-finite
+  count to the metrics."""
   clock = clock or (lambda name: contextlib.nullcontext())
   device = trainer.device
   with clock("sample"):
     batch, info = buffer.sample()
   with clock("label"):
-    targets, _ = updater.compute_targets(batch)
+    targets, q_next = updater.compute_targets(batch)
   with clock("train"):
     features = {
         "image": torch.from_numpy(np.asarray(batch["image"])).to(device),
         "action": torch.from_numpy(np.asarray(batch["action"])).to(device)}
     labels = {"target_q": torch.from_numpy(targets).to(device)}
-    state, metrics = trainer.train_step(state, features, labels)
+    state, metrics = trainer.train_step(state, features, labels,
+                                        with_health=with_health)
   with clock("td"):
     td = updater.td_errors(state.variables(use_ema=True), batch, targets)
   with clock("priority_write"):
     buffer.update_priorities(info.indices, td)
-  return state, metrics, td
+  return LearnerStep(state, metrics, td, targets, q_next, info)
 
 
 def measure_learner_throughput(
@@ -187,15 +202,15 @@ def measure_learner_throughput(
     exec_seconds[0] += time.perf_counter() - start
 
   for _ in range(3):  # builds and warm caches, outside all timing
-    state, metrics, _ = host_learner_step(trainer, updater, buffer, state)
+    state = host_learner_step(trainer, updater, buffer, state).state
   sync()
   host_sps, host_blocked = [], []
   for _ in range(trials):
     exec_seconds[0] = 0.0
     start = time.perf_counter()
     for _ in range(steps_per_trial):
-      state, metrics, _ = host_learner_step(trainer, updater, buffer, state,
-                                            timed)
+      state, metrics = host_learner_step(trainer, updater, buffer, state,
+                                         timed)[:2]
     float(metrics["loss"])  # sync
     elapsed = time.perf_counter() - start
     host_sps.append(steps_per_trial / elapsed)
@@ -289,7 +304,7 @@ def off_policy_td_reduction(seed: int = 0, steps: int = 300,
   start = time.perf_counter()
   losses = []
   for step in range(1, steps + 1):
-    state, metrics, _ = host_learner_step(trainer, updater, buffer, state)
+    state, metrics = host_learner_step(trainer, updater, buffer, state)[:2]
     losses.append(metrics["loss"])
     if step % config.refresh_every == 0:
       updater.refresh(state.variables(use_ema=True), step)

@@ -1,9 +1,13 @@
-"""The QT-Opt replay loop's pieces: transition schema, config, collector,
-and the eval against the retry env's analytic Q*.
+"""The closed QT-Opt loop: collect -> replay -> Bellman-label -> train.
 
-Counterpart of parts of ``tensor2robot_tpu/replay/loop.py``: the host
-loop there collects -> replays -> Bellman-labels -> trains. This module
-holds what that loop's learner and collectors need:
+Counterpart of ``tensor2robot_tpu/replay/loop.py``'s host path. Threaded
+collectors act through a ``CEMFleetPolicy`` over a ``_HotReloadPredictor``
+while the learner thread drains their episodes into the ring, samples,
+labels with CEM-maximized Bellman targets against the lagged target net,
+trains (with the health reductions), writes TD errors back as priorities,
+and every ``refresh_every`` steps hands the collectors and the target net
+a snapshot of the EMA variables:
+
 - ``transition_spec``: the loop's transition schema (uint8 wire images);
 - ``ReplayLoopConfig``: the loop's knobs, field for field with the JAX
   defaults;
@@ -11,15 +15,23 @@ holds what that loop's learner and collectors need:
   through one batched policy call, with the JAX exploration mix and
   scene-seed formula (numpy only: the same bits on the same seeds);
 - ``eval_transitions`` / ``evaluate_td``: the held-out eval set with its
-  analytic targets, and |Q - Q*| over it.
+  analytic targets, and |Q - Q*| over it;
+- ``_HotReloadPredictor``: the in-memory predictor the learner swaps;
+- ``ReplayTrainLoop``: owns every piece; ``run(num_steps)`` drives the
+  host path (the learner's step is ``learner_bench.host_learner_step``)
+  and returns the JAX result's keys, less the obs tier's ``obs`` block.
 
-The learner's step itself is ``learner_bench.host_learner_step``. Not yet
-ported, and named where asked for: ``ReplayTrainLoop`` with its
-``_HotReloadPredictor`` (the next slice, with ``CEMFleetPolicy``, item 9,
-and the health reductions, item 4), the device-resident, vector-actor and
-Anakin paths (item 10), the mesh (item 15), loop checkpoints and the
-profiler window (with ``ReplayTrainLoop``, item 8), and the collector's
-trace span, flight recorder and watchdog (the obs tier, item 15).
+**Threads and the card.** The collectors and the learner share one
+device and its default stream, so work is ordered as it is submitted:
+the learner's clone of the EMA variables precedes the hot-reload copy
+that reads it. The policy's lock covers each call's copy-in, replay and
+copy-out. The collectors' bucket is captured before their threads start,
+so no capture ever runs beside another thread's launches.
+
+Not ported, and named where asked for: the device-resident, vector-actor
+and Anakin paths (item 10), the mesh (item 15), the loop's checkpoints,
+resume and profiler window (item 8b), and the metric registry, trace
+spans, flight recorder, watchdog and fault seam (the obs tier, item 15).
 """
 
 from __future__ import annotations
@@ -29,11 +41,26 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-from tensor2robot_tpu_torch.replay.ingest import TransitionQueue
+from tensor2robot_tpu_torch import Device, modes
+from tensor2robot_tpu_torch.obs import health as health_lib
+from tensor2robot_tpu_torch.predictors.abstract_predictor import (
+    AbstractPredictor,
+)
+from tensor2robot_tpu_torch.replay.bellman import BellmanUpdater
+from tensor2robot_tpu_torch.replay.ingest import ReplayFeeder, TransitionQueue
+from tensor2robot_tpu_torch.replay.ring_buffer import (
+    ReplayBuffer,
+    ShardedReplayBuffer,
+)
 from tensor2robot_tpu_torch.research.qtopt import cem
 from tensor2robot_tpu_torch.research.qtopt import synthetic_grasping as sg
+from tensor2robot_tpu_torch.serving.policy import CEMFleetPolicy
 from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+from tensor2robot_tpu_torch.train.trainer import Trainer
+from tensor2robot_tpu_torch.utils import backoff, optimizers
+from tensor2robot_tpu_torch.utils.metric_writer import MetricWriter
 
 
 def transition_spec(image_size: int, action_size: int) -> ts.TensorSpecStruct:
@@ -110,12 +137,16 @@ class CollectorWorker:
     """Signals the thread; returns immediately (never raises)."""
     self._stop.set()
 
+  def join(self, timeout: float = 30.0) -> bool:
+    """Waits up to `timeout` s for the thread; True once it has ended."""
+    self._thread.join(timeout)
+    return not self._thread.is_alive()
+
   def stop(self, timeout: float = 30.0) -> None:
     """Signal + join + surface any recorded error. A multi-collector
     owner should request_stop() on EVERY worker first, then join."""
     self.request_stop()
-    self._thread.join(timeout)
-    if self._thread.is_alive():
+    if not self.join(timeout):
       raise RuntimeError(f"collector did not stop within {timeout} s")
     if self.errors:
       raise RuntimeError("collector died") from self.errors[0]
@@ -180,20 +211,20 @@ _WAITING = {
     "mesh_dp": (0, "item 15 (the parallel tier)"),
     "mesh_tp": (1, "item 15 (the parallel tier)"),
     "zero1": (None, "item 15 (the parallel tier)"),
-    "checkpoint_every": (0, "item 8 (ReplayTrainLoop's checkpoints)"),
-    "resume": (False, "item 8 (ReplayTrainLoop's checkpoints)"),
-    "checkpoint_dir": (None, "item 8 (ReplayTrainLoop's checkpoints)"),
-    "health_halt": (False, "item 4 (the health reductions)"),
-    "profile_window": (None, "item 8 (ReplayTrainLoop's profiler window)"),
+    "checkpoint_every": (0, "item 8b (the replay loop's checkpoints)"),
+    "resume": (False, "item 8b (the replay loop's checkpoints)"),
+    "checkpoint_dir": (None, "item 8b (the replay loop's checkpoints)"),
+    "profile_window": (None, "item 8b (the replay loop's profiler window)"),
 }
 
 
 @dataclass
 class ReplayLoopConfig:
   """Knobs of the replay loop, field for field with the JAX defaults (the
-  chipless smoke scale). The learner and collector read the first block;
-  the rest belong to paths that wait for later items, and setting one off
-  its default raises NotImplementedError naming the item."""
+  chipless smoke scale). The host loop reads the first block and the
+  health fields; the rest belong to paths that wait for later items, and
+  setting one off its default raises NotImplementedError naming the
+  item."""
   image_size: int = 16
   action_size: int = 4
   batch_size: int = 32
@@ -303,3 +334,351 @@ def evaluate_td(updater, variables, eval_batches,
       "eval_td_error": float(np.mean(td)),
       "eval_q_loss": float(np.mean(np.square(td))),
   }
+
+
+class _HotReloadPredictor(AbstractPredictor):
+  """In-memory predictor whose variables the learner swaps.
+
+  ``device_fn()`` returns a stable fn (the model's ``predict_fn``) and the
+  current variables, on their device; ``update()`` swaps the variables
+  and their version in one assignment and bumps ``model_version``, as a
+  new export landing would. The caller must not update the tensors it
+  hands over in place: the learner hands over a clone.
+  """
+
+  def __init__(self, model, variables):
+    self._model = model
+    self._device = next(iter(variables.values())).device
+    self._served = (self._place(variables), 0)
+
+  def _place(self, variables) -> Dict[str, torch.Tensor]:
+    return {key: torch.as_tensor(value).to(self._device)
+            for key, value in variables.items()}
+
+  def update(self, variables) -> None:
+    self._served = (self._place(variables), self._served[1] + 1)
+
+  def set_variables(self, variables, version: Optional[int] = None) -> None:
+    """``update()`` carrying the candidate's export version, so
+    ``model_version`` names the promoted learner step."""
+    self._served = (self._place(variables),
+                    self._served[1] + 1 if version is None else int(version))
+
+  def restore(self, timeout_s: float = 0.0,
+              raise_on_timeout: bool = False) -> bool:
+    return True
+
+  def init_randomly(self) -> None:
+    pass
+
+  def predict(self, features) -> Dict[str, np.ndarray]:
+    inputs = {key: torch.as_tensor(np.asarray(value)).to(self._device)
+              for key, value in dict(features).items()}
+    outputs = self._model.predict_fn(self._served[0], inputs)
+    return {key: value.float().cpu().numpy()
+            for key, value in outputs.items()}
+
+  def device_fn(self):
+    return self._model.predict_fn, self._served[0]
+
+  def get_feature_specification(self) -> ts.TensorSpecStruct:
+    return ts.flatten_spec_structure(
+        self._model.get_feature_specification(modes.PREDICT))
+
+  @property
+  def model_version(self) -> int:
+    return self._served[1]
+
+
+class ReplayTrainLoop:
+  """Owns every piece of the loop; ``run(num_steps)`` drives it.
+
+  Args:
+    config: the loop's knobs.
+    logdir: where the metric files go.
+    model: any CriticModel with uint8 image + action features (matching
+      ``config.image_size`` / ``action_size``). Default: the flagship
+      QTOptGraspingModel on the uint8 wire, the production loop. The smoke
+      passes ``replay/smoke.TinyQCriticModel``.
+    flight_recorder / watchdog / fault_plan: the JAX loop's obs hooks;
+      they wait for ``ROADMAP.md``'s flagship item 15 and raise when
+      given.
+    device: where the learner and the policy run; the GPU unless 'cpu'
+      is asked for.
+  """
+
+  def __init__(self, config: ReplayLoopConfig, logdir: str, model=None,
+               flight_recorder=None, watchdog=None, fault_plan=None,
+               device: Device = None):
+    if (flight_recorder is not None or watchdog is not None
+        or fault_plan is not None):
+      raise NotImplementedError(
+          "ReplayTrainLoop(flight_recorder=, watchdog=, fault_plan=) wait "
+          "for ROADMAP.md's flagship item 15 (the obs tier).")
+    self.config = config
+    self.logdir = logdir
+    self.model = model if model is not None else self._default_model()
+    self.health_monitor = None
+    if config.health:
+      self.health_monitor = health_lib.HealthMonitor(
+          rules=health_lib.default_rules(capacity=config.capacity),
+          halt_on_breach=config.health_halt)
+    self.trainer = Trainer(self.model, seed=config.seed, device=device)
+    self.writer = MetricWriter(logdir)
+    spec = transition_spec(config.image_size, config.action_size)
+    if config.num_buffer_shards > 1:
+      self.buffer = ShardedReplayBuffer(
+          spec, config.capacity, config.batch_size,
+          num_shards=config.num_buffer_shards, seed=config.seed,
+          prioritized=config.prioritized)
+    else:
+      self.buffer = ReplayBuffer(
+          spec, config.capacity, config.batch_size, seed=config.seed,
+          prioritized=config.prioritized)
+    self.queue = TransitionQueue(config.queue_capacity)
+    self.feeder = ReplayFeeder(self.queue, self.buffer, config.min_fill)
+    # name -> builds of the loop's own programs; each stays 1.
+    self.compile_counts: Dict[str, int] = {}
+    self._collectors: List[CollectorWorker] = []
+
+  # --- helpers -------------------------------------------------------------
+
+  def _default_model(self):
+    """The production model: flagship Q-fn, uint8 wire, GroupNorm (the
+    loop serves PREDICT-mode variables from step 0, where BatchNorm's
+    cold running statistics would poison the early targets)."""
+    from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+        QTOptGraspingModel,
+    )
+    c = self.config
+    return QTOptGraspingModel(
+        image_size=c.image_size, action_size=c.action_size,
+        uint8_images=True, norm="group",
+        optimizer_fn=optimizers.create_adam_optimizer(c.learning_rate),
+        **c.model_kwargs)
+
+  def _built(self, name: str) -> None:
+    self.compile_counts[name] = self.compile_counts.get(name, 0) + 1
+
+  @staticmethod
+  def _host_variables(state) -> Dict[str, torch.Tensor]:
+    """A detached clone of the EMA variables on their device: the learner
+    updates its tensors in place, so collectors never serve those."""
+    return {key: value.detach().clone()
+            for key, value in state.variables(use_ema=True).items()}
+
+  def _make_policy(self, predictor) -> CEMFleetPolicy:
+    c = self.config
+    return CEMFleetPolicy(
+        predictor, action_size=c.action_size,
+        num_samples=c.cem_num_samples, num_elites=c.cem_num_elites,
+        iterations=c.cem_iterations, seed=c.seed + 7,
+        precision=c.precision)
+
+  def _eval(self, updater: BellmanUpdater, variables, eval_batches,
+            eval_q_stars) -> Dict[str, float]:
+    return evaluate_td(updater, variables, eval_batches, eval_q_stars)
+
+  def _start_collectors(self, policy) -> None:
+    c = self.config
+    self._collectors = [
+        CollectorWorker(policy, self.queue, c.image_size,
+                        num_envs=c.envs_per_collector,
+                        max_attempts=c.max_attempts,
+                        seed=c.seed + i, grasp_radius=c.grasp_radius,
+                        exploration_epsilon=c.exploration_epsilon,
+                        scripted_fraction=c.scripted_fraction)
+        for i in range(c.num_collectors)
+    ]
+    for collector in self._collectors:
+      collector.start()
+
+  def _shutdown_collectors(self) -> List[BaseException]:
+    """Signals every collector before joining any, so one that hangs
+    leaves none of its siblings running; returns the errors rather than
+    raising them, so an exception already in flight is not masked. Closes
+    the writer."""
+    for collector in self._collectors:
+      collector.request_stop()
+    errors: List[BaseException] = []
+    for collector in self._collectors:
+      if not collector.join(30.0):
+        errors.append(RuntimeError("a collector did not stop within 30 s"))
+      errors.extend(collector.errors)
+    self.writer.close()
+    return errors
+
+  def _emit(self, step: int, scalars: Dict[str, float]) -> None:
+    """One metric record (the JAX loop's keys, straight to the writer;
+    the registry bridge waits for item 15)."""
+    self.writer.write_scalars(step, scalars)
+
+  def _host_param_health(self, state) -> Dict[str, float]:
+    """The parameters' non-finite count and global norm."""
+    if "health_summary" not in self.compile_counts:
+      self._built("health_summary")
+    with torch.no_grad():
+      nonfinite = health_lib.tree_nonfinite_count(state.params)
+      norm = health_lib.tree_global_norm(state.params)
+    return {"health/nonfinite_params": float(nonfinite),
+            "health/param_norm": float(norm)}
+
+  def _wait_for_min_fill(self) -> None:
+    """Gates the first optimizer step on the ring's min_fill, polling
+    with the jittered backoff; a timeout names the gate and the fill it
+    reached."""
+
+    def ready():
+      self.feeder.drain()
+      for collector in self._collectors:
+        if collector.errors:
+          raise RuntimeError("collector died during warm-up") from (
+              collector.errors[0])
+      return self.feeder.ready()
+
+    try:
+      backoff.poll_with_backoff(
+          ready, self.config.min_fill_timeout_s,
+          initial_s=0.02, max_s=0.25, seed=self.config.seed,
+          description=(f"replay buffer min_fill="
+                       f"{self.config.min_fill} under {self.logdir}"),
+          raise_on_timeout=True)
+    except backoff.PollTimeout as e:
+      raise backoff.PollTimeout(
+          f"{e.description} (reached size={self.buffer.size})",
+          e.waited_s, e.attempts) from None
+
+  def _assemble_result(self, steps: int, initial_eval, eval_history,
+                       ledger, param_refreshes: int) -> Dict:
+    """The JAX loop's result schema, less the obs tier's ``obs``."""
+    final_eval = eval_history[-1]
+    reduction = 1.0 - (final_eval["eval_td_error"]
+                       / max(initial_eval["eval_td_error"], 1e-9))
+    episodes = sum(c_.episodes for c_ in self._collectors)
+    return {
+        "health": (self.health_monitor.snapshot()
+                   if self.health_monitor is not None else None),
+        "steps": steps,
+        "initial_eval": initial_eval,
+        "final_eval": {key: v for key, v in final_eval.items()
+                       if key != "step"},
+        "eval_history": eval_history,
+        "eval_td_reduction": round(reduction, 4),
+        "compile_counts": ledger,
+        "queue": self.queue.stats(),
+        "buffer": self.buffer.metrics(),
+        "episodes_collected": episodes,
+        "env_steps_collected": sum(c_.env_steps
+                                   for c_ in self._collectors),
+        "vector_actors": self.config.vector_actors,
+        "precision": self.config.precision,
+        "collector_success_rate": (
+            sum(c_.successes for c_ in self._collectors) / max(1, episodes)),
+        "param_refreshes": param_refreshes,
+        "logdir": self.logdir,
+    }
+
+  # --- the loop ------------------------------------------------------------
+
+  def run(self, num_steps: int) -> Dict:
+    """Runs the closed loop for `num_steps` optimizer steps."""
+    return self._run_host(num_steps)
+
+  def _run_host(self, num_steps: int) -> Dict:
+    """Threaded collectors and the learner's host step."""
+    from tensor2robot_tpu_torch.replay.learner_bench import (
+        host_learner_step,
+    )
+    c = self.config
+    state = self.trainer.create_train_state()
+    # The snapshot feeds the collectors' predictor and the target net
+    # (refreshed every refresh_every steps); the per-step TD and eval
+    # read the live EMA variables.
+    host_variables = self._host_variables(state)
+    predictor = _HotReloadPredictor(self.model, host_variables)
+    policy = self._make_policy(predictor)
+    updater = BellmanUpdater(
+        self.model, host_variables, action_size=c.action_size,
+        gamma=c.gamma, num_samples=c.cem_num_samples,
+        num_elites=c.cem_num_elites, iterations=c.cem_iterations,
+        seed=c.seed + 13, polyak_tau=c.polyak_tau, precision=c.precision,
+        device=self.trainer.device)
+    blank = np.zeros((c.image_size, c.image_size, 3), np.uint8)
+    try:
+      # The collectors' bucket is built here, on this thread: on the GPU
+      # no capture then runs beside another thread's launches.
+      policy.warm(lambda i: blank,
+                  sizes=(policy.ladder.bucket_for(c.envs_per_collector),))
+      self._start_collectors(policy)
+      self._wait_for_min_fill()
+      eval_batches, eval_q_stars = eval_transitions(c)
+      initial_eval = self._eval(updater, state.variables(use_ema=True),
+                                eval_batches, eval_q_stars)
+      self._emit(0, {"replay/" + k: v for k, v in initial_eval.items()})
+      eval_history = [dict(step=0, **initial_eval)]
+      with_health = self.health_monitor is not None
+      for step in range(1, num_steps + 1):
+        self.feeder.drain()
+        state, metrics, td, targets, q_next, info = host_learner_step(
+            self.trainer, updater, self.buffer, state,
+            with_health=with_health)
+        if step == 1:
+          self._built("train_step")
+        if with_health:
+          # The JAX host loop's summary: grad stats from the step's
+          # metrics, param stats from their reductions, the rest from
+          # this step's host data; q is the Bellman bootstrap Q.
+          self.health_monitor.observe(step, {
+              "health/nonfinite_grads": float(metrics["grads_nonfinite"]),
+              "health/grad_norm": float(metrics["grad_norm"]),
+              "health/nonfinite_targets": float(
+                  np.sum(~np.isfinite(targets))),
+              "health/td_mean": float(np.mean(td)),
+              "health/td_max": float(np.max(td)),
+              "health/q_mean": float(np.mean(q_next)),
+              "health/q_max": float(np.max(q_next)),
+              "health/priority_entropy": float(
+                  self.buffer.priority_entropy()),
+              "health/sample_age": float(np.mean(info.staleness)),
+              **self._host_param_health(state),
+          })
+        if step % c.refresh_every == 0:
+          # The hot reload: collectors and the target net take the
+          # freshest EMA variables; no bucket is rebuilt.
+          host_variables = self._host_variables(state)
+          predictor.update(host_variables)
+          updater.refresh(host_variables, step)
+        if step % c.log_every == 0 or step == num_steps:
+          self._emit(step, {
+              "replay/train_loss": float(metrics["loss"]),
+              "replay/train_td_error": float(np.mean(td)),
+              "replay/train_q_next": float(np.mean(q_next)),
+              "replay/sample_staleness": float(np.mean(info.staleness)),
+              "replay/target_lag": float(updater.target_lag(step)),
+              "replay/episodes": float(
+                  sum(col.episodes for col in self._collectors)),
+              **self.buffer.metrics(),
+              **self.feeder.metrics(),
+          })
+          if with_health:
+            # Its own record: the replay/ records keep their schema.
+            self._emit(step, dict(self.health_monitor.last_summary))
+        if step % c.eval_every == 0 or step == num_steps:
+          evals = self._eval(updater, state.variables(use_ema=True),
+                             eval_batches, eval_q_stars)
+          eval_history.append(dict(step=step, **evals))
+          self._emit(step, {"replay/" + k: v for k, v in evals.items()})
+    finally:
+      collector_errors = self._shutdown_collectors()
+    if collector_errors:
+      raise RuntimeError(
+          f"{len(collector_errors)} collector error(s); first shown"
+      ) from collector_errors[0]
+
+    ledger = dict(self.compile_counts)
+    ledger.update({k if k.startswith("bellman") else f"bellman_{k}": v
+                   for k, v in updater.compile_counts.items()})
+    ledger.update({f"cem_bucket_{k}": v
+                   for k, v in sorted(policy.compile_counts.items())})
+    return self._assemble_result(num_steps, initial_eval, eval_history,
+                                 ledger, param_refreshes=updater.refresh_count)

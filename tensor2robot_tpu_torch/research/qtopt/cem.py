@@ -10,7 +10,8 @@ i), (N, A))``. threefry and Philox cannot match, so every entry point here
 also takes ``noise``: the (iterations, N, A) standard-normal draws to use
 in place of its own, which is how a test feeds both packages the same
 draws. Without it the draws come from a ``torch.Generator`` on the
-scores' device.
+scores' device, or, where each state or request carries a seed (Bellman
+labels, fleet serving), from ``seeded_noise`` on the host.
 
 ``fleet_cem_optimize`` searches a batch of states at once: each CEM
 iteration scores every state's candidates in ONE forward of B*N tiled
@@ -64,6 +65,20 @@ def draw_noise(generator: Optional[torch.Generator], iterations: int,
   """(iterations, N, A) standard-normal draws from `generator`."""
   return torch.randn((iterations, num_samples, action_size),
                      generator=generator, device=device)
+
+
+def seeded_noise(seed: int, seeds, iterations: int, num_samples: int,
+                 action_size: int) -> np.ndarray:
+  """(B, iterations, N, A) float32 standard-normal draws: row b's block
+  from ``np.random.default_rng((seed, seeds[b]))``.
+
+  A pure function of (seed, seeds[b]): a state's draws never depend on
+  the batch it rides in or its position there (the JAX package folds
+  each seed into one key for the same contract)."""
+  shape = (iterations, num_samples, action_size)
+  return np.stack([
+      np.random.default_rng((seed, int(s))).standard_normal(
+          shape, dtype=np.float32) for s in np.asarray(seeds)])
 
 
 def _refit(samples: torch.Tensor, scores: torch.Tensor,

@@ -1,0 +1,277 @@
+"""CEMFleetPolicy: the QT-Opt control step batched across clients.
+
+Counterpart of ``tensor2robot_tpu/serving/policy.py``. One program per
+ladder bucket runs the whole fleet control step (image tiling, every CEM
+iteration, scoring through the Q-function, the elite refits) for up to
+``bucket`` clients at once. On the GPU that program is a CUDA graph,
+captured once per (bucket, shapes, dtypes) and replayed: the counterpart
+of the JAX package's one AOT executable per bucket. On the CPU the same
+control runs eagerly, and ``compile_counts`` counts each bucket's first
+build, so the exactly-once ledger means the same thing there.
+
+**Parameters are an argument, not baked in.** The policy keeps one copy
+of the served variables on the device, and every bucket's graph reads it.
+A hot reload (a new ``predictor.model_version``) copies the new variables
+into that copy, under the policy's lock, at the first call that sees the
+new version; no graph is captured again, so ``compile_counts[bucket]``
+stays 1 for the life of the policy.
+
+**Per-request draws.** Request ``s`` draws its (iterations, N, A) block
+from ``np.random.default_rng((policy_seed, s))`` (``cem.seeded_noise``),
+so its action depends only on (image, seed, variables), never on which
+requests shared the flush, its position there or the bucket's padding.
+threefry's ``fold_in`` cannot be matched; a test passes the JAX draws
+through ``noise=``.
+
+**Staging.** Each bucket copies its requests and draws up through one
+pinned host buffer each, and its actions and scores back the same way:
+two copies up, one graph replay and two copies down a call, under one
+lock with one wait at the end.
+
+Waiting for later ``ROADMAP.md`` items, and refused by name: ``device=``
+(a replica pinned to a device or a mesh) and ``param_specs=`` (item 15),
+``ledger=`` (item 15), a non-f32 ``precision`` (item 11) and the per-call
+``variables=`` override (item 9's rollout tier).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from tensor2robot_tpu_torch.ops import graph_launches
+from tensor2robot_tpu_torch.research.qtopt import cem
+from tensor2robot_tpu_torch.serving import bucketing
+from tensor2robot_tpu_torch.serving.bucketing import BucketLadder
+
+
+class _Graph:
+  """One bucket's CUDA graph with its static device inputs and outputs
+  and their pinned host staging buffers."""
+
+  def __init__(self, images: torch.Tensor, noise: torch.Tensor):
+    self.images = images
+    self.noise = noise
+    self.host_images = torch.empty_like(images, device="cpu",
+                                        pin_memory=True)
+    self.host_noise = torch.empty_like(noise, device="cpu", pin_memory=True)
+    self.graph = torch.cuda.CUDAGraph()
+    self.done = torch.cuda.Event()
+    self.tally = self.best = self.scores = None
+    self.host_actions = self.host_scores = None
+
+
+class CEMFleetPolicy:
+  """Batched CEM serving policy over any predictor with ``q_predicted``.
+
+  Callable: ``policy(images, seeds=None) -> (n, action_size) actions``,
+  n = len(images) <= ladder.max_batch. Without a device-resident entry
+  (``predictor.device_fn``) the policy serves through ``predict``: the
+  request batch padded to its bucket once, one ``predict`` a CEM
+  iteration at that one flat shape.
+  """
+
+  def __init__(self, predictor, action_size: int = 4,
+               num_samples: int = 64, num_elites: int = 6,
+               iterations: int = 3, seed: int = 0,
+               ladder: Optional[BucketLadder] = None,
+               device=None, ledger=None, precision: str = "f32",
+               param_specs=None):
+    if device is not None or param_specs is not None:
+      raise NotImplementedError(
+          "CEMFleetPolicy(device=, param_specs=) pins a replica to a device "
+          "or a tensor-parallel mesh, which waits for ROADMAP.md's flagship "
+          "item 15 (the parallel tier).")
+    if ledger is not None:
+      raise NotImplementedError(
+          "CEMFleetPolicy(ledger=) records into the obs tier's executable "
+          "ledger, which waits for ROADMAP.md's flagship item 15.")
+    self.precision = cem.validate_precision(precision)
+    self._predictor = predictor
+    self._action_size = action_size
+    self._num_samples = num_samples
+    self._num_elites = num_elites
+    self._iterations = iterations
+    self._seed = seed
+    self.ladder = ladder or BucketLadder()
+    # (bucket, image shape, image dtype) -> its _Graph on the GPU, None
+    # on the CPU.
+    self._buckets: Dict[Tuple, Optional[_Graph]] = {}
+    # bucket -> builds; each stays 1 for the life of the policy.
+    self.compile_counts: Dict[int, int] = {}
+    self._served = None  # the policy's own copy of the served variables
+    self._served_version = None
+    # One lock over builds, hot-reload copies and every call's copy-in,
+    # replay and copy-out; request seeds have their own, so clients
+    # assigning seeds never wait behind a capture.
+    self._lock = threading.Lock()
+    self._seed_lock = threading.Lock()
+    self._next_seed = 0
+
+  @property
+  def executable_buckets(self) -> Sequence[int]:
+    return sorted(self.compile_counts)
+
+  def assign_seeds(self, n: int) -> np.ndarray:
+    """n fresh monotonic request seeds (thread-safe)."""
+    with self._seed_lock:
+      start = self._next_seed
+      self._next_seed += n
+    return np.arange(start, start + n, dtype=np.uint32)
+
+  def warm(self, make_image, sizes: Optional[Sequence[int]] = None) -> None:
+    """Builds the ladder's buckets (`sizes`, default every rung) by
+    serving `make_image(i)` frames at each (answers discarded, request
+    seeds untouched). Built buckets make this a no-op walk."""
+    for bucket in self.ladder.sizes if sizes is None else sizes:
+      self([make_image(i) for i in range(bucket)],
+           np.arange(bucket, dtype=np.uint32))
+
+  def noise_for(self, seeds) -> np.ndarray:
+    """(n, iterations, N, A) draws of requests `seeds`."""
+    return cem.seeded_noise(self._seed, seeds, self._iterations,
+                            self._num_samples, self._action_size)
+
+  def __call__(self, images: Sequence[np.ndarray],
+               seeds: Optional[Sequence[int]] = None, *,
+               variables=None, return_scores: bool = False,
+               noise: Optional[np.ndarray] = None):
+    """The control step for `images`: (n, A) actions, and with
+    ``return_scores`` ``(actions, scores)``, the selected actions' Q
+    scores (the host path has none: ``(actions, None)``). `noise`
+    (n, iterations, N, A) replaces the seeds' draws."""
+    if variables is not None:
+      raise NotImplementedError(
+          "CEMFleetPolicy(variables=) scores a rollout candidate through "
+          "the live buckets, which waits for the rollout tier of "
+          "ROADMAP.md's flagship item 9.")
+    batch = np.stack([np.asarray(image) for image in images])
+    n = batch.shape[0]
+    seeds = (self.assign_seeds(n) if seeds is None
+             else np.asarray(seeds, np.uint32))
+    if seeds.shape != (n,):
+      raise ValueError(f"need {n} seeds, got shape {seeds.shape}")
+    noise = self.noise_for(seeds) if noise is None else np.asarray(
+        noise, np.float32)
+    want = (n, self._iterations, self._num_samples, self._action_size)
+    if noise.shape != want:
+      raise ValueError(f"noise must be {want}, got {noise.shape}")
+    padded, bucket = self.ladder.pad_batch(batch)
+    padded_noise = bucketing.pad_to(noise, bucket)
+    version = self._predictor.model_version  # read before the variables
+    try:
+      fn, live = self._predictor.device_fn()
+    except NotImplementedError:
+      actions = self._host_call(padded, padded_noise)[:n]
+      return (actions, None) if return_scores else actions
+    with self._lock:
+      self._serve(live, version)
+      actions, scores = self._run(bucket, fn, padded, padded_noise)
+    return (actions[:n], scores[:n]) if return_scores else actions[:n]
+
+  # -- the device path -------------------------------------------------------
+
+  def _serve(self, live, version) -> None:
+    """Copies the predictor's variables into the policy's own copy when
+    its version moved (under the lock): a hot reload, no rebuild."""
+    if self._served is None:
+      self._served = {k: v.detach().clone() for k, v in live.items()}
+    elif version != self._served_version:
+      if live.keys() != self._served.keys():
+        raise ValueError(
+            f"served variables changed keys: {sorted(live)} against "
+            f"{sorted(self._served)}")
+      with torch.no_grad():
+        for key, value in live.items():
+          self._served[key].copy_(value)
+    self._served_version = version
+
+  def _control(self, fn, images: torch.Tensor, noise: torch.Tensor):
+    """The fleet control step over the served copy: ((B, A) actions,
+    (B,) their scores)."""
+    score = cem.make_batched_tiled_q_score_fn(fn, self._served)
+    return cem.fleet_cem_optimize(
+        score, images, noise, self._action_size,
+        num_samples=self._num_samples, num_elites=self._num_elites,
+        iterations=self._iterations)
+
+  def _capture(self, fn, padded: torch.Tensor,
+               padded_noise: torch.Tensor) -> _Graph:
+    """The bucket's graph: two eager warm-up steps on a side stream
+    (cuDNN's and cuBLAS's choices, the allocator), then the capture."""
+    device = padded.device
+    entry = _Graph(padded.clone(), padded_noise.clone())
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.inference_mode():
+      with torch.cuda.stream(stream):
+        for _ in range(2):
+          self._control(fn, entry.images, entry.noise)
+      with graph_launches.recording() as entry.tally:
+        with torch.cuda.graph(entry.graph, stream=stream,
+                              capture_error_mode="thread_local"):
+          entry.best, entry.scores = self._control(fn, entry.images,
+                                                   entry.noise)
+    torch.cuda.current_stream(device).wait_stream(stream)
+    entry.host_actions = torch.empty_like(entry.best, device="cpu",
+                                          pin_memory=True)
+    entry.host_scores = torch.empty_like(entry.scores, device="cpu",
+                                         pin_memory=True)
+    return entry
+
+  def _run(self, bucket: int, fn, padded: np.ndarray,
+           padded_noise: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """One call of the bucket's program (under the lock): built at the
+    bucket's first call, then replayed on the GPU, run eagerly on the
+    CPU."""
+    key = (bucket, padded.shape[1:], padded.dtype)
+    device = next(iter(self._served.values())).device
+    images = torch.from_numpy(padded)
+    noise = torch.from_numpy(padded_noise)
+    if key not in self._buckets:
+      self.compile_counts[bucket] = self.compile_counts.get(bucket, 0) + 1
+      self._buckets[key] = (self._capture(fn, images.to(device),
+                                          noise.to(device))
+                            if device.type == "cuda" else None)
+    entry = self._buckets[key]
+    if entry is None:
+      with torch.inference_mode():
+        best, scores = self._control(fn, images.to(device),
+                                     noise.to(device))
+      return best.cpu().numpy(), scores.cpu().numpy()
+    entry.host_images.copy_(images)
+    entry.host_noise.copy_(noise)
+    entry.images.copy_(entry.host_images, non_blocking=True)
+    entry.noise.copy_(entry.host_noise, non_blocking=True)
+    entry.graph.replay()
+    graph_launches.replayed(entry.tally)
+    entry.host_actions.copy_(entry.best, non_blocking=True)
+    entry.host_scores.copy_(entry.scores, non_blocking=True)
+    entry.done.record()
+    entry.done.synchronize()
+    return entry.host_actions.numpy().copy(), entry.host_scores.numpy().copy()
+
+  # -- host fallback ---------------------------------------------------------
+
+  def _host_call(self, padded: np.ndarray,
+                 padded_noise: np.ndarray) -> np.ndarray:
+    """predict()-based fleet CEM over the padded batch: one ``predict`` a
+    CEM iteration at the one flat (bucket * N) shape, the same refits and
+    draws as the device path."""
+    b, num = padded.shape[0], self._num_samples
+    tiled = np.repeat(padded, num, axis=0)
+
+    def score(actions: torch.Tensor) -> torch.Tensor:
+      outputs = self._predictor.predict({
+          "image": tiled,
+          "action": actions.reshape(b * num, -1).numpy()})
+      return torch.from_numpy(
+          np.asarray(outputs["q_predicted"], np.float32).reshape(b, num))
+
+    best = cem._search(score, torch.from_numpy(padded_noise),
+                       self._num_elites,
+                       torch.zeros((b, self._action_size)), 0.5, -1.0, 1.0)
+    return best.numpy()

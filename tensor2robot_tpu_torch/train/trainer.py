@@ -11,8 +11,9 @@ place, so a state keeps its tensors from step to step.
 scanned multi-step (``iterations_per_loop``). On the GPU they are one
 CUDA graph of the fixed-shape step, captured once per (K, shapes, dtypes)
 and replayed: one dispatch for K steps. ``train_step_accum`` takes one
-optimizer step over m microbatches. The JAX trainer's mesh, parameter
-shardings, ZeRO, AOT executables and health reductions come with the
+optimizer step over m microbatches; ``train_step(with_health=True)``
+also reduces the gradients for the health sentinel. The JAX trainer's
+mesh, parameter shardings, ZeRO and AOT executables come with the
 parallel tier and the train step's extras (``ROADMAP.md``, the flagship
 list's items 15 and 4).
 """
@@ -25,6 +26,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import torch
 
 from tensor2robot_tpu_torch import Device, bridge, resolve_device
+from tensor2robot_tpu_torch.obs import health
 from tensor2robot_tpu_torch.ops import graph_launches
 from tensor2robot_tpu_torch.train.train_state import TrainState
 from tensor2robot_tpu_torch.utils import optimizers
@@ -221,17 +223,26 @@ class Trainer:
                              [state.params[n] for n in names],
                              1.0 - self.model.avg_model_params_decay)
 
-  def train_step(self, state: TrainState, features, labels=None
-                 ) -> Tuple[TrainState, Metrics]:
+  def train_step(self, state: TrainState, features, labels=None,
+                 with_health: bool = False) -> Tuple[TrainState, Metrics]:
     """One optimizer step; the state's tensors update in place. Go on with
-    the state returned (its step is one more)."""
+    the state returned (its step is one more).
+
+    ``with_health`` adds ``grad_norm`` (global L2, float32) and
+    ``grads_nonfinite`` (non-finite elements) of the raw gradients, taken
+    before the optimizer's step, to the metrics: the two reductions the
+    health sentinel cannot rebuild from the parameters afterwards."""
     state.opt_state.zero_grad(set_to_none=True)
     loss, (metrics, new_model_state) = self.model.model_train_fn(
         state.variables(), features, labels)
     loss.backward()
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if with_health:
+      grads = [p.grad for p in state.params.values() if p.grad is not None]
+      metrics["grad_norm"] = health.tree_global_norm(grads)
+      metrics["grads_nonfinite"] = health.tree_nonfinite_count(grads)
     self._finish_step(state, new_model_state)
-    return (dataclasses.replace(state, step=state.step + 1),
-            {k: v.detach() for k, v in metrics.items()})
+    return dataclasses.replace(state, step=state.step + 1), metrics
 
   def train_steps(self, state: TrainState, features, labels=None
                   ) -> Tuple[TrainState, Metrics]:

@@ -402,6 +402,7 @@ print(json.dumps({"imported": names, "banned": banned}))
                "research.qtopt.synthetic_grasping",
                "bin.run_capability_checks", "replay.sum_tree",
                "replay.ring_buffer", "replay.ingest", "replay.bellman",
-               "replay.loop", "replay.learner_bench"):
+               "replay.loop", "replay.learner_bench", "serving.bucketing",
+               "serving.policy", "obs.health", "bin.run_qtopt_replay"):
     assert f"tensor2robot_tpu_torch.{name}" in report["imported"]
   assert report["banned"] == []

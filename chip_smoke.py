@@ -66,6 +66,15 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   50,000), and the fleet policy at the published 472x472 at every rung,
   its graph against its eager control bit for bit, captured once across
   three reloads.
+- slice 10 makes that loop preemptible and batches its acting:
+  ``qtopt_resume`` holds the learner's crash-resume parity bit for bit
+  (TinyQ, and the production 64x64 critic at batch 32), resumes
+  ``run_qtopt_replay --smoke`` from its checkpoint at step 150 to 300,
+  times a checkpoint's save and restore at the production ring and traces
+  a ``--profile`` window; ``qtopt_vector`` runs the loop with one
+  ``VectorActor`` stepping every env through one bucket: the smoke's bar
+  at seeds 0 and 1, the production loop's learner beside the actor and
+  alone, and the vector-against-threaded actor bench.
 
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
@@ -76,6 +85,7 @@ Weights and data are random, drawn from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import json
 import logging
@@ -84,6 +94,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -233,16 +244,20 @@ LABEL_FACTORED_ATOL = 1e-5
 # Slice 9: the closed QT-Opt loop. (a) run_qtopt_replay --smoke (TinyQ,
 # the JAX smoke's bar) at two seeds; (b) the production loop of the JAX
 # CLI's non-smoke config (collectors acting through CEMFleetPolicy's
-# bucket-8 graph while the learner trains) for 200 steps, one hot reload
-# (the collector threads' env stepping holds the interpreter, and the
-# eager learner runs at ~1.3 steps/s beside them on an H100, against ~27
-# alone: scripts/profile_qtopt_loop.py); (c) CEMFleetPolicy at the published 472x472 at every rung, its
+# bucket-8 graph while the learner trains) for 100 steps (the collector
+# threads' env stepping holds the interpreter, and the eager learner runs
+# at ~1.3 steps/s beside them on an H100, against ~27 alone:
+# scripts/profile_qtopt_loop.py); (c) CEMFleetPolicy at the published
+# 472x472 at every rung, its
 # graph against its eager control bit for bit (cuDNN deterministic), and
 # at 64x64 float32 against the CPU.
 LOOP_SEEDS = (0, 1)
 LOOP_BAR = 0.30
 LOOP_SMOKE_STEPS = 300
-LOOP_PRODUCTION_STEPS = 200
+# 100 steps (200 before slice 10's phases joined, to keep the script near
+# half its time limit): no hot reload; the vector production loop of
+# slice 10 covers one.
+LOOP_PRODUCTION_STEPS = 100
 FLEET_RUNGS = (1, 2, 4, 8, 16)
 FLEET_RELOADS = 3
 FLEET_CALLS = 7
@@ -2159,34 +2174,17 @@ def run_qtopt_loop(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
 
   # (b) The production loop at full width.
   config = run_qtopt_replay.build_config(False, seed)
-  replay = ReplayTrainLoop(config, os.path.join(root, "production"),
-                           device=dev)
-  marks = {}
-  wait_for_min_fill = replay._wait_for_min_fill
-
-  def timed_fill():
-    marks["fill_start"] = time.perf_counter()
-    wait_for_min_fill()
-    marks["learn_start"] = time.perf_counter()
-
-  replay._wait_for_min_fill = timed_fill
-  start = time.perf_counter()
-  with CountReplays(gl) as replays:
-    run = replay.run(LOOP_PRODUCTION_STEPS)
-  wall = time.perf_counter() - start
-  learn_s = time.perf_counter() - marks["learn_start"]
+  timed = drive_loop(ReplayTrainLoop(config, os.path.join(root, "production"),
+                                     device=dev), LOOP_PRODUCTION_STEPS, gl)
+  run = timed.pop("run")
   production = {
       "config": "run_qtopt_replay non-smoke (64x64 uint8 GroupNorm critic, "
                 "batch 32, CEM 64/6/3, 4-shard ring 50000, min_fill 2000, "
                 "4 collectors x 8 envs)",
-      "steps": run["steps"], "wall_s": wall,
-      "fill_s": marks["learn_start"] - marks["fill_start"],
-      "learner_steps_per_s": run["steps"] / learn_s,
-      "env_steps_per_s": run["env_steps_collected"] / wall,
+      "steps": run["steps"], **timed,
       "env_steps": run["env_steps_collected"],
       "episodes": run["episodes_collected"],
       "collector_success_rate": run["collector_success_rate"],
-      "policy_graph_replays": replays.replays,
       "param_refreshes": run["param_refreshes"],
       "compile_counts": run["compile_counts"],
       "eval_td_first": run["eval_history"][0]["eval_td_error"],
@@ -2201,13 +2199,14 @@ def run_qtopt_loop(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
           and set(run["compile_counts"].values()) == {1}
           and run["param_refreshes"] == (LOOP_PRODUCTION_STEPS
                                          // config.refresh_every)
-          and replays.replays > 0 and run["health"]["breach_count"] == 0
+          and production["policy_graph_replays"] > 0
+          and run["health"]["breach_count"] == 0
           and np.isfinite(production["eval_td_last"])):
     raise AssertionError(f"production loop: {production}")
   result["production"] = {k: production[k] for k in (
       "learner_steps_per_s", "env_steps_per_s", "fill_s", "eval_td_first",
       "eval_td_last", "policy_graph_replays")}
-  del replay, run
+  del run
 
   # (c) CEMFleetPolicy at the published size, every rung, graph against
   # eager bit for bit, captured once across the reloads.
@@ -2316,6 +2315,290 @@ def run_qtopt_loop(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
                      "gpu_vs_cpu_f32": fleet["gpu_vs_cpu_f32"],
                      "request_ms_median": {r["bucket"]: r[
                          "request_ms_median"] for r in rungs}}
+  return result
+
+
+# Slice 10. (a) The learner's crash-resume parity (serving/fault_bench.py):
+# train k1 steps, checkpoint, restore into fresh objects and train k2 more
+# against k1 + k2 straight through, with cuDNN deterministic; the TD
+# streams and the ring must be bit-equal (the JAX bar, a TD delta of 0).
+# (b) run_qtopt_replay --smoke saving at step 150, then resumed to 300.
+# (c) One checkpoint at the production ring (50,000 rows of two 64x64
+# uint8 images): its save and restore seconds and bytes. (d) A --profile
+# window, whose trace must hold CUDA kernel events.
+RESUME_PARITY = (("tinyq", 6, 6, False), ("flagship_64", 20, 20, True))
+RESUME_SMOKE_HALF = 150
+RESUME_PRODUCTION_STEPS = 10
+PROFILE_WINDOW = "5,8"
+PROFILE_STEPS = 20
+# Slice 10's vector actor: the smoke with --vector-actors at two seeds (the
+# 0.30 bar, one acting bucket), the production loop with one VectorActor
+# over the 32 envs, and the learner alone in the same call (the actor
+# stopped once the ring passes min_fill). ROADMAP's bar, reported and not
+# gated: the loop's learner within 2x of the learner alone.
+VECTOR_PRODUCTION_STEPS = 200
+STARVATION_BAR = 2.0
+
+
+def drive_loop(replay, steps: int, gl, alone: bool = False) -> dict:
+  """Runs `replay` for `steps` and times it: the fill, and the learner's
+  rate from the end of the fill to the end of the run. With `alone` the
+  collectors (or actors) stop as soon as the ring passes min_fill."""
+  marks = {}
+  wait_for_min_fill = replay._wait_for_min_fill
+
+  def timed_fill():
+    marks["fill_start"] = time.perf_counter()
+    wait_for_min_fill()
+    if alone:
+      for collector in replay._collectors:
+        collector.request_stop()
+      for collector in replay._collectors:
+        collector.join(30.0)
+    marks["learn_start"] = time.perf_counter()
+
+  replay._wait_for_min_fill = timed_fill
+  start = time.perf_counter()
+  with CountReplays(gl) as replays:
+    run = replay.run(steps)
+  end = time.perf_counter()
+  return {"run": run, "wall_s": end - start,
+          "fill_s": marks["learn_start"] - marks["fill_start"],
+          "learner_steps_per_s": run["steps"] / (end - marks["learn_start"]),
+          "env_steps_per_s": run["env_steps_collected"] / (end - start),
+          "policy_graph_replays": replays.replays}
+
+
+def directory_bytes(path: str) -> int:
+  return sum(os.path.getsize(os.path.join(d, f))
+             for d, _, files in os.walk(path) for f in files)
+
+
+def run_qtopt_resume(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
+  """Slice 10's resume phase, parts (a)-(d) above. Raises when a bar or a
+  check fails."""
+  import contextlib
+  import io
+
+  from tensor2robot_tpu_torch.bin import run_qtopt_replay
+  from tensor2robot_tpu_torch.replay.loop import ReplayTrainLoop
+  from tensor2robot_tpu_torch.serving.fault_bench import (
+      _measure_resume_parity,
+  )
+  from tensor2robot_tpu_torch.train import checkpoints
+  result = {"card": smi}
+
+  # (a) Bit parity across a crash, on the card.
+  for name, k1, k2, flagship in RESUME_PARITY:
+    start = time.perf_counter()
+    parity = _measure_resume_parity(k1, k2, seed, device=dev,
+                                    flagship=flagship)
+    parity.update(model=name, seconds=time.perf_counter() - start)
+    emit("qtopt_resume_parity", card=smi, **parity)
+    if not (parity["parity_ok"]
+            and parity["max_post_resume_td_delta"] == 0.0):
+      raise AssertionError(f"resume parity, {name}: {parity}")
+    result[f"parity_{name}"] = parity["parity_ok"]
+
+  # (b) The smoke loop saved at 150 and resumed to 300.
+  logdir = os.path.join(root, "smoke_resume")
+  first = run_qtopt_replay.run(RESUME_SMOKE_HALF, smoke=True, logdir=logdir,
+                               seed=seed, device=dev,
+                               checkpoint_every=RESUME_SMOKE_HALF)
+  start = time.perf_counter()
+  resumed = run_qtopt_replay.run(2 * RESUME_SMOKE_HALF, smoke=True,
+                                 logdir=logdir, seed=seed, device=dev,
+                                 checkpoint_every=RESUME_SMOKE_HALF,
+                                 resume=True)
+  first_steps = [e["step"] for e in first["eval_history"]]
+  steps = [e["step"] for e in resumed["eval_history"]]
+  line = {"first_eval_steps": first_steps, "resumed_eval_steps": steps,
+          "initial_eval_td": resumed["initial_eval"]["eval_td_error"],
+          "final_eval_td": resumed["final_eval"]["eval_td_error"],
+          "eval_td_reduction": resumed["eval_td_reduction"], "bar": LOOP_BAR,
+          "compile_counts": resumed["compile_counts"],
+          "resumed_seconds": time.perf_counter() - start}
+  emit("qtopt_resume_smoke", card=smi, **line)
+  if not (steps[:len(first_steps)] == first_steps
+          and steps[-1] == 2 * RESUME_SMOKE_HALF
+          and resumed["initial_eval"] == first["initial_eval"]
+          and resumed["eval_td_reduction"] >= LOOP_BAR
+          and set(resumed["compile_counts"].values()) == {1}):
+    raise AssertionError(f"smoke resume: {line}")
+  result["smoke_reduction"] = resumed["eval_td_reduction"]
+
+  # (c) A checkpoint at the production ring: saved at step 10 of the
+  # production loop (its actor fills the ring fastest), restored by a fresh
+  # loop that goes on to step 20.
+  config = run_qtopt_replay.build_config(
+      False, seed, vector_actors=True,
+      checkpoint_every=RESUME_PRODUCTION_STEPS)
+  logdir = os.path.join(root, "production_resume")
+  clocks = {}
+
+  def timed(replay, name):
+    method = getattr(replay, name)
+
+    def wrapper(*args, **kwargs):
+      begin = time.perf_counter()
+      out = method(*args, **kwargs)
+      clocks[name] = time.perf_counter() - begin
+      return out
+
+    setattr(replay, name, wrapper)
+    return replay
+
+  first = timed(ReplayTrainLoop(config, logdir, device=dev),
+                "_save_checkpoint").run(RESUME_PRODUCTION_STEPS)
+  ckpt_root = os.path.join(logdir, "checkpoints")
+  step_dir = os.path.join(ckpt_root, str(RESUME_PRODUCTION_STEPS))
+  sidecar = checkpoints.sidecar_dir(ckpt_root, RESUME_PRODUCTION_STEPS)
+  resumed = timed(ReplayTrainLoop(
+      dataclasses.replace(config, resume=True), logdir, device=dev),
+      "_restore_checkpoint").run(2 * RESUME_PRODUCTION_STEPS)
+  production = {
+      "config": "run_qtopt_replay non-smoke, vector actor, checkpoint_every "
+                f"{RESUME_PRODUCTION_STEPS}",
+      "capacity": config.capacity, "save_s": clocks["_save_checkpoint"],
+      "restore_s": clocks["_restore_checkpoint"],
+      "state_bytes": directory_bytes(step_dir),
+      "sidecar_bytes": directory_bytes(sidecar),
+      "buffer_npz_bytes": os.path.getsize(
+          os.path.join(sidecar, "buffer.npz")),
+      "ring_size_at_save": first["buffer"]["replay/size"],
+      "eval_steps": [e["step"] for e in resumed["eval_history"]],
+      "compile_counts": resumed["compile_counts"]}
+  emit("qtopt_resume_production", card=smi, **production)
+  if not (production["eval_steps"] == [0, RESUME_PRODUCTION_STEPS,
+                                       2 * RESUME_PRODUCTION_STEPS]
+          and resumed["initial_eval"] == first["initial_eval"]
+          and set(resumed["compile_counts"].values()) == {1}):
+    raise AssertionError(f"production resume: {production}")
+  result["production"] = {k: production[k] for k in (
+      "save_s", "restore_s", "sidecar_bytes")}
+
+  # (d) A --profile window through the CLI.
+  logdir = os.path.join(root, "profiled")
+  with contextlib.redirect_stdout(io.StringIO()) as out:
+    run_qtopt_replay.main(["--smoke", "--steps", str(PROFILE_STEPS),
+                           "--profile", PROFILE_WINDOW, "--logdir", logdir])
+  run = json.loads(out.getvalue().strip().splitlines()[-1])
+  traces = [os.path.join(logdir, "profile", f)
+            for f in sorted(os.listdir(os.path.join(logdir, "profile")))]
+  with open(traces[0]) as f:
+    events = json.load(f)["traceEvents"]
+  kernels = sum(1 for e in events if e.get("cat") == "kernel")
+  profiled = {"window": PROFILE_WINDOW, "steps": run["steps"],
+              "traces": len(traces), "trace_bytes": os.path.getsize(
+                  traces[0]), "cuda_kernel_events": kernels,
+              "events": len(events)}
+  emit("qtopt_resume_profile", card=smi, **profiled)
+  if not (len(traces) == 1 and kernels > 0):
+    raise AssertionError(f"profile window: {profiled}")
+  result["profile_cuda_kernel_events"] = kernels
+  return result
+
+
+def run_qtopt_vector(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
+  """Slice 10's vector-actor phase (see the constants above). Raises when
+  a bar or a check fails; the starvation ratio is reported, not gated."""
+  from tensor2robot_tpu_torch.bin import run_qtopt_replay
+  from tensor2robot_tpu_torch.replay.loop import ReplayTrainLoop
+  result = {"card": smi}
+
+  smoke = {}
+  for s in LOOP_SEEDS:
+    start = time.perf_counter()
+    run = run_qtopt_replay.run(LOOP_SMOKE_STEPS, smoke=True,
+                               logdir=os.path.join(root, f"smoke_{s}"),
+                               seed=s, device=dev, vector_actors=True,
+                               actor_bench=s == LOOP_SEEDS[0])
+    buckets = [k for k in run["compile_counts"] if k.startswith("cem_bucket")]
+    line = {"seed": s, "steps": run["steps"],
+            "initial_eval_td": run["initial_eval"]["eval_td_error"],
+            "final_eval_td": run["final_eval"]["eval_td_error"],
+            "eval_td_reduction": run["eval_td_reduction"], "bar": LOOP_BAR,
+            "compile_counts": run["compile_counts"],
+            "episodes": run["episodes_collected"],
+            "env_steps": run["env_steps_collected"],
+            "param_refreshes": run["param_refreshes"],
+            "vector_actors": run["vector_actors"],
+            "breach_count": run["health"]["breach_count"],
+            "seconds": time.perf_counter() - start}
+    emit("qtopt_vector_smoke", card=smi, **line)
+    smoke[s] = line
+    if not (run["eval_td_reduction"] >= LOOP_BAR and run["vector_actors"]
+            and buckets == ["cem_bucket_4"]
+            and set(run["compile_counts"].values()) == {1}):
+      raise AssertionError(f"vector smoke at seed {s}: {line}")
+    if "actor_throughput" in run:
+      bench = run["actor_throughput"]
+      emit("qtopt_vector_actor_bench", card=smi, **bench)
+      if not set(bench["compile_counts"].values()) == {1}:
+        raise AssertionError(f"actor bench builds: {bench}")
+      result["actor_bench_speedup"] = bench["speedup"]
+  result["smoke"] = {s: line["eval_td_reduction"] for s, line in smoke.items()}
+
+  config = run_qtopt_replay.build_config(False, seed, vector_actors=True)
+  runs = {}
+  for name, alone in (("vector", False), ("alone", True)):
+    timed = drive_loop(ReplayTrainLoop(config, os.path.join(root, name),
+                                       device=dev),
+                       VECTOR_PRODUCTION_STEPS, gl, alone=alone)
+    run = timed.pop("run")
+    runs[name] = {
+        **timed, "steps": run["steps"],
+        "env_steps": run["env_steps_collected"],
+        "episodes": run["episodes_collected"],
+        "param_refreshes": run["param_refreshes"],
+        "compile_counts": run["compile_counts"],
+        "eval_td_first": run["eval_history"][0]["eval_td_error"],
+        "eval_td_last": run["eval_history"][-1]["eval_td_error"],
+        "breach_count": run["health"]["breach_count"]}
+    emit(f"qtopt_vector_production_{name}", card=smi, **runs[name])
+    if not (run["compile_counts"].get("cem_bucket_32") == 1
+            and set(run["compile_counts"].values()) == {1}
+            and run["vector_actors"]
+            and np.isfinite(runs[name]["eval_td_last"])):
+      raise AssertionError(f"vector production loop ({name}): {runs[name]}")
+  if runs["vector"]["param_refreshes"] < 1:
+    raise AssertionError("the vector production loop made no hot reload")
+  # The acting bucket's device time: one replay of the production policy's
+  # graph (the loop's critic, its CEM, the fleet's bucket), and the share
+  # of the vector loop's wall its replays held the card.
+  from tensor2robot_tpu_torch.replay.loop import _HotReloadPredictor
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_grasping as sg
+  from tensor2robot_tpu_torch.serving import BucketLadder, CEMFleetPolicy
+  model = ReplayTrainLoop._default_model(types.SimpleNamespace(config=config))
+  bucket = config.num_collectors * config.envs_per_collector
+  policy = CEMFleetPolicy(
+      _HotReloadPredictor(model, model.init_variables(
+          torch.Generator().manual_seed(seed), device=dev)),
+      action_size=config.action_size, num_samples=config.cem_num_samples,
+      num_elites=config.cem_num_elites, iterations=config.cem_iterations,
+      seed=seed, ladder=BucketLadder((bucket,)))
+  scenes = sg.sample_scenes(bucket, config.image_size, seed + 5)[0]
+  policy(list(scenes))
+  replay_ms = stream_ms(torch, lambda: policy._buckets[
+      (bucket, scenes.shape[1:], scenes.dtype)].graph.replay(), inner=3)
+  acting = {"bucket": bucket, "replay_device_ms": replay_ms,
+            "device_share_of_vector_run": runs["vector"][
+                "policy_graph_replays"] * replay_ms / 1e3
+            / runs["vector"]["wall_s"]}
+  emit("qtopt_vector_acting", card=smi, **acting)
+  del policy
+  ratio = (runs["alone"]["learner_steps_per_s"]
+           / runs["vector"]["learner_steps_per_s"])
+  result["production"] = {
+      "learner_steps_per_s": runs["vector"]["learner_steps_per_s"],
+      "learner_alone_steps_per_s": runs["alone"]["learner_steps_per_s"],
+      "alone_over_vector": ratio, "bar": STARVATION_BAR,
+      "within_bar": ratio <= STARVATION_BAR,
+      "env_steps_per_s": runs["vector"]["env_steps_per_s"],
+      "fill_s": runs["vector"]["fill_s"],
+      "policy_graph_replays": runs["vector"]["policy_graph_replays"],
+      "acting_replay_device_ms": replay_ms,
+      "acting_device_share": acting["device_share_of_vector_run"]}
   return result
 
 
@@ -2488,6 +2771,19 @@ def main(argv=None) -> int:
     start = time.perf_counter()
     loop_result = run_qtopt_loop(torch, gl, dev, args.seed, tmp, smi)
     emit("qtopt_loop", seconds=time.perf_counter() - start, **loop_result)
+
+  # Slice 10's main paths: the loop's checkpoints, resume and profiler
+  # window, and its vector actor; no TPU kernel runs on them.
+  with tempfile.TemporaryDirectory() as tmp:
+    start = time.perf_counter()
+    resume_result = run_qtopt_resume(torch, gl, dev, args.seed, tmp, smi)
+    emit("qtopt_resume", seconds=time.perf_counter() - start,
+         **resume_result)
+  with tempfile.TemporaryDirectory() as tmp:
+    start = time.perf_counter()
+    vector_result = run_qtopt_vector(torch, gl, dev, args.seed, tmp, smi)
+    emit("qtopt_vector", seconds=time.perf_counter() - start,
+         **vector_result)
 
   timing = time_spatial_softmax(torch, ss, feature_map)
   emit("kernel_timing", spatial_softmax=timing)

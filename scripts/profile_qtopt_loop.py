@@ -2,6 +2,7 @@
 """Where the closed QT-Opt loop's learner loses its time on one CUDA GPU.
 
     python3 scripts/profile_qtopt_loop.py [--steps N] [--intervals A,B]
+        [--modes fleet,uniform,vector,alone]
 
 Runs the production loop (``run_qtopt_replay``'s non-smoke config: the
 64x64 uint8 GroupNorm critic, batch 32, CEM 64/6/3, 4 collector threads
@@ -14,6 +15,8 @@ one process on one card, so they compare:
   Python's default is 0.005);
 - ``uniform``: the collectors act through a seeded uniform policy on the
   host (no device work, the same env stepping);
+- ``vector``: one ``VectorActor`` steps the same 32 envs in lockstep
+  through one bucket-32 CUDA graph (``vector_actors=True``);
 - ``alone``: the collectors stop as soon as the ring passes ``min_fill``.
 
 Prints one JSON line a run: learner steps/s from the end of the fill to
@@ -62,7 +65,8 @@ def run_loop(gl, steps: int, mode: str, interval: float, seed: int,
   from tensor2robot_tpu_torch.bin import run_qtopt_replay
   from tensor2robot_tpu_torch.replay import learner_bench
   from tensor2robot_tpu_torch.replay.loop import ReplayTrainLoop
-  config = run_qtopt_replay.build_config(False, seed)
+  config = run_qtopt_replay.build_config(False, seed,
+                                         vector_actors=mode == "vector")
   replay = ReplayTrainLoop(config, logdir)
   if mode == "uniform":
     replay._make_policy = lambda predictor: _UniformPolicy(
@@ -111,6 +115,9 @@ def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--steps", type=int, default=100)
   parser.add_argument("--intervals", default="0.005")
+  parser.add_argument("--modes", default="fleet,uniform,vector,alone",
+                      help="the setups to run, in order (fleet once per "
+                           "interval)")
   parser.add_argument("--seed", type=int, default=0)
   args = parser.parse_args(argv)
 
@@ -124,8 +131,12 @@ def main(argv=None) -> int:
   gl = importlib.import_module("tensor2robot_tpu_torch.ops.graph_launches")
   card = chip_smoke.nvidia_smi()
   default = sys.getswitchinterval()
-  runs = [("fleet", float(i)) for i in args.intervals.split(",")]
-  runs += [("uniform", default), ("alone", default)]
+  runs = []
+  for mode in args.modes.split(","):
+    if mode == "fleet":
+      runs += [("fleet", float(i)) for i in args.intervals.split(",")]
+    else:
+      runs.append((mode, default))
   with tempfile.TemporaryDirectory() as tmp:
     for i, (mode, interval) in enumerate(runs):
       print(json.dumps({"card": card, **run_loop(

@@ -2,6 +2,7 @@
 
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay --smoke --device cpu
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay --smoke
+    python -m tensor2robot_tpu_torch.bin.run_qtopt_replay --smoke --vector-actors
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay
 
 Counterpart of ``tensor2robot_tpu/bin/run_qtopt_replay.py``'s host path:
@@ -18,10 +19,17 @@ GroupNorm flagship critic, a 4-shard ring of 50,000). ``--out`` writes the
 same line to a file. ``--device`` is where the loop runs: the GPU unless
 ``cpu`` is asked for.
 
-``--device-resident``, ``--vector-actors`` and ``--anakin`` (item 10),
-``--mesh`` (item 15), a non-f32 ``--precision`` (item 11) and
-``--profile`` (item 8b) wait for later ``ROADMAP.md`` items and raise by
-name.
+``--vector-actors`` replaces the threaded collectors with one
+``VectorActor`` stepping every env in lockstep through one bucket pinned
+to the fleet (``replay/actor.py``); the line then carries an
+``actor_throughput`` block (vector against threaded acting at the same
+policy and env count, ``replay/actor_bench.py``; skip it with
+``--no-actor-bench``). ``--profile START,END`` traces that window of
+optimizer steps with ``torch.profiler`` into ``<logdir>/profile``.
+
+``--device-resident`` and ``--anakin`` (item 10), ``--mesh`` (item 15)
+and a non-f32 ``--precision`` (item 11) wait for later ``ROADMAP.md``
+items and raise by name.
 """
 
 from __future__ import annotations
@@ -33,15 +41,32 @@ import tempfile
 from tensor2robot_tpu_torch import Device
 
 
-def build_config(smoke: bool, seed: int, **waiting):
-  """The JAX CLI's smoke and full configs, field for field. `waiting`
-  takes the config fields of the paths that wait for later items
-  (device_resident, vector_actors, anakin, mesh_dp, profile_window,
-  precision); the config refuses each off its default by name."""
+def parse_profile(spec):
+  """'START,END' -> (start, end) optimizer-step window; None passthrough."""
+  if not spec:
+    return None
+  parts = spec.split(",")
+  if len(parts) != 2:
+    raise ValueError(f"--profile takes START,END steps, got {spec!r}")
+  try:
+    start, end = int(parts[0]), int(parts[1])
+  except ValueError:
+    raise ValueError(f"--profile takes integers, got {spec!r}")
+  if start < 0 or end <= start:
+    raise ValueError(f"--profile needs 0 <= START < END, got {spec!r}")
+  return start, end
+
+
+def build_config(smoke: bool, seed: int, **options):
+  """The JAX CLI's smoke and full configs, field for field. `options` are
+  further config fields (vector_actors, profile_window, the checkpoint
+  fields, and those of the paths that wait for later items:
+  device_resident, anakin, mesh_dp, precision, which the config refuses
+  off their defaults by name)."""
   from tensor2robot_tpu_torch.replay.loop import ReplayLoopConfig
   if smoke:
     return ReplayLoopConfig(seed=seed, envs_per_collector=4, batch_size=32,
-                            capacity=512, **waiting)
+                            capacity=512, **options)
   return ReplayLoopConfig(
       image_size=64, batch_size=32, capacity=50_000, min_fill=2_000,
       num_buffer_shards=4, num_collectors=4, envs_per_collector=8,
@@ -49,15 +74,17 @@ def build_config(smoke: bool, seed: int, **waiting):
       cem_iterations=3, refresh_every=200, eval_every=500,
       eval_batches=8, log_every=50, learning_rate=1e-4, seed=seed,
       megastep_inner=50, ingest_chunk=256, anakin_inner=200,
-      anakin_bank_scenes=4096, **waiting)
+      anakin_bank_scenes=4096, **options)
 
 
 def run(steps: int, smoke: bool, logdir: str, seed: int,
-        device: Device = None, **waiting) -> dict:
+        device: Device = None, actor_bench: bool = True, **options) -> dict:
   """The loop for `steps` optimizer steps: TinyQ under `smoke`, the
-  flagship critic otherwise. Returns the loop's result."""
+  flagship critic otherwise (`options`: config fields, as
+  ``build_config``). With vector actors and `actor_bench` the result
+  gains the ``actor_throughput`` block. Returns the loop's result."""
   from tensor2robot_tpu_torch.replay.loop import ReplayTrainLoop
-  config = build_config(smoke, seed, **waiting)
+  config = build_config(smoke, seed, **options)
   model = None  # the flagship QTOptGraspingModel
   if smoke:
     # The flagship's conv tower cannot learn to discriminate within a
@@ -69,6 +96,21 @@ def run(steps: int, smoke: bool, logdir: str, seed: int,
         optimizer_fn=optimizers.create_adam_optimizer(config.learning_rate))
   results = ReplayTrainLoop(config, logdir, model=model,
                             device=device).run(steps)
+  if config.vector_actors and actor_bench:
+    # Vector against threaded acting at the same policy and env count
+    # (collector-free; replay/actor_bench).
+    from tensor2robot_tpu_torch.replay.actor_bench import (
+        measure_actor_throughput,
+    )
+    results["actor_throughput"] = measure_actor_throughput(
+        image_size=config.image_size if smoke else 16,
+        action_size=config.action_size, max_attempts=config.max_attempts,
+        grasp_radius=config.grasp_radius,
+        exploration_epsilon=config.exploration_epsilon,
+        scripted_fraction=config.scripted_fraction,
+        cem_num_samples=config.cem_num_samples,
+        cem_num_elites=config.cem_num_elites,
+        cem_iterations=config.cem_iterations, seed=seed, device=device)
   results["mode"] = "smoke" if smoke else "full"
   results["metric"] = ("QT-Opt off-policy replay loop: eval Bellman "
                        "residual reduction")
@@ -87,7 +129,12 @@ def main(argv=None) -> None:
   parser.add_argument("--device-resident", action="store_true",
                       help="waits for ROADMAP.md item 10")
   parser.add_argument("--vector-actors", action="store_true",
-                      help="waits for ROADMAP.md item 10")
+                      help="one VectorActor steps every env through one "
+                           "bucket (the threaded collectors are the "
+                           "default)")
+  parser.add_argument("--no-actor-bench", action="store_true",
+                      help="skip the actor_throughput block of a "
+                           "--vector-actors run")
   parser.add_argument("--anakin", action="store_true",
                       help="waits for ROADMAP.md item 10")
   parser.add_argument("--mesh", default="0",
@@ -95,21 +142,23 @@ def main(argv=None) -> None:
   parser.add_argument("--precision", default="f32", choices=("f32", "bf16"),
                       help="CEM scoring tier; bf16 waits for item 11")
   parser.add_argument("--profile", default=None,
-                      help="START,END; waits for ROADMAP.md item 8b")
+                      help="START,END optimizer-step window traced with "
+                           "torch.profiler into <logdir>/profile")
   parser.add_argument("--logdir", default=None,
                       help="metric files' directory (default: a tempdir)")
   parser.add_argument("--seed", type=int, default=0)
   parser.add_argument("--out", default=None,
                       help="also write the JSON line to this file")
   args = parser.parse_args(argv)
-  waiting = dict(device_resident=args.device_resident,
+  options = dict(device_resident=args.device_resident,
                  vector_actors=args.vector_actors, anakin=args.anakin,
                  mesh_dp=0 if args.mesh == "0" else args.mesh,
-                 profile_window=args.profile, precision=args.precision)
+                 profile_window=parse_profile(args.profile),
+                 precision=args.precision)
   steps = args.steps or (300 if args.smoke else 10_000)
   logdir = args.logdir or tempfile.mkdtemp(prefix="qtopt_replay_")
   results = run(steps, args.smoke, logdir, args.seed, device=args.device,
-                **waiting)
+                actor_bench=not args.no_actor_bench, **options)
   line = json.dumps(results)
   if args.out:
     with open(args.out, "w") as f:

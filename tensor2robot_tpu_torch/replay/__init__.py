@@ -12,7 +12,10 @@
   ``serving.CEMFleetPolicy`` over a hot-reloaded predictor while the
   learner trains);
 - ``learner_bench``: the learner's host step, its throughput bench and
-  the off-policy learning check.
+  the off-policy learning check;
+- ``actor``: ``VectorActor`` and ``ActorFleet``, every env stepped in
+  lockstep through one bucket; ``actor_bench``: vector against threaded
+  acting.
 
 The device-resident and fused loops wait for ``ROADMAP.md``'s flagship
 item 10.

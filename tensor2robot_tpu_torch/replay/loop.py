@@ -20,6 +20,11 @@ a snapshot of the EMA variables:
 - ``ReplayTrainLoop``: owns every piece; ``run(num_steps)`` drives the
   host path (the learner's step is ``learner_bench.host_learner_step``)
   and returns the JAX result's keys, less the obs tier's ``obs`` block.
+  With ``vector_actors`` one ``actor.VectorActor`` steps every env through
+  one bucket pinned to the fleet; with ``checkpoint_every`` it saves the
+  train state with a sidecar (target net, ring, counters, eval history,
+  health baselines) and with ``resume`` continues from the newest valid
+  one at its exact step; ``profile_window`` traces a range of steps.
 
 **Threads and the card.** The collectors and the learner share one
 device and its default stream, so work is ordered as it is submitted:
@@ -28,15 +33,19 @@ that reads it. The policy's lock covers each call's copy-in, replay and
 copy-out. The collectors' bucket is captured before their threads start,
 so no capture ever runs beside another thread's launches.
 
-Not ported, and named where asked for: the device-resident, vector-actor
-and Anakin paths (item 10), the mesh (item 15), the loop's checkpoints,
-resume and profiler window (item 8b), and the metric registry, trace
-spans, flight recorder, watchdog and fault seam (the obs tier, item 15).
+Not ported, and named where asked for: the device-resident and Anakin
+paths (item 10), the mesh and the checkpoints' mesh stamp (item 15), and
+the metric registry, trace spans, flight recorder, watchdog and fault
+seam (the obs tier, item 15).
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import shutil
 import threading
+import types
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -56,11 +65,16 @@ from tensor2robot_tpu_torch.replay.ring_buffer import (
 )
 from tensor2robot_tpu_torch.research.qtopt import cem
 from tensor2robot_tpu_torch.research.qtopt import synthetic_grasping as sg
+from tensor2robot_tpu_torch.serving.bucketing import BucketLadder
 from tensor2robot_tpu_torch.serving.policy import CEMFleetPolicy
 from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+from tensor2robot_tpu_torch.train import checkpoints as checkpoints_lib
 from tensor2robot_tpu_torch.train.trainer import Trainer
 from tensor2robot_tpu_torch.utils import backoff, optimizers
 from tensor2robot_tpu_torch.utils.metric_writer import MetricWriter
+from tensor2robot_tpu_torch.utils.profiling import ProfilerHook
+
+_log = logging.getLogger(__name__)
 
 
 def transition_spec(image_size: int, action_size: int) -> ts.TensorSpecStruct:
@@ -206,25 +220,20 @@ class CollectorWorker:
 # a config that asks for one raises by name.
 _WAITING = {
     "device_resident": (False, "item 10 (the device-resident ring)"),
-    "vector_actors": (False, "item 10 (the vector actor fleet)"),
     "anakin": (False, "item 10 (the Anakin loop)"),
     "mesh_dp": (0, "item 15 (the parallel tier)"),
     "mesh_tp": (1, "item 15 (the parallel tier)"),
     "zero1": (None, "item 15 (the parallel tier)"),
-    "checkpoint_every": (0, "item 8b (the replay loop's checkpoints)"),
-    "resume": (False, "item 8b (the replay loop's checkpoints)"),
-    "checkpoint_dir": (None, "item 8b (the replay loop's checkpoints)"),
-    "profile_window": (None, "item 8b (the replay loop's profiler window)"),
 }
 
 
 @dataclass
 class ReplayLoopConfig:
   """Knobs of the replay loop, field for field with the JAX defaults (the
-  chipless smoke scale). The host loop reads the first block and the
-  health fields; the rest belong to paths that wait for later items, and
-  setting one off its default raises NotImplementedError naming the
-  item."""
+  chipless smoke scale). The host loop reads the first block,
+  ``vector_actors``, the checkpoint, health and profile fields; the rest
+  belong to paths that wait for later items, and setting one off its
+  default raises NotImplementedError naming the item."""
   image_size: int = 16
   action_size: int = 4
   batch_size: int = 32
@@ -439,7 +448,16 @@ class ReplayTrainLoop:
     self.feeder = ReplayFeeder(self.queue, self.buffer, config.min_fill)
     # name -> builds of the loop's own programs; each stays 1.
     self.compile_counts: Dict[str, int] = {}
-    self._collectors: List[CollectorWorker] = []
+    self._collectors: List = []
+    self._ckpt_manager = None
+    self._saved_step = None
+    if config.checkpoint_every or config.resume:
+      self.checkpoint_root = (config.checkpoint_dir
+                              or os.path.join(logdir, "checkpoints"))
+      # Synchronous saves: the sidecar lands after the step, so a present
+      # sidecar means a usable checkpoint.
+      self._ckpt_manager = checkpoints_lib.CheckpointManager(
+          self.checkpoint_root, max_to_keep=config.checkpoint_keep)
 
   # --- helpers -------------------------------------------------------------
 
@@ -467,12 +485,22 @@ class ReplayTrainLoop:
     return {key: value.detach().clone()
             for key, value in state.variables(use_ema=True).items()}
 
+  def _acting_batch(self) -> int:
+    """The envs one acting call covers: the whole fleet for the vector
+    actor, one collector's otherwise."""
+    c = self.config
+    return (c.num_collectors * c.envs_per_collector if c.vector_actors
+            else c.envs_per_collector)
+
   def _make_policy(self, predictor) -> CEMFleetPolicy:
     c = self.config
+    # The vector actor pins the ladder to its batch: acting builds exactly
+    # one bucket (cem_bucket_<N> == 1), and the fleet batch never pads.
+    ladder = BucketLadder((self._acting_batch(),)) if c.vector_actors else None
     return CEMFleetPolicy(
         predictor, action_size=c.action_size,
         num_samples=c.cem_num_samples, num_elites=c.cem_num_elites,
-        iterations=c.cem_iterations, seed=c.seed + 7,
+        iterations=c.cem_iterations, seed=c.seed + 7, ladder=ladder,
         precision=c.precision)
 
   def _eval(self, updater: BellmanUpdater, variables, eval_batches,
@@ -481,6 +509,20 @@ class ReplayTrainLoop:
 
   def _start_collectors(self, policy) -> None:
     c = self.config
+    if c.vector_actors:
+      # One VectorActor over every env the threaded path spreads across
+      # num_collectors threads; the actor list takes the collectors'
+      # place in the shared shutdown and accounting paths.
+      from tensor2robot_tpu_torch.replay.actor import ActorFleet
+      fleet = ActorFleet(
+          policy, self.queue, c.image_size,
+          total_envs=self._acting_batch(), max_attempts=c.max_attempts,
+          seed=c.seed, grasp_radius=c.grasp_radius,
+          exploration_epsilon=c.exploration_epsilon,
+          scripted_fraction=c.scripted_fraction)
+      self._collectors = fleet.actors
+      fleet.start()
+      return
     self._collectors = [
         CollectorWorker(policy, self.queue, c.image_size,
                         num_envs=c.envs_per_collector,
@@ -512,6 +554,27 @@ class ReplayTrainLoop:
     """One metric record (the JAX loop's keys, straight to the writer;
     the registry bridge waits for item 15)."""
     self.writer.write_scalars(step, scalars)
+
+  def _profile_hook(self) -> Optional[ProfilerHook]:
+    """The ``profile_window`` capture: ProfilerHook's window over the
+    loop's steps, into ``<logdir>/profile``. The guarded start_trace makes
+    a second open window skip rather than raise."""
+    if not self.config.profile_window:
+      return None
+    start, end = self.config.profile_window
+    return ProfilerHook(start_step=start, end_step=end,
+                        log_dir=os.path.join(self.logdir, "profile"),
+                        device=self.trainer.device)
+
+  @staticmethod
+  def _profile_step(hook, step: int, final: bool = False) -> None:
+    if hook is None:
+      return
+    shim = types.SimpleNamespace(step=step)
+    if final:
+      hook.end(shim)
+    else:
+      hook.after_step(shim, {})
 
   def _host_param_health(self, state) -> Dict[str, float]:
     """The parameters' non-finite count and global norm."""
@@ -578,6 +641,91 @@ class ReplayTrainLoop:
         "logdir": self.logdir,
     }
 
+  # --- crash-resume checkpoints --------------------------------------------
+
+  def _checkpoint_fingerprint(self) -> Dict:
+    """The shape-critical slice of the config a resume must match: a
+    drifted batch or capacity would change every fixed shape, so it
+    refuses."""
+    c = self.config
+    return {"image_size": c.image_size, "action_size": c.action_size,
+            "batch_size": c.batch_size, "capacity": c.capacity,
+            "num_buffer_shards": c.num_buffer_shards,
+            "prioritized": c.prioritized, "gamma": c.gamma,
+            "seed": c.seed, "precision": c.precision}
+
+  def _save_checkpoint(self, step: int, state, updater,
+                       initial_eval: Dict, eval_history: List) -> None:
+    """One loop checkpoint: the train state first, then the sidecar (the
+    lagged target, the ring's whole state, the label-seed counter, the
+    ingest counters, the eval history and the health baselines), so a
+    save cut between the two leaves a step that validation rejects.
+
+    A step this loop saved already is the health snapshot of this same
+    step (the state has not moved since): its state stays, and the sidecar
+    is written again with the eval history as it stands now. A step left
+    by an earlier run past the point this one resumed from is replaced."""
+    if step != self._saved_step:
+      stale = os.path.join(self.checkpoint_root, str(step))
+      if os.path.isdir(stale):
+        shutil.rmtree(stale)
+      self._ckpt_manager.save(step, state)
+      self._saved_step = step
+    target_vars, target_meta = updater.target_state()
+    buffer_arrays, buffer_meta = self.buffer.state_dict()
+    meta = {
+        "fingerprint": self._checkpoint_fingerprint(),
+        "target": target_meta,
+        "next_label_seed": updater.next_label_seed,
+        "buffer_meta": buffer_meta,
+        "queue_counters": {key: value
+                           for key, value in self.queue.stats().items()
+                           if key != "pending"},
+        "initial_eval": initial_eval,
+        "eval_history": eval_history,
+    }
+    # The drift baselines ride the sidecar: without them a resumed loop
+    # would re-warm its EWMA state, blind to drift right after a restart.
+    if self.health_monitor is not None:
+      meta["health"] = self.health_monitor.state_dict()
+    checkpoints_lib.save_sidecar(
+        self.checkpoint_root, step,
+        trees={} if target_vars is None else {"target": target_vars},
+        flats={"buffer": buffer_arrays}, meta=meta)
+    checkpoints_lib.prune_sidecars(self.checkpoint_root,
+                                   self._ckpt_manager.all_steps())
+
+  def _restore_checkpoint(self, state):
+    """Restores the newest valid checkpoint: returns (state, trees, meta),
+    or None when none is valid (then the loop starts fresh). Newer steps
+    it rejects are logged by ``latest_resumable_step``."""
+    step = checkpoints_lib.latest_resumable_step(self.checkpoint_root)
+    if step is None:
+      return None
+    state = self._ckpt_manager.restore(state, step=step)
+    trees, flats, meta = checkpoints_lib.load_sidecar(
+        self.checkpoint_root, step)
+    fingerprint = self._checkpoint_fingerprint()
+    if meta.get("fingerprint") != fingerprint:
+      raise ValueError(
+          "resume fingerprint mismatch: checkpoint was written by "
+          f"{meta.get('fingerprint')}, this loop is {fingerprint}; resume "
+          "needs an identically configured loop (shapes would drift "
+          "otherwise)")
+    if int(state.step) != int(step):
+      raise ValueError(f"restored TrainState.step {int(state.step)} != "
+                       f"checkpoint step {step}")
+    if self.health_monitor is not None and meta.get("health"):
+      # The drift rules are armed from the first resumed step.
+      self.health_monitor.load_state_dict(meta["health"])
+    self.buffer.load_state_dict(flats["buffer"], meta["buffer_meta"])
+    counters = meta.get("queue_counters", {})
+    if counters:
+      self.queue.restore_counters(**counters)
+    _log.info("replay loop resumed at step %d from %s", step,
+              self.checkpoint_root)
+    return state, trees, meta
+
   # --- the loop ------------------------------------------------------------
 
   def run(self, num_steps: int) -> Dict:
@@ -591,6 +739,16 @@ class ReplayTrainLoop:
     )
     c = self.config
     state = self.trainer.create_train_state()
+    # Crash-resume: the newest valid checkpoint (train state, lagged
+    # target, ring, counters, eval history) and its exact step; nothing
+    # valid on disk means a fresh start.
+    start_step = 0
+    resume_trees = resume_meta = None
+    if c.resume and self._ckpt_manager is not None:
+      loaded = self._restore_checkpoint(state)
+      if loaded is not None:
+        state, resume_trees, resume_meta = loaded
+        start_step = int(resume_meta["step"])
     # The snapshot feeds the collectors' predictor and the target net
     # (refreshed every refresh_every steps); the per-step TD and eval
     # read the live EMA variables.
@@ -603,32 +761,54 @@ class ReplayTrainLoop:
         num_elites=c.cem_num_elites, iterations=c.cem_iterations,
         seed=c.seed + 13, polyak_tau=c.polyak_tau, precision=c.precision,
         device=self.trainer.device)
+    if resume_meta is not None:
+      # The constructor seeded the target with the restored online
+      # variables: re-seat the lagged target and the label-seed counter,
+      # so post-resume labels continue the interrupted streams.
+      updater.restore_target_state(resume_trees.get("target"),
+                                   resume_meta["target"])
+      updater.restore_label_seed(resume_meta["next_label_seed"])
+    checkpointing = self._ckpt_manager is not None and c.checkpoint_every
+    profile_hook = self._profile_hook()
     blank = np.zeros((c.image_size, c.image_size, 3), np.uint8)
     try:
-      # The collectors' bucket is built here, on this thread: on the GPU
-      # no capture then runs beside another thread's launches.
+      # The acting bucket is built here, on this thread: on the GPU no
+      # capture then runs beside another thread's launches.
       policy.warm(lambda i: blank,
-                  sizes=(policy.ladder.bucket_for(c.envs_per_collector),))
+                  sizes=(policy.ladder.bucket_for(self._acting_batch()),))
       self._start_collectors(policy)
       self._wait_for_min_fill()
       eval_batches, eval_q_stars = eval_transitions(c)
-      initial_eval = self._eval(updater, state.variables(use_ema=True),
-                                eval_batches, eval_q_stars)
-      self._emit(0, {"replay/" + k: v for k, v in initial_eval.items()})
-      eval_history = [dict(step=0, **initial_eval)]
+      if resume_meta is None:
+        initial_eval = self._eval(updater, state.variables(use_ema=True),
+                                  eval_batches, eval_q_stars)
+        self._emit(0, {"replay/" + k: v for k, v in initial_eval.items()})
+        eval_history = [dict(step=0, **initial_eval)]
+      else:
+        # The eval series continues the interrupted run's: the reduction
+        # keeps its original step-0 baseline.
+        initial_eval = dict(resume_meta["initial_eval"])
+        eval_history = [dict(entry) for entry in resume_meta["eval_history"]]
       with_health = self.health_monitor is not None
-      for step in range(1, num_steps + 1):
+      for step in range(start_step + 1, num_steps + 1):
         self.feeder.drain()
         state, metrics, td, targets, q_next, info = host_learner_step(
             self.trainer, updater, self.buffer, state,
             with_health=with_health)
-        if step == 1:
+        if step == start_step + 1:
           self._built("train_step")
+        self._profile_step(profile_hook, step)
         if with_health:
+          snapshot_fn = None
+          if checkpointing:
+            # The auto-action: freeze the breaching state as a checkpoint
+            # before any halt, so the post-mortem has the exact params.
+            snapshot_fn = lambda: self._save_checkpoint(  # noqa: E731
+                step, state, updater, initial_eval, eval_history)
           # The JAX host loop's summary: grad stats from the step's
           # metrics, param stats from their reductions, the rest from
           # this step's host data; q is the Bellman bootstrap Q.
-          self.health_monitor.observe(step, {
+          self.health_monitor.observe_with_snapshot(step, {
               "health/nonfinite_grads": float(metrics["grads_nonfinite"]),
               "health/grad_norm": float(metrics["grad_norm"]),
               "health/nonfinite_targets": float(
@@ -641,7 +821,7 @@ class ReplayTrainLoop:
                   self.buffer.priority_entropy()),
               "health/sample_age": float(np.mean(info.staleness)),
               **self._host_param_health(state),
-          })
+          }, snapshot_fn=snapshot_fn)
         if step % c.refresh_every == 0:
           # The hot reload: collectors and the target net take the
           # freshest EMA variables; no bucket is rebuilt.
@@ -668,8 +848,14 @@ class ReplayTrainLoop:
                              eval_batches, eval_q_stars)
           eval_history.append(dict(step=step, **evals))
           self._emit(step, {"replay/" + k: v for k, v in evals.items()})
+        if checkpointing and step % c.checkpoint_every == 0:
+          self._save_checkpoint(step, state, updater, initial_eval,
+                                eval_history)
     finally:
-      collector_errors = self._shutdown_collectors()
+      try:
+        self._profile_step(profile_hook, num_steps, final=True)
+      finally:
+        collector_errors = self._shutdown_collectors()
     if collector_errors:
       raise RuntimeError(
           f"{len(collector_errors)} collector error(s); first shown"

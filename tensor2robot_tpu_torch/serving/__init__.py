@@ -3,9 +3,10 @@
 Counterpart of ``tensor2robot_tpu/serving``'s core: ``BucketLadder``
 (``bucketing.py``) pads each flush up to a small fixed ladder of batch
 sizes, and ``CEMFleetPolicy`` (``policy.py``) runs the CEM control step
-for a whole bucket at once, one CUDA graph per bucket on the GPU. The
-micro-batcher, SLO classes, router, rollout and front door wait for
-``ROADMAP.md``'s flagship items 9 and 15.
+for a whole bucket at once, one CUDA graph per bucket on the GPU.
+``fault_bench.py`` holds the learner's crash-resume parity harness. The
+micro-batcher, SLO classes, router, rollout, front door and the rest of
+the fault bench wait for ``ROADMAP.md``'s flagship items 9 and 15.
 """
 
 from tensor2robot_tpu_torch.serving.bucketing import (

@@ -18,11 +18,20 @@ Warm start reads parameters from a port run or step directory, or from a
 ``variables.npz`` (an export of either package), and merges them in flax
 path space (``bridge.py``), so an ``assignment_map`` written for the JAX
 package means the same here.
+
+The replay loop's crash-resume checkpoints pair a step directory with a
+**sidecar** beside it, ``<directory>/sidecar-<step>/``, in the JAX
+package's layout byte for byte (``<name>.npz`` trees through
+``export/variables_io``, flat arrays through ``np.savez``, ``meta.json``
+with ``_trees``, ``_flats`` and ``step``), so either package reads the
+other's sidecars. ``mesh_geometry`` and ``validate_restore_mesh`` wait for
+``ROADMAP.md``'s flagship item 15 (the parallel tier).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import shutil
@@ -280,3 +289,163 @@ def merge_params(target: Mapping[str, Any], restored: Mapping[str, Any],
           "prefixes against the checkpoint and model param names.",
           source, (assignment_map or {}).get(source))
   return merged
+
+
+# --- the replay loop's sidecars and resume validation ------------------------
+#
+# A loop checkpoint is the step directory (``state.pt``) plus a sidecar
+# holding what the train state does not: the lagged target net, the replay
+# ring's whole state, the label-seed counter and the eval history. The
+# sidecar is written after the step (tmp directory, then os.replace), so a
+# present sidecar means a usable checkpoint, and a save cut between the two
+# leaves a step without a sidecar, which validation rejects.
+
+SIDECAR_PREFIX = "sidecar-"
+SIDECAR_META = "meta.json"
+
+
+def sidecar_dir(root: str, step: int) -> str:
+  return os.path.join(os.path.abspath(root), f"{SIDECAR_PREFIX}{step}")
+
+
+def save_sidecar(root: str, step: int, trees=None, flats=None,
+                 meta: Optional[dict] = None) -> str:
+  """Writes the sidecar for `step` atomically (tmp directory, then
+  os.replace) and returns its path.
+
+  Args:
+    root: the checkpoint root (the CheckpointManager's directory).
+    step: the optimizer step (the step directory's).
+    trees: {name: nested {str: array or tensor} tree}; each lands as
+      ``<name>.npz`` through ``export/variables_io`` (keys without "/").
+      The target net goes here.
+    flats: {name: flat {str: np.ndarray}}; each lands as a plain
+      ``np.savez`` ``<name>.npz`` with the keys verbatim ("/" allowed).
+      The replay ring's state goes here.
+    meta: a JSON-able dict, written as ``meta.json`` with the npz
+      manifests under ``_trees`` / ``_flats`` and the step.
+  """
+  trees = trees or {}
+  flats = flats or {}
+  overlap = set(trees) & set(flats)
+  if overlap:
+    raise ValueError(f"sidecar entry names collide: {sorted(overlap)}")
+  final = sidecar_dir(root, step)
+  tmp = final + ".tmp"
+  if os.path.isdir(tmp):
+    shutil.rmtree(tmp)
+  os.makedirs(tmp, exist_ok=True)
+  for name, tree in trees.items():
+    variables_io.save_variables(os.path.join(tmp, f"{name}.npz"), tree)
+  for name, flat in flats.items():
+    with open(os.path.join(tmp, f"{name}.npz"), "wb") as f:
+      np.savez(f, **{key: np.asarray(value) for key, value in flat.items()})
+  meta = dict(meta or {})
+  meta["_trees"] = sorted(trees)
+  meta["_flats"] = sorted(flats)
+  meta["step"] = int(step)
+  with open(os.path.join(tmp, SIDECAR_META), "w") as f:
+    json.dump(meta, f)
+  if os.path.isdir(final):
+    shutil.rmtree(final)
+  os.replace(tmp, final)
+  return final
+
+
+def load_sidecar(root: str, step: int):
+  """(trees, flats, meta) of `step`'s sidecar; trees come back as CPU
+  tensors, flats as arrays. Raises with the defect named when the sidecar
+  is missing or damaged; every npz entry is read in full, so a truncated
+  write fails its zip CRC here."""
+  directory = sidecar_dir(root, step)
+  meta_path = os.path.join(directory, SIDECAR_META)
+  if not os.path.isfile(meta_path):
+    raise FileNotFoundError(f"sidecar meta missing at {meta_path}")
+  with open(meta_path) as f:
+    meta = json.load(f)
+  trees = {name: variables_io.load_variables(
+      os.path.join(directory, f"{name}.npz"))
+      for name in meta.get("_trees", [])}
+  flats = {}
+  for name in meta.get("_flats", []):
+    with np.load(os.path.join(directory, f"{name}.npz")) as data:
+      flats[name] = {key: data[key] for key in data.files}
+  return trees, flats, meta
+
+
+def validate_checkpoint_dir(root: str, step: int,
+                            require_sidecar: bool = True):
+  """(ok, reason): is step `step` under `root` a complete checkpoint? Its
+  ``<step>/state.pt`` must exist and load in full (``CheckpointManager.save``
+  writes it under a temporary name and renames it whole), and its sidecar's
+  meta must parse, every npz it names must read back, and its step must be
+  `step`. Nothing is restored."""
+  root = os.path.abspath(root)
+  step_dir = os.path.join(root, str(step))
+  if not os.path.isdir(step_dir):
+    return False, f"step dir missing: {step_dir}"
+  state_file = os.path.join(step_dir, STATE_FILE)
+  if not os.path.isfile(state_file):
+    return False, f"{STATE_FILE} missing in {step_dir}"
+  try:
+    torch.load(state_file, map_location="cpu", weights_only=True)
+  except Exception as e:  # noqa: BLE001 — the reason names it
+    return False, f"{STATE_FILE} unreadable: {type(e).__name__}: {e}"
+  if not require_sidecar:
+    return True, "ok"
+  directory = sidecar_dir(root, step)
+  if not os.path.isdir(directory):
+    return False, f"sidecar missing: {directory}"
+  try:
+    _, _, meta = load_sidecar(root, step)
+  except Exception as e:  # noqa: BLE001 — the reason names it
+    return False, f"sidecar unreadable: {type(e).__name__}: {e}"
+  if int(meta.get("step", -1)) != int(step):
+    return False, f"sidecar step {meta.get('step')} != dir step {step}"
+  return True, "ok"
+
+
+def list_checkpoint_steps(root: str) -> List[int]:
+  """Every numeric directory under `root`, ascending, with or without a
+  ``state.pt`` (validation rejects an incomplete one and says why)."""
+  root = os.path.abspath(root)
+  if not os.path.isdir(root):
+    return []
+  return sorted(int(e) for e in os.listdir(root)
+                if e.isdigit() and os.path.isdir(os.path.join(root, e)))
+
+
+def latest_resumable_step(root: str, recorder=None) -> Optional[int]:
+  """The newest step under `root` that validates; None when none does.
+  Every newer step it skips is logged at warning level with its reason
+  and, given a flight `recorder`, triggered there as
+  ``checkpoint_rejected``: a resume never skips a damaged checkpoint
+  silently."""
+  for step in reversed(list_checkpoint_steps(root)):
+    ok, reason = validate_checkpoint_dir(root, step)
+    if ok:
+      return step
+    _log.warning("checkpoint step %d under %s rejected: %s", step, root,
+                 reason)
+    if recorder is not None:
+      try:
+        recorder.trigger("checkpoint_rejected", step=int(step),
+                         detail=reason, root=root)
+      except Exception:  # noqa: BLE001 — the warning above stands
+        pass
+  return None
+
+
+def prune_sidecars(root: str, keep_steps) -> None:
+  """Removes the sidecars whose step the manager's ``max_to_keep`` pruned
+  (the manager owns step retention; sidecars follow it)."""
+  root = os.path.abspath(root)
+  if not os.path.isdir(root):
+    return
+  keep = {int(s) for s in keep_steps}
+  for entry in os.listdir(root):
+    if not entry.startswith(SIDECAR_PREFIX):
+      continue
+    suffix = entry[len(SIDECAR_PREFIX):].split(".")[0]
+    if suffix.isdigit() and int(suffix) not in keep:
+      shutil.rmtree(os.path.join(root, entry), ignore_errors=True)

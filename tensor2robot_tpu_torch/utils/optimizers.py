@@ -116,8 +116,12 @@ def load_state(optimizer: torch.optim.Optimizer, state_dict) -> None:
   """``optimizer.load_state_dict`` that keeps the ``capturable`` flag the
   optimizer was built with (``load_state_dict`` takes the saving one's):
   a CUDA run's checkpoint resumes on the CPU, and a CPU run's on the GPU
-  stays graphable. Adam's step counts move to where the flag puts them."""
+  stays graphable. Adam's step counts move to where the flag puts them.
+  State tensors the optimizer already holds (a CUDA graph may have
+  captured them) take the loaded values in place and stay the same
+  tensors."""
   built = [group.get("capturable") for group in optimizer.param_groups]
+  held = {param: dict(state) for param, state in optimizer.state.items()}
   optimizer.load_state_dict(state_dict)
   for group, capturable in zip(optimizer.param_groups, built):
     if capturable is None:
@@ -128,6 +132,16 @@ def load_state(optimizer: torch.optim.Optimizer, state_dict) -> None:
       if "step" in state:
         state["step"] = state["step"].to(
             param.device if capturable else "cpu", torch.float32)
+  with torch.no_grad():
+    for param, old in held.items():
+      state = optimizer.state.get(param, {})
+      for key, tensor in old.items():
+        loaded = state.get(key)
+        if (isinstance(tensor, torch.Tensor)
+            and isinstance(loaded, torch.Tensor)
+            and loaded.shape == tensor.shape):
+          tensor.copy_(loaded)
+          state[key] = tensor
 
 
 @configurable

@@ -403,6 +403,8 @@ print(json.dumps({"imported": names, "banned": banned}))
                "bin.run_capability_checks", "replay.sum_tree",
                "replay.ring_buffer", "replay.ingest", "replay.bellman",
                "replay.loop", "replay.learner_bench", "serving.bucketing",
-               "serving.policy", "obs.health", "bin.run_qtopt_replay"):
+               "serving.policy", "obs.health", "bin.run_qtopt_replay",
+               "replay.actor", "replay.actor_bench", "utils.profiling",
+               "serving.fault_bench"):
     assert f"tensor2robot_tpu_torch.{name}" in report["imported"]
   assert report["banned"] == []

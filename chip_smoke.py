@@ -75,6 +75,13 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   ``VectorActor`` stepping every env through one bucket: the smoke's bar
   at seeds 0 and 1, the production loop's learner beside the actor and
   alone, and the vector-against-threaded actor bench.
+- slice 11 runs the learner device-resident (``qtopt_device``): the ring
+  and its sum tree on the card, and the megastep, K sample -> label ->
+  train -> reprioritize iterations a dispatch as CUDA graphs, held against
+  its eager iterations bit for bit (TinyQ, and the 64x64 critic at K=50
+  with CEM 64/6/3); ``run_qtopt_replay --smoke --device-resident`` to the
+  JAX bar at seeds 0 and 1 with the learner bench; the production loop
+  beside one vector actor and alone; and fused resume parity.
 
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
@@ -86,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import importlib
 import json
 import logging
@@ -244,7 +252,7 @@ LABEL_FACTORED_ATOL = 1e-5
 # Slice 9: the closed QT-Opt loop. (a) run_qtopt_replay --smoke (TinyQ,
 # the JAX smoke's bar) at two seeds; (b) the production loop of the JAX
 # CLI's non-smoke config (collectors acting through CEMFleetPolicy's
-# bucket-8 graph while the learner trains) for 100 steps (the collector
+# bucket-8 graph while the learner trains) for 50 steps (the collector
 # threads' env stepping holds the interpreter, and the eager learner runs
 # at ~1.3 steps/s beside them on an H100, against ~27 alone:
 # scripts/profile_qtopt_loop.py); (c) CEMFleetPolicy at the published
@@ -254,10 +262,10 @@ LABEL_FACTORED_ATOL = 1e-5
 LOOP_SEEDS = (0, 1)
 LOOP_BAR = 0.30
 LOOP_SMOKE_STEPS = 300
-# 100 steps (200 before slice 10's phases joined, to keep the script near
-# half its time limit): no hot reload; the vector production loop of
-# slice 10 covers one.
-LOOP_PRODUCTION_STEPS = 100
+# 50 steps (200 before slice 10's phases joined, 100 before slice 11's, to
+# keep the script near half its time limit): no hot reload; the vector
+# production loop of slice 10 covers one.
+LOOP_PRODUCTION_STEPS = 50
 FLEET_RUNGS = (1, 2, 4, 8, 16)
 FLEET_RELOADS = 3
 FLEET_CALLS = 7
@@ -290,10 +298,13 @@ def device_ms(torch, fn, inner: int = 50, reps: int = 7) -> float:
     for _ in range(3):
       fn()
   torch.cuda.current_stream().wait_stream(stream)
+  from tensor2robot_tpu_torch.ops import graph_launches
   graph = torch.cuda.CUDAGraph()
-  with torch.cuda.graph(graph):
+  # Its tally is never replayed: the timing replays count no launches.
+  with graph_launches.capture(graph, stream):
     for _ in range(inner):
       fn()
+  torch.cuda.current_stream().wait_stream(stream)
   graph.replay()
   torch.cuda.synchronize()
   times = []
@@ -2602,6 +2613,336 @@ def run_qtopt_vector(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
   return result
 
 
+# Slice 11: the device-resident learner. (a) The megastep's CUDA graphs
+# against its eager iterations, bit for bit with cuDNN deterministic:
+# parameters, Adam's state, the ring, the tree and the metrics over 3
+# dispatches. TinyQ at K=4 and the production 64x64 critic at K=50, CEM
+# 64/6/3, each one graph of the K iterations, with the capture's seconds
+# and memory and a dispatch's device time. (b) run_qtopt_replay
+# --smoke --device-resident at two seeds: the 0.30 bar, `megastep` and
+# `device_extend` built once, no `train_step`; seed 0 carries the learner
+# bench. (c) The production device-resident loop (the JAX CLI's non-smoke
+# config: 64x64, batch 32, ring 50,000, K 50, ingest chunk 256) beside one
+# vector actor over 32 envs and alone: 400 steps, so 4 graphed dispatches
+# follow the warm-up, the capture, the profiled dispatch and the one that
+# waits for the trace's export; steps/s over the whole window (from the
+# fill's end) and over those steady dispatches, the one-time cost of the
+# eager first dispatch and the capture, the profiler's idle share of one
+# dispatch, peak memory. (d) Fused resume
+# parity, TinyQ and the flagship. The bars are reported, not gated: the
+# card idle under 0.2 of a dispatch alone, the bench's megastep
+# host_blocked_fraction median <= 0.05, its speedup max >= 2.0 and median
+# >= 1.5 (the JAX bench's).
+DEVICE_TINY_K = 4
+DEVICE_FLAGSHIP_K = 50
+DEVICE_RING = 1024
+DEVICE_PRODUCTION_STEPS = 400
+DEVICE_PROFILE_WINDOW = (100, 101)  # the dispatch that ends at step 150
+DEVICE_IDLE_BAR = 0.2
+DEVICE_BLOCKED_BAR = 0.05
+DEVICE_SPEEDUP_BARS = {"max": 2.0, "median": 1.5}
+
+
+def megastep_learner(torch, dev, flagship: bool, inner_steps: int,
+                     graphs: bool, seed: int = 0):
+  """(state, ring, learner): a MegastepLearner with the health keys over a
+  prioritized ring of DEVICE_RING synthetic transitions at batch 32;
+  TinyQ at 16x16 (the smoke's CEM 16/4/2) or the production loop's 64x64
+  critic (CEM 64/6/3)."""
+  from tensor2robot_tpu_torch.bin import run_qtopt_replay
+  from tensor2robot_tpu_torch.replay import learner_bench
+  from tensor2robot_tpu_torch.replay.device_buffer import (
+      DeviceReplayBuffer,
+      MegastepLearner,
+  )
+  from tensor2robot_tpu_torch.replay.loop import (
+      ReplayTrainLoop,
+      transition_spec,
+  )
+  from tensor2robot_tpu_torch.replay.smoke import TinyQCriticModel
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  from tensor2robot_tpu_torch.utils import optimizers
+  config = run_qtopt_replay.build_config(not flagship, seed)
+  model = (ReplayTrainLoop._default_model(types.SimpleNamespace(
+      config=config)) if flagship else TinyQCriticModel(
+          optimizer_fn=optimizers.create_adam_optimizer(
+              config.learning_rate)))
+  trainer = Trainer(model, seed=seed, device=dev)
+  state = trainer.create_train_state()
+  ring = DeviceReplayBuffer(
+      transition_spec(config.image_size, config.action_size), DEVICE_RING,
+      config.batch_size, seed=seed, prioritized=True, ingest_chunk=256,
+      device=dev)
+  ring.extend(learner_bench._synthetic_transitions(
+      DEVICE_RING, config.image_size, config.action_size, seed + 17))
+  learner = MegastepLearner(
+      model, trainer, ring, action_size=config.action_size,
+      gamma=config.gamma, num_samples=config.cem_num_samples,
+      num_elites=config.cem_num_elites, iterations=config.cem_iterations,
+      inner_steps=inner_steps, seed=seed + 13, health=True, graphs=graphs)
+  learner.refresh(state.variables(use_ema=True), step=0)
+  return state, ring, learner
+
+
+def dispatch_device_ms(torch, learner, state, reps: int = 3) -> float:
+  """Median device time of one dispatch's K iterations: CUDA events around
+  the replays (the draws staged before the first event)."""
+  times = []
+  for _ in range(reps):
+    learner._stage_draws(learner._outer % 2)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    learner._dispatch(state)
+    end.record()
+    end.synchronize()
+    times.append(start.elapsed_time(end))
+  return float(np.median(times))
+
+
+def megastep_graph_vs_eager(torch, dev, flagship: bool, inner_steps: int,
+                            seed: int) -> dict:
+  """Three dispatches of a graphed learner (the first eager, the second
+  captures) against three of an eager one, compared after each; then the
+  capture's seconds and memory and a graphed dispatch's device time."""
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    graphed = list(megastep_learner(torch, dev, flagship, inner_steps, True,
+                                    seed))
+    eager = list(megastep_learner(torch, dev, flagship, inner_steps, False,
+                                  seed))
+    walls = {"graphed": [], "eager": []}
+    metrics_equal, capture_bytes = True, None
+    for dispatch in range(3):
+      out = {}
+      for name, run in (("graphed", graphed), ("eager", eager)):
+        torch.cuda.synchronize()
+        if name == "graphed" and dispatch == 1:
+          before = torch.cuda.memory_allocated()
+          torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        run[0], out[name] = run[2].step(run[0])
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - start)
+        if name == "graphed" and dispatch == 1:
+          capture_bytes = {
+              "peak_over_before": torch.cuda.max_memory_allocated() - before,
+              "held_after": torch.cuda.memory_allocated() - before}
+      metrics_equal &= out["graphed"] == out["eager"]
+    diff = state_diff(torch, graphed[0], eager[0])
+    ring_g, ring_e = graphed[1].state.arrays(), eager[1].state.arrays()
+    ring_equal = all(np.array_equal(value, ring_e[key])
+                     for key, value in ring_g.items())
+    builds = dict(graphed[2].compile_counts)
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  device_ms = dispatch_device_ms(torch, graphed[2], graphed[0])
+  eager_ms = dispatch_device_ms(torch, eager[2], eager[0], reps=1)
+  return {
+      "model": "flagship_64x64" if flagship else "tinyq_16x16",
+      "inner_steps": inner_steps,
+      "bit_equal": bool(metrics_equal and ring_equal
+                        and not any(diff.values())),
+      "metrics_equal": bool(metrics_equal), "ring_equal": bool(ring_equal),
+      "state_max_abs_diff": diff, "compile_counts": builds,
+      "dispatch_wall_s_graphed": walls["graphed"],
+      "dispatch_wall_s_eager": walls["eager"],
+      "capture_s": walls["graphed"][1] - walls["graphed"][2],
+      "capture_bytes": capture_bytes,
+      "dispatch_device_ms": device_ms,
+      "device_ms_per_step": device_ms / inner_steps,
+      "eager_dispatch_event_ms": eager_ms,
+  }
+
+
+def trace_idle(path: str) -> dict:
+  """The card's busy time (the union of its kernel, copy and set events)
+  against the window of a chrome trace, from its first event to its
+  last."""
+  with open(path) as f:
+    events = [e for e in json.load(f)["traceEvents"]
+              if e.get("ph") == "X" and "ts" in e]
+  spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+           for e in events]
+  device = sorted(span for span, e in zip(spans, events)
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+  busy, end = 0.0, None
+  for start, stop in device:
+    if end is None or start > end:
+      busy += stop - start
+      end = stop
+    elif stop > end:
+      busy += stop - end
+      end = stop
+  window = max(stop for _, stop in spans) - min(start for start, _ in spans)
+  return {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+          "idle_share": 1.0 - busy / window if window else None,
+          "kernels": sum(1 for e in events if e.get("cat") == "kernel")}
+
+
+def run_device_production(torch, gl, dev, seed: int, root: str, alone: bool
+                          ) -> dict:
+  """The production device-resident loop with one vector actor (stopped
+  after the fill with `alone`), timed by dispatch and profiled over one."""
+  from tensor2robot_tpu_torch.bin import run_qtopt_replay
+  from tensor2robot_tpu_torch.replay.loop import ReplayTrainLoop
+  config = run_qtopt_replay.build_config(
+      False, seed, device_resident=True, vector_actors=True,
+      profile_window=DEVICE_PROFILE_WINDOW)
+  logdir = os.path.join(root, "alone" if alone else "vector")
+  replay = ReplayTrainLoop(config, logdir, device=dev)
+  starts, ends = [], []
+  make = replay._megastep_learner
+
+  def instrumented():
+    learner = make()
+    step = learner.step
+
+    def timed_step(state):
+      starts.append(time.perf_counter())
+      out = step(state)
+      ends.append(time.perf_counter())
+      return out
+
+    learner.step = timed_step
+    return learner
+
+  replay._megastep_learner = instrumented
+  gc.collect()  # the previous run's ring
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  timed = drive_loop(replay, DEVICE_PRODUCTION_STEPS, gl, alone=alone)
+  run = timed.pop("run")
+  k = config.megastep_inner
+  traced = -(-DEVICE_PROFILE_WINDOW[1] // k)  # the profiled dispatch
+  # From the end of the dispatch after it (the trace's export delays that
+  # one) to the last.
+  steady = ends[traced:]
+  traces = sorted(os.listdir(os.path.join(logdir, "profile")))
+  idle = trace_idle(os.path.join(logdir, "profile", traces[0]))
+  # `learner_steps_per_s` (drive_loop's) is the whole window, from the end
+  # of the fill to the end of the run: the one-time cost below, the evals
+  # and the profiled dispatch included. `steady_steps_per_s` is the
+  # graphed dispatches after the profiled one only.
+  return {
+      **timed, "steps": run["steps"], "inner_steps": k,
+      "dispatch_s": [b - a for a, b in zip(ends, ends[1:])],
+      "first_dispatch_s": ends[0] - starts[0],
+      "capture_dispatch_s": ends[1] - starts[1],
+      "steady_steps_per_s": k * (len(steady) - 1) / (steady[-1] - steady[0]),
+      "steady_dispatches": len(steady) - 1,
+      "profiled_dispatch": idle, "traces": len(traces),
+      "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+      "ring_size": run["buffer"]["replay/size"],
+      "env_steps": run["env_steps_collected"],
+      "episodes": run["episodes_collected"],
+      "param_refreshes": run["param_refreshes"],
+      "compile_counts": run["compile_counts"],
+      "eval_td_first": run["eval_history"][0]["eval_td_error"],
+      "eval_td_last": run["eval_history"][-1]["eval_td_error"],
+      "breach_count": run["health"]["breach_count"],
+      "device_resident": run["device_resident"]}
+
+
+def run_qtopt_device(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
+  """Slice 11's phase, parts (a)-(d) above. Raises when a check or the
+  smoke's bar fails; the speed bars are reported either way."""
+  from tensor2robot_tpu_torch.bin import run_qtopt_replay
+  from tensor2robot_tpu_torch.replay import learner_bench
+  result = {"card": smi}
+
+  # (a) Graphs against eager iterations.
+  result["graphs"] = []
+  for flagship, k in ((False, DEVICE_TINY_K), (True, DEVICE_FLAGSHIP_K)):
+    line = megastep_graph_vs_eager(torch, dev, flagship, k, seed)
+    emit("qtopt_device_graph", card=smi, **line)
+    if not (line["bit_equal"]
+            and line["compile_counts"] == {"megastep": 1}):
+      raise AssertionError(f"megastep graph vs eager: {line}")
+    result["graphs"].append({key: line[key] for key in (
+        "model", "inner_steps", "capture_s", "dispatch_device_ms",
+        "device_ms_per_step")})
+
+  # (b) The smoke through the CLI's run, and (c) the learner bench.
+  result["smoke"] = {}
+  for s in LOOP_SEEDS:
+    start = time.perf_counter()
+    run = run_qtopt_replay.run(
+        LOOP_SMOKE_STEPS, smoke=True, logdir=os.path.join(root, f"smoke_{s}"),
+        seed=s, device=dev, device_resident=True,
+        learner_bench=s == LOOP_SEEDS[0])
+    ledger = run["compile_counts"]
+    line = {"seed": s, "steps": run["steps"],
+            "initial_eval_td": run["initial_eval"]["eval_td_error"],
+            "final_eval_td": run["final_eval"]["eval_td_error"],
+            "eval_td_reduction": run["eval_td_reduction"], "bar": LOOP_BAR,
+            "compile_counts": ledger, "episodes": run["episodes_collected"],
+            "param_refreshes": run["param_refreshes"],
+            "breach_count": run["health"]["breach_count"],
+            "seconds": time.perf_counter() - start}
+    emit("qtopt_device_smoke", card=smi, **line)
+    if not (run["eval_td_reduction"] >= LOOP_BAR and run["device_resident"]
+            and ledger.get("megastep") == ledger.get("device_extend") == 1
+            and "train_step" not in ledger
+            and set(ledger.values()) == {1}):
+      raise AssertionError(f"device-resident smoke at seed {s}: {line}")
+    result["smoke"][s] = run["eval_td_reduction"]
+    if "learner_throughput" in run:
+      bench = run["learner_throughput"]
+      bars = {
+          "speedup_max": bench["speedup"]["max"]
+          >= DEVICE_SPEEDUP_BARS["max"],
+          "speedup_median": bench["speedup"]["median"]
+          >= DEVICE_SPEEDUP_BARS["median"],
+          "host_blocked_median": bench["device_megastep"][
+              "host_blocked_fraction"]["median"] <= DEVICE_BLOCKED_BAR}
+      emit("qtopt_device_learner_bench", card=smi, bars_met=bars, **bench)
+      result["bench"] = {"speedup": bench["speedup"], "bars_met": bars}
+
+  # (c) The production loop beside one vector actor, and alone.
+  production = {}
+  for name, alone in (("vector", False), ("alone", True)):
+    line = run_device_production(torch, gl, dev, seed, root, alone)
+    emit(f"qtopt_device_production_{name}", card=smi, **line)
+    ledger = line["compile_counts"]
+    if not (ledger.get("megastep") == 1 and ledger.get("cem_bucket_32") == 1
+            and set(ledger.values()) == {1} and line["traces"] == 1
+            and line["device_resident"]
+            and np.isfinite(line["eval_td_last"])):
+      raise AssertionError(f"device-resident production ({name}): {line}")
+    production[name] = line
+  idle = production["alone"]["profiled_dispatch"]["idle_share"]
+  rates = {f"{key}_{name}": line[key] for name, line in production.items()
+           for key in ("steady_steps_per_s", "learner_steps_per_s",
+                       "first_dispatch_s", "capture_dispatch_s")}
+  result["production"] = {
+      **rates,
+      "steady_alone_over_vector": rates["steady_steps_per_s_alone"]
+      / rates["steady_steps_per_s_vector"],
+      "window_alone_over_vector": rates["learner_steps_per_s_alone"]
+      / rates["learner_steps_per_s_vector"],
+      "env_steps_per_s_vector": production["vector"]["env_steps_per_s"],
+      "idle_share_vector": production["vector"]["profiled_dispatch"][
+          "idle_share"],
+      "idle_share_alone": idle,
+      "idle_bar": DEVICE_IDLE_BAR, "idle_bar_met": idle < DEVICE_IDLE_BAR,
+      "peak_memory_gb": {name: line["peak_memory_gb"]
+                         for name, line in production.items()}}
+
+  # (d) Fused resume parity.
+  for flagship in (False, True):
+    start = time.perf_counter()
+    parity = learner_bench.fused_resume_parity(2, 2, seed, device=dev,
+                                               flagship=flagship)
+    parity["seconds"] = time.perf_counter() - start
+    emit("qtopt_device_resume_parity", card=smi, **parity)
+    if not parity["parity_ok"]:
+      raise AssertionError(f"fused resume parity: {parity}")
+    result[f"resume_parity_{parity['model']}"] = parity["parity_ok"]
+  return result
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -2784,6 +3125,14 @@ def main(argv=None) -> int:
     vector_result = run_qtopt_vector(torch, gl, dev, args.seed, tmp, smi)
     emit("qtopt_vector", seconds=time.perf_counter() - start,
          **vector_result)
+
+  # Slice 11's main paths: the device-resident ring and the megastep learner
+  # (CUDA graphs of K learn iterations); no TPU kernel runs on them.
+  with tempfile.TemporaryDirectory() as tmp:
+    start = time.perf_counter()
+    device_result = run_qtopt_device(torch, gl, dev, args.seed, tmp, smi)
+    emit("qtopt_device", seconds=time.perf_counter() - start,
+         **device_result)
 
   timing = time_spatial_softmax(torch, ss, feature_map)
   emit("kernel_timing", spatial_softmax=timing)

@@ -3,6 +3,7 @@
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay --smoke --device cpu
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay --smoke
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay --smoke --vector-actors
+    python -m tensor2robot_tpu_torch.bin.run_qtopt_replay --smoke --device-resident
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay
 
 Counterpart of ``tensor2robot_tpu/bin/run_qtopt_replay.py``'s host path:
@@ -27,7 +28,13 @@ policy and env count, ``replay/actor_bench.py``; skip it with
 ``--no-actor-bench``). ``--profile START,END`` traces that window of
 optimizer steps with ``torch.profiler`` into ``<logdir>/profile``.
 
-``--device-resident`` and ``--anakin`` (item 10), ``--mesh`` (item 15)
+``--device-resident`` keeps the ring on the device and runs the learner as
+the megastep, ``megastep_inner`` sample -> label -> train -> reprioritize
+iterations a dispatch, CUDA graphs on the card
+(``replay/device_buffer.py``); the line then carries a
+``learner_throughput`` block (the megastep against the host path at the
+same batch shape, ``replay/learner_bench.py``; skip it with
+``--no-learner-bench``). ``--anakin`` (item 10d), ``--mesh`` (item 15)
 and a non-f32 ``--precision`` (item 11) wait for later ``ROADMAP.md``
 items and raise by name.
 """
@@ -59,10 +66,10 @@ def parse_profile(spec):
 
 def build_config(smoke: bool, seed: int, **options):
   """The JAX CLI's smoke and full configs, field for field. `options` are
-  further config fields (vector_actors, profile_window, the checkpoint
-  fields, and those of the paths that wait for later items:
-  device_resident, anakin, mesh_dp, precision, which the config refuses
-  off their defaults by name)."""
+  further config fields (device_resident, vector_actors, profile_window,
+  the checkpoint fields, and those of the paths that wait for later
+  items: anakin, mesh_dp, precision, which the config refuses off their
+  defaults by name)."""
   from tensor2robot_tpu_torch.replay.loop import ReplayLoopConfig
   if smoke:
     return ReplayLoopConfig(seed=seed, envs_per_collector=4, batch_size=32,
@@ -78,11 +85,14 @@ def build_config(smoke: bool, seed: int, **options):
 
 
 def run(steps: int, smoke: bool, logdir: str, seed: int,
-        device: Device = None, actor_bench: bool = True, **options) -> dict:
+        device: Device = None, actor_bench: bool = True,
+        learner_bench: bool = True, **options) -> dict:
   """The loop for `steps` optimizer steps: TinyQ under `smoke`, the
   flagship critic otherwise (`options`: config fields, as
   ``build_config``). With vector actors and `actor_bench` the result
-  gains the ``actor_throughput`` block. Returns the loop's result."""
+  gains the ``actor_throughput`` block, device-resident with
+  `learner_bench` the ``learner_throughput`` block. Returns the loop's
+  result."""
   from tensor2robot_tpu_torch.replay.loop import ReplayTrainLoop
   config = build_config(smoke, seed, **options)
   model = None  # the flagship QTOptGraspingModel
@@ -96,6 +106,21 @@ def run(steps: int, smoke: bool, logdir: str, seed: int,
         optimizer_fn=optimizers.create_adam_optimizer(config.learning_rate))
   results = ReplayTrainLoop(config, logdir, model=model,
                             device=device).run(steps)
+  if config.device_resident and learner_bench:
+    # The megastep against the host path at the same batch shape
+    # (collector-free; replay/learner_bench).
+    from tensor2robot_tpu_torch.replay.learner_bench import (
+        measure_learner_throughput,
+    )
+    inner = config.megastep_inner if smoke else 10
+    results["learner_throughput"] = measure_learner_throughput(
+        batch_size=config.batch_size,
+        image_size=config.image_size if smoke else 16,
+        action_size=config.action_size, inner_steps=inner,
+        steps_per_trial=3 * inner, cem_num_samples=config.cem_num_samples,
+        cem_num_elites=config.cem_num_elites,
+        cem_iterations=config.cem_iterations, gamma=config.gamma, seed=seed,
+        device=device)
   if config.vector_actors and actor_bench:
     # Vector against threaded acting at the same policy and env count
     # (collector-free; replay/actor_bench).
@@ -127,7 +152,11 @@ def main(argv=None) -> None:
   parser.add_argument("--device", default=None,
                       help="cuda (the default) or cpu")
   parser.add_argument("--device-resident", action="store_true",
-                      help="waits for ROADMAP.md item 10")
+                      help="the device-resident ring and the megastep "
+                           "learner (the host path is the default)")
+  parser.add_argument("--no-learner-bench", action="store_true",
+                      help="skip the learner_throughput block of a "
+                           "--device-resident run")
   parser.add_argument("--vector-actors", action="store_true",
                       help="one VectorActor steps every env through one "
                            "bucket (the threaded collectors are the "
@@ -158,7 +187,8 @@ def main(argv=None) -> None:
   steps = args.steps or (300 if args.smoke else 10_000)
   logdir = args.logdir or tempfile.mkdtemp(prefix="qtopt_replay_")
   results = run(steps, args.smoke, logdir, args.seed, device=args.device,
-                actor_bench=not args.no_actor_bench, **options)
+                actor_bench=not args.no_actor_bench,
+                learner_bench=not args.no_learner_bench, **options)
   line = json.dumps(results)
   if args.out:
     with open(args.out, "w") as f:

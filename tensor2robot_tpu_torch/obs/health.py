@@ -3,6 +3,10 @@
 Counterpart of the parts of ``tensor2robot_tpu/obs/health.py`` that the
 host loop runs:
 
+- ``SUMMARY_KEYS``: the fixed health-summary schema every learn path
+  emits; ``SCAN_MAX_KEYS`` and ``reduce_scanned_metrics``: the megastep's
+  reduction of K inner steps' metrics (the max for the spike keys, the
+  last step's value for the rest);
 - ``tree_nonfinite_count`` / ``tree_global_norm``: the summary's
   reductions over a tree of tensors (non-finite elements of the float
   leaves; the global L2 norm, summed in float32), as a float32 scalar on
@@ -18,8 +22,8 @@ host loop runs:
 The JAX monitor also escalates into the process metric registry and a
 flight-recorder dump; those belong to the obs tier (``ROADMAP.md``'s
 flagship item 15), and passing ``registry=`` or ``recorder=`` raises by
-name. The fused loops' scan merges and the fleet Q-drift report wait
-with the paths that call them.
+name. The Anakin loop's scan-carry merge and the fleet Q-drift report
+wait with the paths that call them.
 """
 
 from __future__ import annotations
@@ -32,6 +36,35 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence
 import torch
 
 from tensor2robot_tpu_torch.utils.tree import tree_leaves
+
+# The fixed health-summary schema every learn path emits (the megastep
+# computes these on the device; the host loop assembles the same keys
+# from its per-step host data), so a rule holds on every loop path.
+SUMMARY_KEYS = (
+    "health/nonfinite_grads",
+    "health/nonfinite_params",
+    "health/nonfinite_targets",
+    "health/grad_norm",
+    "health/param_norm",
+    "health/td_mean",
+    "health/td_max",
+    "health/q_mean",
+    "health/q_max",
+    "health/priority_entropy",
+    "health/sample_age",
+)
+
+# Keys reduced by their max over a megastep's inner steps (a transient
+# NaN or spike inside the dispatch must survive to its readout); the rest
+# report the last inner step.
+SCAN_MAX_KEYS = frozenset({
+    "health/nonfinite_grads",
+    "health/nonfinite_params",
+    "health/nonfinite_targets",
+    "health/grad_norm",
+    "health/td_max",
+    "health/q_max",
+})
 
 
 class HealthHalt(RuntimeError):
@@ -65,6 +98,15 @@ def tree_nonfinite_count(tree) -> torch.Tensor:
 def tree_global_norm(tree) -> torch.Tensor:
   """Global L2 norm over a tree's float tensors, summed in float32."""
   return torch.sqrt(_leaf_sums(tree, lambda leaf: torch.square(leaf.float())))
+
+
+def reduce_scanned_metrics(stacked: Mapping[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+  """Metrics stacked along a leading axis of inner steps, reduced per key:
+  the max for SCAN_MAX_KEYS, the last step's value otherwise."""
+  return {key: (value.max(dim=0).values if key in SCAN_MAX_KEYS
+                else value[-1])
+          for key, value in stacked.items()}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,12 +8,21 @@ capture's tally instead (``count``), and the code that replays the graph
 adds that tally once a replay (``replayed``). A capture that no
 ``recording()`` watches, as a timing loop's, counts nothing, and neither
 do its replays.
+
+``capture`` is how the port captures a graph: recorded, in the
+thread-local capture mode (other threads keep launching on their own
+streams), with the cyclic garbage collector run before and paused until
+the capture ends. An unreachable graph of an earlier capture that sits in
+a reference cycle is destroyed whenever the collector runs, and
+destroying a graph while a stream captures invalidates that capture.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import gc
+import threading
 from typing import Callable, Counter, Iterator, List, Tuple
 
 import torch
@@ -23,6 +32,11 @@ AddFn = Callable[[str, int], None]
 Tally = Counter[Tuple[AddFn, str]]
 
 _recordings: List[Tally] = []  # the captures being recorded, innermost last
+# The collector is process-wide: captures open on any thread share one
+# pause, and the last to close restores it.
+_pause_lock = threading.Lock()
+_captures_open = 0
+_collector_was_enabled = True
 
 
 @contextlib.contextmanager
@@ -50,3 +64,32 @@ def replayed(tally: Tally, times: int = 1) -> None:
   """Counts the launches of `times` replays of a graph with `tally`."""
   for (add, kernel), n in tally.items():
     add(kernel, n * times)
+
+
+@contextlib.contextmanager
+def _collector_paused() -> Iterator[None]:
+  global _captures_open, _collector_was_enabled
+  with _pause_lock:
+    if not _captures_open:
+      gc.collect()
+      _collector_was_enabled = gc.isenabled()
+      gc.disable()
+    _captures_open += 1
+  try:
+    yield
+  finally:
+    with _pause_lock:
+      _captures_open -= 1
+      if not _captures_open and _collector_was_enabled:
+        gc.enable()
+
+
+@contextlib.contextmanager
+def capture(graph: "torch.cuda.CUDAGraph",
+            stream: "torch.cuda.Stream") -> Iterator[Tally]:
+  """Captures the block's work on `stream` into `graph`; yields the tally
+  of its kernel launches (see the module's docstring)."""
+  with _collector_paused(), recording() as tally:
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+      yield tally

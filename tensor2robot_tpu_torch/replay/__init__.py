@@ -15,15 +15,21 @@
   the off-policy learning check;
 - ``actor``: ``VectorActor`` and ``ActorFleet``, every env stepped in
   lockstep through one bucket; ``actor_bench``: vector against threaded
-  acting.
+  acting;
+- ``device_buffer``: ``DeviceReplayBuffer``, the ring and its sum tree on
+  the device, and ``MegastepLearner``, K learner steps a dispatch (CUDA
+  graphs on the card), the loop's ``device_resident`` path.
 
-The device-resident and fused loops wait for ``ROADMAP.md``'s flagship
-item 10.
+The fused Anakin loop waits for ``ROADMAP.md``'s flagship item 10d.
 """
 
 from tensor2robot_tpu_torch.replay.bellman import (
     BellmanUpdater,
     TargetNetwork,
+)
+from tensor2robot_tpu_torch.replay.device_buffer import (
+    DeviceReplayBuffer,
+    MegastepLearner,
 )
 from tensor2robot_tpu_torch.replay.ingest import ReplayFeeder, TransitionQueue
 from tensor2robot_tpu_torch.replay.loop import (
@@ -42,6 +48,8 @@ from tensor2robot_tpu_torch.replay.sum_tree import SumTree
 __all__ = [
     "BellmanUpdater",
     "CollectorWorker",
+    "DeviceReplayBuffer",
+    "MegastepLearner",
     "ReplayBuffer",
     "ReplayFeeder",
     "ReplayLoopConfig",

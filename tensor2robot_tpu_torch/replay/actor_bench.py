@@ -15,10 +15,9 @@ The block, every timed field a {median, min, max, trials} spread:
     transitions_per_sec    transitions enqueued per second (the threaded
                            path enqueues at episode ends)
   speedup                  per-trial vector / scalar env steps
-  overlap                  None: the JAX bench's third phase runs the
-                           device-resident ``MegastepLearner`` beside the
-                           fleet, which waits for ``ROADMAP.md``'s
-                           flagship item 10c
+  overlap                  None: the JAX bench's third phase, the
+                           ``MegastepLearner`` beside the fleet, is not
+                           ported yet (``ROADMAP.md`` Queue 1)
   compile_counts           both policies' bucket builds (one each)
 """
 
@@ -160,6 +159,6 @@ def measure_actor_throughput(
           f"threads x {envs_per_collector} GraspRetryEnvs each (one small "
           "bucket call a thread step); vector path = one VectorActor "
           f"stepping all {num_envs} envs through one bucket and one "
-          "put_batch chunk a step. overlap is None: the megastep learner "
-          "it needs waits for ROADMAP.md item 10c."),
+          "put_batch chunk a step. overlap is None: the megastep phase is "
+          "not ported yet."),
   }

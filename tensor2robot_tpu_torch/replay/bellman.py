@@ -20,9 +20,11 @@ Philox cannot agree, so a parity test passes the JAX package's own draws
 through ``compute_targets(noise=)``.
 
 The target network is an argument of the label closure, never a constant
-captured in it: a refresh (hard lag or polyak) swaps tensors and rebuilds
-nothing. ``compile_counts`` counts the builds of the label and TD closures
-under the JAX package's names; each stays 1 for the updater's life.
+captured in it: a refresh (hard lag or polyak) copies the online values
+into the target's own tensors and rebuilds nothing, so a CUDA graph that
+reads them (the megastep's, ``replay/device_buffer.py``) sees each one.
+``compile_counts`` counts the builds of the label and TD closures under
+the JAX package's names; each stays 1 for the updater's life.
 
 The JAX updater's bf16/int8 scoring tiers (``ROADMAP.md`` item 11), its
 executable ledger and its multi-process target placement (item 15) are
@@ -106,9 +108,10 @@ def _host_tree(variables) -> Dict[str, np.ndarray]:
 
 
 class TargetNetwork:
-  """The target net's lifecycle: hard-lag or polyak refresh (a swap of
-  tensors; the consumers take the target as an argument, so a refresh
-  rebuilds nothing), plus the lag and refresh-count health metrics.
+  """The target net's lifecycle: hard-lag or polyak refresh (copied into
+  the target's tensors; the consumers take the target as an argument, so
+  a refresh rebuilds nothing), plus the lag and refresh-count health
+  metrics.
 
   Args:
     variables: the initial target (a state_dict of tensors or arrays),
@@ -137,17 +140,25 @@ class TargetNetwork:
     return {key: torch.as_tensor(value).detach().to(self.device, copy=True)
             for key, value in variables.items()}
 
+  def _assign(self, variables, polyak: bool) -> None:
+    """Writes `variables` into the target's own tensors (a cold target
+    gets copies): a captured graph that reads them sees every refresh."""
+    if self._target_variables is None:
+      self._target_variables = self._copy(variables)
+      return
+    tau = self._polyak_tau
+    with torch.no_grad():
+      for key, target in self._target_variables.items():
+        value = torch.as_tensor(variables[key]).to(self.device)
+        if polyak and tau is not None and value.is_floating_point():
+          value = tau * value + (1.0 - tau) * target
+        target.copy_(value)
+
   def refresh(self, variables, step: int) -> None:
     """Pulls the online variables into the target net (lag or polyak; the
-    first refresh of a cold target is always a hard copy)."""
-    online = self._copy(variables)
-    if self._polyak_tau is not None and self._target_variables is not None:
-      tau = self._polyak_tau
-      online = {
-          key: (tau * value + (1.0 - tau) * self._target_variables[key]
-                if value.is_floating_point() else value)
-          for key, value in online.items()}
-    self._target_variables = online
+    first refresh of a cold target is always a hard copy). The target
+    keeps its tensors: the values are copied into them."""
+    self._assign(variables, polyak=True)
     self._refresh_count += 1
     self.last_refresh_step = int(step)
 
@@ -168,9 +179,11 @@ class TargetNetwork:
                        "last_refresh_step": self.last_refresh_step}
 
   def restore_target_state(self, variables, meta) -> None:
-    """Inverse of target_state."""
-    self._target_variables = (None if variables is None
-                              else self._copy(variables))
+    """Inverse of target_state (into the target's own tensors)."""
+    if variables is None:
+      self._target_variables = None
+    else:
+      self._assign(variables, polyak=False)
     self._refresh_count = int(meta["refresh_count"])
     self.last_refresh_step = int(meta["last_refresh_step"])
 

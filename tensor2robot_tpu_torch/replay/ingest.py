@@ -24,6 +24,7 @@ the flight recorder on sustained overflow; those hooks wait for
 
 from __future__ import annotations
 
+import inspect
 import threading
 from collections import deque
 from typing import Deque, Dict, List, Mapping, Optional, Tuple
@@ -308,17 +309,25 @@ class ReplayFeeder:
     self.queue = queue
     self.buffer = buffer
     self.min_fill = min_fill
+    # The host rings keep per-provenance ingest counts; the device ring's
+    # extend takes no provenance, so the hand-off is detected once here.
+    self._extend_takes_provenance = "provenance" in inspect.signature(
+        buffer.extend).parameters
 
   def drain(self) -> int:
     """Moves every pending transition into the buffer; returns count.
 
     One stacked batch through buffer.extend (single concatenate per
-    key + one vectorized ring write) instead of per-item appends.
+    key + one vectorized ring write) instead of per-item appends; the
+    same call feeds the device-resident ring, whose extend writes fixed
+    chunks to the card.
     """
     batch, labels = self.queue.drain_batch_with_provenance()
     if batch is None:
       return 0
-    return self.buffer.extend(batch, provenance=labels)
+    if self._extend_takes_provenance:
+      return self.buffer.extend(batch, provenance=labels)
+    return self.buffer.extend(batch)
 
   def ready(self) -> bool:
     """True once the buffer holds min_fill transitions (latching —

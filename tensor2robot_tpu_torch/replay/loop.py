@@ -19,7 +19,10 @@ a snapshot of the EMA variables:
 - ``_HotReloadPredictor``: the in-memory predictor the learner swaps;
 - ``ReplayTrainLoop``: owns every piece; ``run(num_steps)`` drives the
   host path (the learner's step is ``learner_bench.host_learner_step``)
-  and returns the JAX result's keys, less the obs tier's ``obs`` block.
+  or, with ``device_resident``, the device-resident ring and the megastep
+  learner (``device_buffer.MegastepLearner``: K steps a dispatch as CUDA
+  graphs on the card), and returns the JAX result's keys, less the obs
+  tier's ``obs`` block.
   With ``vector_actors`` one ``actor.VectorActor`` steps every env through
   one bucket pinned to the fleet; with ``checkpoint_every`` it saves the
   train state with a sidecar (target net, ring, counters, eval history,
@@ -33,8 +36,8 @@ that reads it. The policy's lock covers each call's copy-in, replay and
 copy-out. The collectors' bucket is captured before their threads start,
 so no capture ever runs beside another thread's launches.
 
-Not ported, and named where asked for: the device-resident and Anakin
-paths (item 10), the mesh and the checkpoints' mesh stamp (item 15), and
+Not ported, and named where asked for: the Anakin path (item 10d), the
+mesh and the checkpoints' mesh stamp (item 15), and
 the metric registry, trace spans, flight recorder, watchdog and fault
 seam (the obs tier, item 15).
 """
@@ -219,8 +222,7 @@ class CollectorWorker:
 # Options whose paths wait for a later ROADMAP.md item, with their defaults:
 # a config that asks for one raises by name.
 _WAITING = {
-    "device_resident": (False, "item 10 (the device-resident ring)"),
-    "anakin": (False, "item 10 (the Anakin loop)"),
+    "anakin": (False, "item 10 (the Anakin loop, 10d)"),
     "mesh_dp": (0, "item 15 (the parallel tier)"),
     "mesh_tp": (1, "item 15 (the parallel tier)"),
     "zero1": (None, "item 15 (the parallel tier)"),
@@ -231,8 +233,9 @@ _WAITING = {
 class ReplayLoopConfig:
   """Knobs of the replay loop, field for field with the JAX defaults (the
   chipless smoke scale). The host loop reads the first block,
-  ``vector_actors``, the checkpoint, health and profile fields; the rest
-  belong to paths that wait for later items, and setting one off its
+  ``vector_actors``, the checkpoint, health and profile fields;
+  ``device_resident`` adds ``megastep_inner`` and ``ingest_chunk``. The
+  rest belong to paths that wait for later items, and setting one off its
   default raises NotImplementedError naming the item."""
   image_size: int = 16
   action_size: int = 4
@@ -345,6 +348,12 @@ def evaluate_td(updater, variables, eval_batches,
   }
 
 
+def _raise_first(errors: List[BaseException]) -> None:
+  if errors:
+    raise RuntimeError(
+        f"{len(errors)} collector error(s); first shown") from errors[0]
+
+
 class _HotReloadPredictor(AbstractPredictor):
   """In-memory predictor whose variables the learner swaps.
 
@@ -435,7 +444,17 @@ class ReplayTrainLoop:
     self.trainer = Trainer(self.model, seed=config.seed, device=device)
     self.writer = MetricWriter(logdir)
     spec = transition_spec(config.image_size, config.action_size)
-    if config.num_buffer_shards > 1:
+    if config.device_resident:
+      # The device ring is the whole ring on this path: the host shards
+      # exist to relieve a host lock it does not have.
+      from tensor2robot_tpu_torch.replay.device_buffer import (
+          DeviceReplayBuffer,
+      )
+      self.buffer = DeviceReplayBuffer(
+          spec, config.capacity, config.batch_size, seed=config.seed,
+          prioritized=config.prioritized, ingest_chunk=config.ingest_chunk,
+          device=self.trainer.device)
+    elif config.num_buffer_shards > 1:
       self.buffer = ShardedReplayBuffer(
           spec, config.capacity, config.batch_size,
           num_shards=config.num_buffer_shards, seed=config.seed,
@@ -507,6 +526,19 @@ class ReplayTrainLoop:
             eval_q_stars) -> Dict[str, float]:
     return evaluate_td(updater, variables, eval_batches, eval_q_stars)
 
+  def _eval_baseline(self, updater: BellmanUpdater, state, eval_batches,
+                     eval_q_stars, resume_meta) -> Tuple[Dict, List]:
+    """(initial_eval, eval_history): the step-0 eval, or on a resume the
+    interrupted run's series, so the reduction keeps its original step-0
+    baseline."""
+    if resume_meta is not None:
+      return (dict(resume_meta["initial_eval"]),
+              [dict(entry) for entry in resume_meta["eval_history"]])
+    initial_eval = self._eval(updater, state.variables(use_ema=True),
+                              eval_batches, eval_q_stars)
+    self._emit(0, {"replay/" + k: v for k, v in initial_eval.items()})
+    return initial_eval, [dict(step=0, **initial_eval)]
+
   def _start_collectors(self, policy) -> None:
     c = self.config
     if c.vector_actors:
@@ -549,6 +581,29 @@ class ReplayTrainLoop:
       errors.extend(collector.errors)
     self.writer.close()
     return errors
+
+  def _stop(self, profile_hook, final_step: int) -> List[BaseException]:
+    """Closes the profile window and stops the collectors (even when the
+    window raises); returns their errors, for the caller to raise once no
+    exception is in flight."""
+    try:
+      self._profile_step(profile_hook, final_step, final=True)
+    finally:
+      errors = self._shutdown_collectors()
+    return errors
+
+  def _ledger(self, updater, policy, *builds) -> Dict[str, int]:
+    """Every program's builds: the loop's, `builds`' (the megastep's and
+    the device ring's), the updater's under the JAX names and the acting
+    buckets'."""
+    ledger = dict(self.compile_counts)
+    for counts in builds:
+      ledger.update(counts)
+    ledger.update({k if k.startswith("bellman") else f"bellman_{k}": v
+                   for k, v in updater.compile_counts.items()})
+    ledger.update({f"cem_bucket_{k}": v
+                   for k, v in sorted(policy.compile_counts.items())})
+    return ledger
 
   def _emit(self, step: int, scalars: Dict[str, float]) -> None:
     """One metric record (the JAX loop's keys, straight to the writer;
@@ -612,8 +667,9 @@ class ReplayTrainLoop:
           e.waited_s, e.attempts) from None
 
   def _assemble_result(self, steps: int, initial_eval, eval_history,
-                       ledger, param_refreshes: int) -> Dict:
-    """The JAX loop's result schema, less the obs tier's ``obs``."""
+                       ledger, param_refreshes: int, **extra) -> Dict:
+    """The JAX loop's result schema, less the obs tier's ``obs``; both
+    paths share it."""
     final_eval = eval_history[-1]
     reduction = 1.0 - (final_eval["eval_td_error"]
                        / max(initial_eval["eval_td_error"], 1e-9))
@@ -639,6 +695,7 @@ class ReplayTrainLoop:
             sum(c_.successes for c_ in self._collectors) / max(1, episodes)),
         "param_refreshes": param_refreshes,
         "logdir": self.logdir,
+        **extra,
     }
 
   # --- crash-resume checkpoints --------------------------------------------
@@ -654,11 +711,12 @@ class ReplayTrainLoop:
             "prioritized": c.prioritized, "gamma": c.gamma,
             "seed": c.seed, "precision": c.precision}
 
-  def _save_checkpoint(self, step: int, state, updater,
-                       initial_eval: Dict, eval_history: List) -> None:
-    """One loop checkpoint: the train state first, then the sidecar (the
-    lagged target, the ring's whole state, the label-seed counter, the
-    ingest counters, the eval history and the health baselines), so a
+  def _write_checkpoint(self, step: int, state, trees: Dict, flats: Dict,
+                        path_meta: Dict, initial_eval: Dict,
+                        eval_history: List) -> None:
+    """One loop checkpoint of either path: the train state first, then the
+    sidecar (the path's carried `trees` and `flats` and its `path_meta`,
+    the ingest counters, the eval history and the health baselines), so a
     save cut between the two leaves a step that validation rejects.
 
     A step this loop saved already is the health snapshot of this same
@@ -671,13 +729,9 @@ class ReplayTrainLoop:
         shutil.rmtree(stale)
       self._ckpt_manager.save(step, state)
       self._saved_step = step
-    target_vars, target_meta = updater.target_state()
-    buffer_arrays, buffer_meta = self.buffer.state_dict()
     meta = {
         "fingerprint": self._checkpoint_fingerprint(),
-        "target": target_meta,
-        "next_label_seed": updater.next_label_seed,
-        "buffer_meta": buffer_meta,
+        **path_meta,
         "queue_counters": {key: value
                            for key, value in self.queue.stats().items()
                            if key != "pending"},
@@ -688,21 +742,20 @@ class ReplayTrainLoop:
     # would re-warm its EWMA state, blind to drift right after a restart.
     if self.health_monitor is not None:
       meta["health"] = self.health_monitor.state_dict()
-    checkpoints_lib.save_sidecar(
-        self.checkpoint_root, step,
-        trees={} if target_vars is None else {"target": target_vars},
-        flats={"buffer": buffer_arrays}, meta=meta)
+    checkpoints_lib.save_sidecar(self.checkpoint_root, step, trees=trees,
+                                 flats=flats, meta=meta)
     checkpoints_lib.prune_sidecars(self.checkpoint_root,
                                    self._ckpt_manager.all_steps())
 
-  def _restore_checkpoint(self, state):
-    """Restores the newest valid checkpoint: returns (state, trees, meta),
-    or None when none is valid (then the loop starts fresh). Newer steps
-    it rejects are logged by ``latest_resumable_step``."""
+  def _read_checkpoint(self, state):
+    """Restores the newest valid checkpoint of this loop's path into
+    `state`, the health monitor and the ingest counters: returns (state,
+    step, trees, flats, meta) for the path to restore what it carries, or
+    None when none is valid (then the loop starts fresh). Newer steps it
+    rejects are logged by ``latest_resumable_step``."""
     step = checkpoints_lib.latest_resumable_step(self.checkpoint_root)
     if step is None:
       return None
-    state = self._ckpt_manager.restore(state, step=step)
     trees, flats, meta = checkpoints_lib.load_sidecar(
         self.checkpoint_root, step)
     fingerprint = self._checkpoint_fingerprint()
@@ -712,24 +765,84 @@ class ReplayTrainLoop:
           f"{meta.get('fingerprint')}, this loop is {fingerprint}; resume "
           "needs an identically configured loop (shapes would drift "
           "otherwise)")
+    fused = "fused" in meta
+    if fused != self.config.device_resident:
+      raise ValueError(
+          f"checkpoint step {step} under {self.checkpoint_root} was saved "
+          f"by the {'device-resident' if fused else 'host'} path; resume it "
+          f"with device_resident={fused}")
+    state = self._ckpt_manager.restore(state, step=step)
     if int(state.step) != int(step):
       raise ValueError(f"restored TrainState.step {int(state.step)} != "
                        f"checkpoint step {step}")
     if self.health_monitor is not None and meta.get("health"):
       # The drift rules are armed from the first resumed step.
       self.health_monitor.load_state_dict(meta["health"])
-    self.buffer.load_state_dict(flats["buffer"], meta["buffer_meta"])
     counters = meta.get("queue_counters", {})
     if counters:
       self.queue.restore_counters(**counters)
     _log.info("replay loop resumed at step %d from %s", step,
               self.checkpoint_root)
+    return state, int(step), trees, flats, meta
+
+  def _save_checkpoint(self, step: int, state, updater,
+                       initial_eval: Dict, eval_history: List) -> None:
+    """A host-path checkpoint: the lagged target, the ring's whole state
+    and the label-seed counter ride the sidecar."""
+    target_vars, target_meta = updater.target_state()
+    buffer_arrays, buffer_meta = self.buffer.state_dict()
+    self._write_checkpoint(
+        step, state,
+        trees={} if target_vars is None else {"target": target_vars},
+        flats={"buffer": buffer_arrays},
+        path_meta={"target": target_meta,
+                   "next_label_seed": updater.next_label_seed,
+                   "buffer_meta": buffer_meta},
+        initial_eval=initial_eval, eval_history=eval_history)
+
+  def _restore_checkpoint(self, state):
+    """Restores the host path's newest valid checkpoint, the ring
+    included: returns (state, trees, meta), or None."""
+    loaded = self._read_checkpoint(state)
+    if loaded is None:
+      return None
+    state, _, trees, flats, meta = loaded
+    self.buffer.load_state_dict(flats["buffer"], meta["buffer_meta"])
     return state, trees, meta
+
+  def _save_fused_checkpoint(self, step: int, state, learner,
+                             initial_eval: Dict, eval_history: List) -> None:
+    """A checkpoint between dispatches of the device-resident path: what
+    the megastep carries (the ring's tensors and the lagged target) and
+    the learner's draw counters ride the sidecar."""
+    self._write_checkpoint(
+        step, state, trees={"target": learner.target_state()[0]},
+        flats={"buffer": learner.checkpoint_state()["buffer"].arrays()},
+        path_meta={"fused": learner.checkpoint_meta()},
+        initial_eval=initial_eval, eval_history=eval_history)
+
+  def _restore_fused_checkpoint(self, state, learner):
+    """Restores the device-resident path's newest valid checkpoint into
+    `state`, the ring and the learner (all copied into their own tensors);
+    returns (state, step, meta), or None."""
+    from tensor2robot_tpu_torch.replay.device_buffer import (
+        DeviceReplayBuffer,
+    )
+    loaded = self._read_checkpoint(state)
+    if loaded is None:
+      return None
+    state, step, trees, flats, meta = loaded
+    learner.restore_checkpoint_state(
+        {"buffer": DeviceReplayBuffer.state_from_arrays(flats["buffer"]),
+         "target": trees["target"]}, meta["fused"])
+    return state, step, meta
 
   # --- the loop ------------------------------------------------------------
 
   def run(self, num_steps: int) -> Dict:
     """Runs the closed loop for `num_steps` optimizer steps."""
+    if self.config.device_resident:
+      return self._run_device_resident(num_steps)
     return self._run_host(num_steps)
 
   def _run_host(self, num_steps: int) -> Dict:
@@ -779,16 +892,8 @@ class ReplayTrainLoop:
       self._start_collectors(policy)
       self._wait_for_min_fill()
       eval_batches, eval_q_stars = eval_transitions(c)
-      if resume_meta is None:
-        initial_eval = self._eval(updater, state.variables(use_ema=True),
-                                  eval_batches, eval_q_stars)
-        self._emit(0, {"replay/" + k: v for k, v in initial_eval.items()})
-        eval_history = [dict(step=0, **initial_eval)]
-      else:
-        # The eval series continues the interrupted run's: the reduction
-        # keeps its original step-0 baseline.
-        initial_eval = dict(resume_meta["initial_eval"])
-        eval_history = [dict(entry) for entry in resume_meta["eval_history"]]
+      initial_eval, eval_history = self._eval_baseline(
+          updater, state, eval_batches, eval_q_stars, resume_meta)
       with_health = self.health_monitor is not None
       for step in range(start_step + 1, num_steps + 1):
         self.feeder.drain()
@@ -852,19 +957,127 @@ class ReplayTrainLoop:
           self._save_checkpoint(step, state, updater, initial_eval,
                                 eval_history)
     finally:
-      try:
-        self._profile_step(profile_hook, num_steps, final=True)
-      finally:
-        collector_errors = self._shutdown_collectors()
-    if collector_errors:
-      raise RuntimeError(
-          f"{len(collector_errors)} collector error(s); first shown"
-      ) from collector_errors[0]
-
-    ledger = dict(self.compile_counts)
-    ledger.update({k if k.startswith("bellman") else f"bellman_{k}": v
-                   for k, v in updater.compile_counts.items()})
-    ledger.update({f"cem_bucket_{k}": v
-                   for k, v in sorted(policy.compile_counts.items())})
+      collector_errors = self._stop(profile_hook, num_steps)
+    _raise_first(collector_errors)
     return self._assemble_result(num_steps, initial_eval, eval_history,
-                                 ledger, param_refreshes=updater.refresh_count)
+                                 self._ledger(updater, policy),
+                                 param_refreshes=updater.refresh_count)
+
+  def _megastep_learner(self):
+    """The device-resident path's learner over the loop's ring, with a
+    cold target."""
+    from tensor2robot_tpu_torch.replay.device_buffer import MegastepLearner
+    c = self.config
+    return MegastepLearner(
+        self.model, self.trainer, self.buffer, action_size=c.action_size,
+        gamma=c.gamma, num_samples=c.cem_num_samples,
+        num_elites=c.cem_num_elites, iterations=c.cem_iterations,
+        inner_steps=c.megastep_inner, seed=c.seed + 13,
+        polyak_tau=c.polyak_tau, precision=c.precision,
+        health=self.health_monitor is not None)
+
+  @staticmethod
+  def _fused_health_summary(metrics: Dict[str, float]) -> Dict[str, float]:
+    """The health keys of a megastep dispatch's metrics."""
+    return {key: value for key, value in metrics.items()
+            if key.startswith("health/")}
+
+  def _run_device_resident(self, num_steps: int) -> Dict:
+    """The device-resident path: the host feeds the ring and reads
+    metrics; the megastep runs the learner.
+
+    Each dispatch: the feeder drains the queue into the device ring (in
+    fixed chunks), one ``MegastepLearner.step`` runs ``megastep_inner``
+    sample -> label -> train -> reprioritize iterations on the device, and
+    the host reads their metrics back once. The refresh, log, eval and
+    checkpoint cadences count optimizer steps and fire after the dispatch
+    whose steps hold a multiple. `num_steps` rounds up to whole dispatches,
+    so K never changes."""
+    c = self.config
+    k = c.megastep_inner
+    num_outer = max(1, -(-num_steps // k))
+    state = self.trainer.create_train_state()
+    host_variables = self._host_variables(state)
+    predictor = _HotReloadPredictor(self.model, host_variables)
+    policy = self._make_policy(predictor)
+    # Eval only: the megastep labels and computes TD on the hot path; the
+    # eval against Q* takes the updater's TD closure, whose target net it
+    # never reads (so it stays cold) and whose label closure is never built.
+    updater = BellmanUpdater(
+        self.model, None, action_size=c.action_size, gamma=c.gamma,
+        num_samples=c.cem_num_samples, num_elites=c.cem_num_elites,
+        iterations=c.cem_iterations, seed=c.seed + 13,
+        precision=c.precision, device=self.trainer.device)
+    learner = self._megastep_learner()
+    # The cold start's target is the initial online copy: refresh 0, not a
+    # loop refresh.
+    learner.refresh(host_variables, step=0)
+    resume_step, resume_meta = 0, None
+    if c.resume and self._ckpt_manager is not None:
+      restored = self._restore_fused_checkpoint(state, learner)
+      if restored is not None:
+        state, resume_step, resume_meta = restored
+        host_variables = self._host_variables(state)
+        predictor.update(host_variables)
+    checkpointing = self._ckpt_manager is not None and c.checkpoint_every
+    profile_hook = self._profile_hook()
+    blank = np.zeros((c.image_size, c.image_size, 3), np.uint8)
+    try:
+      policy.warm(lambda i: blank,
+                  sizes=(policy.ladder.bucket_for(self._acting_batch()),))
+      self._start_collectors(policy)
+      self._wait_for_min_fill()
+      eval_batches, eval_q_stars = eval_transitions(c)
+      initial_eval, eval_history = self._eval_baseline(
+          updater, state, eval_batches, eval_q_stars, resume_meta)
+      prev_step = resume_step
+      for outer in range(resume_step // k + 1, num_outer + 1):
+        self.feeder.drain()
+        state, metrics = learner.step(state)
+        step = outer * k
+        self._profile_step(profile_hook, step)
+        if self.health_monitor is not None:
+          # One summary a dispatch; its spike keys are the max over the K
+          # iterations.
+          self.health_monitor.observe(step,
+                                      self._fused_health_summary(metrics))
+
+        def crossed(every: int) -> bool:
+          return step // every > prev_step // every
+
+        if crossed(c.refresh_every):
+          host_variables = self._host_variables(state)
+          predictor.update(host_variables)
+          learner.refresh(host_variables, step)
+        if crossed(c.log_every) or outer == num_outer:
+          self._emit(step, {
+              "replay/train_loss": metrics["loss"],
+              "replay/train_td_error": metrics["td_error"],
+              "replay/train_q_next": metrics["q_next"],
+              "replay/sample_staleness": metrics["staleness"],
+              "replay/target_lag": float(learner.target_lag(step)),
+              "replay/episodes": float(
+                  sum(col.episodes for col in self._collectors)),
+              **self.buffer.metrics(),
+              **self.feeder.metrics(),
+          })
+          if self.health_monitor is not None:
+            self._emit(step, dict(self.health_monitor.last_summary))
+        if crossed(c.eval_every) or outer == num_outer:
+          evals = self._eval(updater, state.variables(use_ema=True),
+                             eval_batches, eval_q_stars)
+          eval_history.append(dict(step=step, **evals))
+          self._emit(step, {"replay/" + k_: v for k_, v in evals.items()})
+        if checkpointing and crossed(c.checkpoint_every):
+          self._save_fused_checkpoint(step, state, learner, initial_eval,
+                                      eval_history)
+        prev_step = step
+    finally:
+      collector_errors = self._stop(profile_hook, num_outer * k)
+    _raise_first(collector_errors)
+    return self._assemble_result(
+        num_outer * k, initial_eval, eval_history,
+        self._ledger(updater, policy, learner.compile_counts,
+                     self.buffer.compile_counts),
+        param_refreshes=learner.refresh_count - 1,  # less the cold start
+        device_resident=True, megastep_inner=k)

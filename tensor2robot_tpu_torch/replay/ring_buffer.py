@@ -47,7 +47,7 @@ class SampleInfo:
     the loop exports; rises when collection stalls behind training.
   probabilities: per-item sampling probability (importance-weight hook;
     uniform batches carry 1/size). ALWAYS float32, the dtype of the
-    device-resident ring (``ROADMAP.md`` item 10), so the two are
+    device-resident ring (``replay/device_buffer.py``), so the two are
     interchangeable downstream.
   """
   indices: np.ndarray

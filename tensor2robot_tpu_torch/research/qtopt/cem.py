@@ -319,10 +319,8 @@ class CEMPolicy:
         with torch.cuda.stream(stream):
           for _ in range(2):
             self._control(fn, variables, static_image, static_noise)
-        with graph_launches.recording() as tally:
-          with torch.cuda.graph(graph, stream=stream,
-                                capture_error_mode="thread_local"):
-            best = self._control(fn, variables, static_image, static_noise)
+        with graph_launches.capture(graph, stream) as tally:
+          best = self._control(fn, variables, static_image, static_noise)
       torch.cuda.current_stream(noise.device).wait_stream(stream)
       self._graph = (key, graph, tally, static_image, static_noise, best)
     _, graph, tally, static_image, static_noise, best = self._graph

@@ -210,11 +210,9 @@ class CEMFleetPolicy:
       with torch.cuda.stream(stream):
         for _ in range(2):
           self._control(fn, entry.images, entry.noise)
-      with graph_launches.recording() as entry.tally:
-        with torch.cuda.graph(entry.graph, stream=stream,
-                              capture_error_mode="thread_local"):
-          entry.best, entry.scores = self._control(fn, entry.images,
-                                                   entry.noise)
+      with graph_launches.capture(entry.graph, stream) as entry.tally:
+        entry.best, entry.scores = self._control(fn, entry.images,
+                                                 entry.noise)
     torch.cuda.current_stream(device).wait_stream(stream)
     entry.host_actions = torch.empty_like(entry.best, device="cpu",
                                           pin_memory=True)

@@ -103,12 +103,10 @@ class _GraphedSteps:
     state.opt_state.zero_grad(set_to_none=True)
     stream.wait_stream(torch.cuda.current_stream(trainer.device))
     try:
-      with graph_launches.recording() as self.tally:
-        with torch.cuda.graph(self.graph, stream=stream,
-                              capture_error_mode="thread_local"):
-          for i in range(self.steps):
-            _, metrics = trainer.train_step(state, _index(self.features, i),
-                                            _index(self.labels, i))
+      with graph_launches.capture(self.graph, stream) as self.tally:
+        for i in range(self.steps):
+          _, metrics = trainer.train_step(state, _index(self.features, i),
+                                          _index(self.labels, i))
     except RuntimeError as e:
       raise NotImplementedError(
           f"train_steps cannot capture {type(trainer.model).__name__}'s "

@@ -9,8 +9,8 @@ bucket is built once across three hot reloads. One module-scoped
 ``run_qtopt_replay --smoke --vector-actors`` on the CPU holds the JAX
 smoke's checks (``tests/test_actor.py``): the eval TD reduction bar of
 0.30, one acting bucket, every program built once, and the
-``actor_throughput`` block with the JAX keys (``overlap`` None: its
-megastep learner is item 10c).
+``actor_throughput`` block with the JAX keys (``overlap`` None: the
+bench's megastep phase is not ported yet).
 """
 
 import dataclasses

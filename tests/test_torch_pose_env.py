@@ -405,6 +405,6 @@ print(json.dumps({"imported": names, "banned": banned}))
                "replay.loop", "replay.learner_bench", "serving.bucketing",
                "serving.policy", "obs.health", "bin.run_qtopt_replay",
                "replay.actor", "replay.actor_bench", "utils.profiling",
-               "serving.fault_bench"):
+               "serving.fault_bench", "replay.device_buffer"):
     assert f"tensor2robot_tpu_torch.{name}" in report["imported"]
   assert report["banned"] == []

@@ -14,6 +14,7 @@ capability CLI and the port's ``qtopt_train.cfg`` run through their
 steps on the card and skip without one.
 """
 
+import gc
 import importlib
 import json
 import os
@@ -219,6 +220,23 @@ class TestTrainSteps:
       tally[(add, "b")] += 3  # as a capture would record three launches
     graph_launches.replayed(tally, times=2)
     assert counts == {"a": 1, "b": 6}
+
+  def test_captures_pause_the_collector_and_restore_it(self):
+    """The collector is off while any capture is open (nested ones
+    included) and back as it was after the last closes."""
+    assert gc.isenabled()
+    with graph_launches._collector_paused():
+      with graph_launches._collector_paused():
+        assert not gc.isenabled()
+      assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+      with graph_launches._collector_paused():
+        pass
+      assert not gc.isenabled()  # a collector the caller turned off stays off
+    finally:
+      gc.enable()
 
 
 def _jax_accum(jax_model, batches):
@@ -485,6 +503,35 @@ def test_cuda_graph_equals_eager_steps(cuda_device, steps):
                                    atol=0)
   finally:
     torch.backends.cudnn.deterministic = deterministic
+
+
+@pytest.mark.cuda
+def test_cuda_capture_survives_a_collection(cuda_device):
+  """An unreachable graph of an earlier capture, held in a reference
+  cycle, is garbage when a later capture allocates enough to trigger the
+  collector; destroying it mid-capture would invalidate that capture."""
+
+  class Cycle:
+    pass
+
+  def graph_in_a_cycle():
+    graph, x = torch.cuda.CUDAGraph(), torch.zeros(8, device=cuda_device)
+    with graph_launches.capture(graph, torch.cuda.Stream(cuda_device)):
+      y = x + 1
+    cycle = Cycle()
+    cycle.me, cycle.graph, cycle.tensors = cycle, graph, (x, y)
+    return cycle
+
+  graph = torch.cuda.CUDAGraph()
+  x = torch.arange(8.0, device=cuda_device)
+  cycle = graph_in_a_cycle()
+  with graph_launches.capture(graph, torch.cuda.Stream(cuda_device)):
+    del cycle  # now only the collector can free the earlier graph
+    junk = [[i] for i in range(200_000)]  # many collector thresholds' worth
+    y = x * 2
+  del junk
+  graph.replay()
+  torch.testing.assert_close(y, torch.arange(8.0, device=cuda_device) * 2)
 
 
 @pytest.mark.cuda

@@ -82,6 +82,14 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   with CEM 64/6/3); ``run_qtopt_replay --smoke --device-resident`` to the
   JAX bar at seeds 0 and 1 with the learner bench; the production loop
   beside one vector actor and alone; and fused resume parity.
+- slice 12 runs the fused Anakin loop (``qtopt_anakin``): the device grasp
+  env and its rasterizer against the numpy oracle bit for bit, the
+  period's CUDA graph (``train_every`` control steps of act -> env step ->
+  extend and one learn) against eager periods bit for bit (TinyQ, and the
+  64x64 critic with CEM 64/6/3) across a dispatch that crosses min_fill,
+  ``run_qtopt_replay --smoke --anakin`` to the JAX bar at seeds 0 and 1
+  with the Anakin bench, the production ``--anakin`` run at full width,
+  and its fused resume.
 
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
@@ -2943,6 +2951,447 @@ def run_qtopt_device(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
   return result
 
 
+ANAKIN_ENVS = 32
+ANAKIN_ENV_STEPS = 20
+ANAKIN_RASTER_SCENES = 512
+# (model, inner steps, train_every, min_fill): dispatch 1 crosses min_fill
+# (eager), dispatch 2 captures, dispatch 3 replays.
+ANAKIN_GRAPH_CASES = (("tinyq", 16, 4, 320), ("flagship", 16, 8, 384))
+ANAKIN_GRAPH_RING = 1024
+ANAKIN_PRODUCTION_STEPS = 150  # dispatches of 18, then 25 optimizer steps
+ANAKIN_PROFILE_WINDOW = (43, 44)  # the third dispatch
+ANAKIN_BLOCKED_BAR = 0.05
+ANAKIN_SPEEDUP_BAR = 5.0
+
+
+def knife_edges(size: int, count: int, seed: int) -> np.ndarray:
+  """The `count` of 2M random float32 targets whose disc edge (radius 0.1
+  at `size`) passes closest to a pixel centre, the centres in float32 as
+  NumPy 2's ``pose_to_pixel`` computes them: where float32 distance
+  arithmetic flips pixels."""
+  from tensor2robot_tpu_torch.research.qtopt import device_grasping as dg
+  targets = np.random.default_rng(seed).uniform(
+      -0.8, 0.8, (2_000_000, 2)).astype(np.float32)
+  px = ((targets[:, 0] + np.float32(1)) / np.float32(2)
+        * np.float32(size - 1)).astype(np.float64)
+  py = ((np.float32(1) - (targets[:, 1] + np.float32(1)) / np.float32(2))
+        * np.float32(size - 1)).astype(np.float64)
+  gap = np.full(len(targets), np.inf)
+  for ox in range(-4, 5):
+    for oy in range(-4, 5):
+      d2 = (np.floor(px) + ox - px) ** 2 + (np.floor(py) + oy - py) ** 2
+      gap = np.minimum(gap, np.abs(d2 - dg._r2(0.1, size)))
+  return targets[np.argsort(gap)[:count]]
+
+
+def oracle_scenes(targets, size: int) -> np.ndarray:
+  """``draw_disc``'s images of `targets` over the loop's fixed scene."""
+  from tensor2robot_tpu_torch.research.pose_env import pose_env
+  from tensor2robot_tpu_torch.research.qtopt import device_grasping as dg
+  images = np.stack([dg._base_image(size) for _ in targets])
+  for image, target in zip(images, targets):
+    pose_env.draw_disc(image, tuple(target), radius=0.1,
+                       color=pose_env.TARGET_COLOR)
+  return images
+
+
+def anakin_env_on_card(torch, dev, seed: int) -> dict:
+  """The production fleet's env on the card against the numpy oracle: the
+  rasterizer over a bank's targets against the bank's oracle images, the
+  procedural mode's images against the oracle's draw_disc, both again on
+  knife-edge targets and grasps (where float32 or fused arithmetic
+  flips them), and 20 lockstep steps of 32 envs at 64x64 (images,
+  targets, rewards, dones, truncations, the counts), bit for bit."""
+  from tensor2robot_tpu_torch.research.qtopt import device_grasping as dg
+  from tensor2robot_tpu_torch.research.qtopt.synthetic_grasping import (
+      VectorGraspEnv,
+      grasp_success,
+  )
+  bank = dg.make_scene_bank(ANAKIN_RASTER_SCENES, image_size=64,
+                            base_seed=seed, device=dev)
+  env = dg.DeviceGraspEnv(ANAKIN_ENVS, image_size=64, max_attempts=3,
+                          radius=0.4, bank=bank, device=dev)
+  rendered = env.render_scenes(bank.targets).cpu().numpy()
+  raster_equal = bool(np.array_equal(rendered, bank.images.cpu().numpy()))
+  draws = dg.procedural_draws(seed, 0, ANAKIN_ENVS)
+  procedural_equal = bool(np.array_equal(
+      env.render_scenes(draws).cpu().numpy(), oracle_scenes(draws, 64)))
+  edges = knife_edges(64, 64, seed)
+  knife_raster_equal = bool(np.array_equal(
+      env.render_scenes(edges).cpu().numpy(), oracle_scenes(edges, 64)))
+  # Grasps at the radius's edge: the success test's float32 arithmetic.
+  rng = np.random.default_rng(seed)
+  count = 20_000
+  targets = rng.uniform(-0.8, 0.8, (count, 2)).astype(np.float32)
+  angle = rng.uniform(0, 2 * np.pi, count)
+  actions = np.zeros((count, 4), np.float32)
+  actions[:, 0] = targets[:, 0] + 0.4 * np.cos(angle)
+  actions[:, 1] = targets[:, 1] + 0.4 * np.sin(angle)
+  edge_env = dg.DeviceGraspEnv(count, image_size=12, radius=0.4, device=dev)
+  _, (rewards, _, _) = edge_env.step_fn()(
+      edge_env.init_state(targets), torch.from_numpy(actions).to(dev),
+      dg.procedural_draws(seed, 1, count))
+  knife_success_equal = bool(np.array_equal(
+      rewards.cpu().numpy(), grasp_success(targets, actions, 0.4)))
+  state, step = env.init_state(), env.step_fn()
+  venv = VectorGraspEnv(ANAKIN_ENVS, image_size=64, max_attempts=3,
+                        radius=0.4)
+  counter = iter(dg.scene_seed_stream(seed, 10 ** 4))
+  venv.reset([int(next(counter)) for _ in range(ANAKIN_ENVS)])
+  rng = np.random.default_rng(seed + 100)
+  steps_equal, resets = True, 0
+  for _ in range(ANAKIN_ENV_STEPS):
+    steps_equal &= (np.array_equal(state.images.cpu().numpy(), venv.images)
+                    and np.array_equal(state.targets.cpu().numpy(),
+                                       venv.targets))
+    actions = rng.uniform(-1, 1, (ANAKIN_ENVS, 4)).astype(np.float32)
+    # Half the fleet grasps at its object: successes as well as misses.
+    actions[::2, :2] = venv.targets[::2]
+    want = venv.step(actions, seed_fn=lambda: int(next(counter)))
+    _, got = step(state, torch.from_numpy(actions).to(dev))
+    steps_equal &= all(np.array_equal(g.cpu().numpy(), w)
+                       for g, w in zip(got, want))
+    resets += int(want[1].sum() + want[2].sum())
+  steps_equal &= (int(state.episodes) == venv.episodes
+                  and int(state.successes) == venv.successes)
+  return {"rasterizer_bit_equal": raster_equal,
+          "raster_scenes": ANAKIN_RASTER_SCENES,
+          "procedural_bit_equal": procedural_equal,
+          "knife_edge_raster_bit_equal": knife_raster_equal,
+          "knife_edge_success_bit_equal": knife_success_equal,
+          "steps_bit_equal": bool(steps_equal), "steps": ANAKIN_ENV_STEPS,
+          "envs": ANAKIN_ENVS, "resets": resets,
+          "episodes": venv.episodes, "successes": venv.successes}
+
+
+def anakin_loop(torch, dev, flagship: bool, inner: int, train_every: int,
+                min_fill: int, graphs: bool, seed: int):
+  """(state, ring, loop): an AnakinLoop of 32 envs over a bank of 256
+  scenes and a prioritized ring of ANAKIN_GRAPH_RING, the health keys on;
+  TinyQ at 16x16 (CEM 16/4/2) or the production loop's 64x64 critic (CEM
+  64/6/3)."""
+  from tensor2robot_tpu_torch.bin import run_qtopt_replay
+  from tensor2robot_tpu_torch.replay.anakin import AnakinLoop
+  from tensor2robot_tpu_torch.replay.device_buffer import DeviceReplayBuffer
+  from tensor2robot_tpu_torch.replay.loop import (
+      ReplayTrainLoop,
+      transition_spec,
+  )
+  from tensor2robot_tpu_torch.replay.smoke import TinyQCriticModel
+  from tensor2robot_tpu_torch.research.qtopt import device_grasping as dg
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  from tensor2robot_tpu_torch.utils import optimizers
+  c = run_qtopt_replay.build_config(not flagship, seed, anakin=True)
+  model = (ReplayTrainLoop._default_model(types.SimpleNamespace(config=c))
+           if flagship else TinyQCriticModel(
+               optimizer_fn=optimizers.create_adam_optimizer(
+                   c.learning_rate)))
+  trainer = Trainer(model, seed=seed, device=dev)
+  state = trainer.create_train_state()
+  ring = DeviceReplayBuffer(transition_spec(c.image_size, c.action_size),
+                            ANAKIN_GRAPH_RING, c.batch_size, seed=seed,
+                            prioritized=True, ingest_chunk=ANAKIN_ENVS,
+                            device=dev)
+  env = dg.DeviceGraspEnv(
+      ANAKIN_ENVS, image_size=c.image_size, max_attempts=c.max_attempts,
+      radius=c.grasp_radius, device=dev,
+      bank=dg.make_scene_bank(256, image_size=c.image_size, base_seed=seed,
+                              device=dev))
+  loop = AnakinLoop(
+      model, trainer, ring, env, action_size=c.action_size, gamma=c.gamma,
+      num_samples=c.cem_num_samples, num_elites=c.cem_num_elites,
+      iterations=c.cem_iterations, inner_steps=inner,
+      train_every=train_every, min_fill=min_fill,
+      exploration_epsilon=c.exploration_epsilon,
+      scripted_fraction=c.scripted_fraction, seed=seed + 13, health=True,
+      graphs=graphs)
+  loop.refresh(state.variables(use_ema=True), step=0)
+  return state, ring, loop
+
+
+def anakin_graph_vs_eager(torch, dev, case, seed: int) -> dict:
+  """Three dispatches of a graphed loop (the first eager across min_fill,
+  the second captures the period, the third replays it; a refresh after
+  the second) against three eager ones, with cuDNN deterministic; then the
+  capture's seconds and memory and a period's device time."""
+  name, inner, train_every, min_fill = case
+  flagship = name == "flagship"
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    runs = {graphs: list(anakin_loop(torch, dev, flagship, inner,
+                                     train_every, min_fill, graphs, seed))
+            for graphs in (True, False)}
+    walls = {True: [], False: []}
+    metrics_equal, capture_bytes, trained = True, None, []
+    for dispatch in range(3):
+      out = {}
+      for graphs, run in runs.items():
+        torch.cuda.synchronize()
+        if graphs and dispatch == 1:
+          before = torch.cuda.memory_allocated()
+          torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        run[0], out[graphs] = run[2].step(run[0])
+        torch.cuda.synchronize()
+        walls[graphs].append(time.perf_counter() - start)
+        if graphs and dispatch == 1:
+          capture_bytes = {
+              "peak_over_before": torch.cuda.max_memory_allocated() - before,
+              "held_after": torch.cuda.memory_allocated() - before}
+        if dispatch == 1:
+          run[2].refresh(run[0].variables(use_ema=True), run[0].step)
+      metrics_equal &= out[True] == out[False]
+      trained.append(out[True]["trained_steps"])
+    (gstate, gring, gloop), (estate, ering, eloop) = runs[True], runs[False]
+    diff = state_diff(torch, gstate, estate)
+    carried_equal = all(
+        np.array_equal(value, theirs[key])
+        for ours, theirs in ((gring.state.arrays(), ering.state.arrays()),
+                             (gloop.env_state.arrays(),
+                              eloop.env_state.arrays()))
+        for key, value in ours.items())
+    builds = (dict(gloop.compile_counts), dict(eloop.compile_counts))
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  # A graphed dispatch's device time, CUDA events around its replays.
+  times = []
+  for _ in range(3):
+    gloop._stage_draws(gloop._outer % 2, None)
+    start_event = torch.cuda.Event(enable_timing=True)
+    end_event = torch.cuda.Event(enable_timing=True)
+    start_event.record()
+    gloop._dispatch(gstate, [True] * gloop.periods)
+    end_event.record()
+    end_event.synchronize()
+    times.append(start_event.elapsed_time(end_event))
+  dispatch_ms = float(np.median(times))
+  return {
+      "model": "flagship_64x64" if flagship else "tinyq_16x16",
+      "envs": ANAKIN_ENVS, "inner_steps": inner, "train_every": train_every,
+      "min_fill": min_fill, "trained_steps": trained,
+      "bit_equal": bool(metrics_equal and carried_equal
+                        and not any(diff.values())),
+      "metrics_equal": bool(metrics_equal),
+      "env_and_ring_equal": bool(carried_equal),
+      "state_max_abs_diff": diff, "compile_counts": builds[0],
+      "compile_counts_eager": builds[1],
+      "dispatch_wall_s_graphed": walls[True],
+      "dispatch_wall_s_eager": walls[False],
+      "capture_s": walls[True][1] - walls[True][2],
+      "capture_bytes": capture_bytes,
+      "dispatch_device_ms": dispatch_ms,
+      "device_ms_per_control_step": dispatch_ms / inner,
+  }
+
+
+def trace_top_kernels(path: str, count: int = 8) -> list:
+  """The `count` kernels of a chrome trace that took the most device time,
+  by name (cut to 80 characters), with their calls and share of it."""
+  with open(path) as f:
+    events = [e for e in json.load(f)["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") == "kernel"]
+  totals = {}
+  for e in events:
+    name = e.get("name", "?")[:80]
+    ms, calls = totals.get(name, (0.0, 0))
+    totals[name] = (ms + float(e.get("dur", 0.0)) / 1e3, calls + 1)
+  whole = sum(ms for ms, _ in totals.values()) or 1.0
+  return [{"kernel": name, "ms": ms, "calls": calls, "share": ms / whole}
+          for name, (ms, calls) in sorted(totals.items(),
+                                          key=lambda kv: -kv[1][0])[:count]]
+
+
+def run_anakin_production(torch, dev, seed: int, root: str) -> dict:
+  """``run_qtopt_replay --anakin`` at full width (the flagship 64x64
+  critic, 32 envs, anakin_inner 200, train_every 8, a bank of 4,096
+  scenes, CEM 64/6/3, a ring of 50,000, min_fill 2,000) for
+  ANAKIN_PRODUCTION_STEPS optimizer steps, timed by dispatch and profiled
+  over the third."""
+  from tensor2robot_tpu_torch.bin import run_qtopt_replay
+  from tensor2robot_tpu_torch.replay.loop import ReplayTrainLoop
+  config = run_qtopt_replay.build_config(
+      False, seed, anakin=True, profile_window=ANAKIN_PROFILE_WINDOW)
+  logdir = os.path.join(root, "anakin_production")
+  replay = ReplayTrainLoop(config, logdir, device=dev)
+  starts, ends, trained, made = [], [], [], {}
+  make = replay._anakin_loop
+
+  def instrumented():
+    start = time.perf_counter()
+    loop = make()
+    made["loop_build_s"] = time.perf_counter() - start
+    step = loop.step
+
+    def timed_step(state, draws=None):
+      starts.append(time.perf_counter())
+      out = step(state, draws)
+      ends.append(time.perf_counter())
+      trained.append(out[1]["trained_steps"])
+      return out
+
+    loop.step = timed_step
+    made["loop"] = loop
+    return loop
+
+  replay._anakin_loop = instrumented
+  gc.collect()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  start = time.perf_counter()
+  run = replay.run(ANAKIN_PRODUCTION_STEPS)
+  wall = time.perf_counter() - start
+  loop = made["loop"]
+  per_dispatch = config.anakin_inner * ANAKIN_ENVS
+  # The profiled dispatch is the one whose steps reach the window's end;
+  # the one after it pays the trace's export before it starts, so the
+  # steady window runs from that one's end to the last.
+  after = next(i for i in range(len(trained))
+               if sum(trained[:i + 1]) >= ANAKIN_PROFILE_WINDOW[1]) + 1
+  steady = ends[after:]
+  window = ends[-1] - starts[0]
+  traces = sorted(os.listdir(os.path.join(logdir, "profile")))
+  trace = os.path.join(logdir, "profile", traces[0])
+  idle = trace_idle(trace)
+  return {
+      "steps": run["steps"], "dispatches": len(ends),
+      "trained_by_dispatch": trained, "inner_steps": config.anakin_inner,
+      "train_every": config.anakin_train_every, "envs": ANAKIN_ENVS,
+      "bank_scenes": config.anakin_bank_scenes,
+      "capacity": config.capacity, "min_fill": config.min_fill,
+      "wall_s": wall, "loop_build_s": made["loop_build_s"],
+      "env_steps_per_s": len(ends) * per_dispatch / window,
+      "train_steps_per_s": sum(trained) / window,
+      "steady_env_steps_per_s": (len(steady) - 1) * per_dispatch
+      / (steady[-1] - steady[0]),
+      "steady_train_steps_per_s": sum(trained[after + 1:])
+      / (steady[-1] - steady[0]),
+      "steady_dispatches": len(steady) - 1,
+      "dispatch_s": [b - a for a, b in zip(starts, ends)],
+      "first_dispatch_s": ends[0] - starts[0],
+      "capture_dispatch_s": ends[1] - starts[1],
+      "capture_s": (ends[1] - starts[1]) - (ends[-1] - starts[-1]),
+      "exec_s": loop.exec_seconds,
+      "profiled_dispatch": idle, "traces": len(traces),
+      "top_kernels": trace_top_kernels(trace),
+      "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+      "ring_size": run["buffer"]["replay/size"],
+      "env_steps": run["env_steps_collected"],
+      "episodes": run["episodes_collected"],
+      "success_rate": run["collector_success_rate"],
+      "param_refreshes": run["param_refreshes"],
+      "compile_counts": run["compile_counts"],
+      "queue_enqueued": run["queue"]["enqueued"],
+      "eval_td_first": run["eval_history"][0]["eval_td_error"],
+      "eval_td_last": run["eval_history"][-1]["eval_td_error"],
+      "breach_count": run["health"]["breach_count"]}
+
+
+def run_qtopt_anakin(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
+  """Slice 12's phase: (a) the env and the rasterizer on the card against
+  the oracle; (b) the period's graph against eager periods, TinyQ and the
+  64x64 critic; (c) ``--smoke --anakin`` at seeds 0 and 1 with the
+  Anakin bench; (d) the production ``--anakin`` run; (e) fused resume.
+  Raises when a check or the smoke's bar fails; the bench's bars are
+  reported either way."""
+  from tensor2robot_tpu_torch.bin import run_qtopt_replay
+  from tensor2robot_tpu_torch.replay import anakin_bench
+  result = {"card": smi}
+
+  # (a) The env and the rasterizer.
+  line = anakin_env_on_card(torch, dev, seed)
+  emit("qtopt_anakin_env", card=smi, **line)
+  if not (line["rasterizer_bit_equal"] and line["procedural_bit_equal"]
+          and line["knife_edge_raster_bit_equal"]
+          and line["knife_edge_success_bit_equal"]
+          and line["steps_bit_equal"] and line["resets"] >= 3):
+    raise AssertionError(f"the device env against the oracle: {line}")
+  result["env_bit_equal"] = True
+
+  # (b) Graphs against eager periods.
+  result["graphs"] = []
+  for case in ANAKIN_GRAPH_CASES:
+    line = anakin_graph_vs_eager(torch, dev, case, seed)
+    emit("qtopt_anakin_graph", card=smi, **line)
+    if not (line["bit_equal"] and line["trained_steps"][0] > 0
+            and line["compile_counts"] == line["compile_counts_eager"]
+            == {"anakin_step": 1}):
+      raise AssertionError(f"Anakin graph vs eager: {line}")
+    result["graphs"].append({key: line[key] for key in (
+        "model", "capture_s", "dispatch_device_ms",
+        "device_ms_per_control_step")})
+
+  # (c) The smoke through the CLI's run, with the bench at the first seed.
+  result["smoke"] = {}
+  with CountReplays(gl) as replays:
+    for s in LOOP_SEEDS:
+      start = time.perf_counter()
+      run = run_qtopt_replay.run(
+          LOOP_SMOKE_STEPS, smoke=True,
+          logdir=os.path.join(root, f"anakin_smoke_{s}"), seed=s,
+          device=dev, anakin=True, anakin_bench=s == LOOP_SEEDS[0])
+      ledger = run["compile_counts"]
+      line = {"seed": s, "steps": run["steps"],
+              "initial_eval_td": run["initial_eval"]["eval_td_error"],
+              "final_eval_td": run["final_eval"]["eval_td_error"],
+              "eval_td_reduction": run["eval_td_reduction"],
+              "bar": LOOP_BAR, "compile_counts": ledger,
+              "episodes": run["episodes_collected"],
+              "env_steps": run["env_steps_collected"],
+              "queue_enqueued": run["queue"]["enqueued"],
+              "param_refreshes": run["param_refreshes"],
+              "breach_count": run["health"]["breach_count"],
+              "seconds": time.perf_counter() - start}
+      emit("qtopt_anakin_smoke", card=smi, **line)
+      if not (run["eval_td_reduction"] >= LOOP_BAR and run["anakin"]
+              and ledger == {"anakin_step": 1, "bellman_td_error": 1}
+              and run["queue"]["enqueued"] == 0
+              and run["episodes_collected"] > 50):
+        raise AssertionError(f"Anakin smoke at seed {s}: {line}")
+      result["smoke"][s] = run["eval_td_reduction"]
+      if "anakin_throughput" in run:
+        bench = run["anakin_throughput"]
+        bars = {
+            "host_blocked_median": bench["anakin"]["host_blocked_fraction"][
+                "median"] <= ANAKIN_BLOCKED_BAR,
+            "speedup_median": bench["speedup"]["median"]
+            >= ANAKIN_SPEEDUP_BAR}
+        emit("qtopt_anakin_bench", card=smi, bars_met=bars, **bench)
+        if bench["compile_counts"] != {"vector_cem_bucket_32": 1,
+                                       "megastep": 1, "anakin_step": 1}:
+          raise AssertionError(f"Anakin bench builds: {bench}")
+        result["bench"] = {"speedup": bench["speedup"],
+                           "host_blocked": bench["anakin"][
+                               "host_blocked_fraction"],
+                           "bars_met": bars}
+  result["smoke_graph_replays"] = replays.replays
+
+  # (d) The production run.
+  line = run_anakin_production(torch, dev, seed, root)
+  emit("qtopt_anakin_production", card=smi, **line)
+  if not (line["steps"] >= 100 and line["compile_counts"] == {
+      "anakin_step": 1, "bellman_td_error": 1} and line["traces"] == 1
+          and line["queue_enqueued"] == 0 and line["breach_count"] == 0
+          and np.isfinite(line["eval_td_last"])):
+    raise AssertionError(f"Anakin production: {line}")
+  result["production"] = {key: line[key] for key in (
+      "steps", "env_steps_per_s", "train_steps_per_s",
+      "steady_env_steps_per_s", "steady_train_steps_per_s",
+      "first_dispatch_s", "capture_s", "peak_memory_gb")}
+  result["production"]["idle_share"] = line["profiled_dispatch"][
+      "idle_share"]
+
+  # (e) Fused resume.
+  start = time.perf_counter()
+  parity = anakin_bench.anakin_resume_parity(2, 2, seed, device=dev)
+  parity["seconds"] = time.perf_counter() - start
+  emit("qtopt_anakin_resume_parity", card=smi, **parity)
+  if not parity["parity_ok"]:
+    raise AssertionError(f"Anakin fused resume parity: {parity}")
+  result["resume_parity"] = True
+  return result
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -3133,6 +3582,14 @@ def main(argv=None) -> int:
     device_result = run_qtopt_device(torch, gl, dev, args.seed, tmp, smi)
     emit("qtopt_device", seconds=time.perf_counter() - start,
          **device_result)
+
+  # Slice 12's main paths: the fused Anakin loop (the env, acting, the
+  # extend and the learner on the card); no TPU kernel runs on them.
+  with tempfile.TemporaryDirectory() as tmp:
+    start = time.perf_counter()
+    anakin_result = run_qtopt_anakin(torch, gl, dev, args.seed, tmp, smi)
+    emit("qtopt_anakin", seconds=time.perf_counter() - start,
+         **anakin_result)
 
   timing = time_spatial_softmax(torch, ss, feature_map)
   emit("kernel_timing", spatial_softmax=timing)

@@ -4,6 +4,7 @@
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay --smoke
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay --smoke --vector-actors
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay --smoke --device-resident
+    python -m tensor2robot_tpu_torch.bin.run_qtopt_replay --smoke --anakin
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay
 
 Counterpart of ``tensor2robot_tpu/bin/run_qtopt_replay.py``'s host path:
@@ -34,9 +35,18 @@ iterations a dispatch, CUDA graphs on the card
 (``replay/device_buffer.py``); the line then carries a
 ``learner_throughput`` block (the megastep against the host path at the
 same batch shape, ``replay/learner_bench.py``; skip it with
-``--no-learner-bench``). ``--anakin`` (item 10d), ``--mesh`` (item 15)
-and a non-f32 ``--precision`` (item 11) wait for later ``ROADMAP.md``
-items and raise by name.
+``--no-learner-bench``).
+
+``--anakin`` runs the fused loop: the env fleet on the card over a bank of
+oracle scenes, acting, the replay extend and the learner all on the card,
+``anakin_inner`` control steps a dispatch with an optimizer step every
+``anakin_train_every``-th, CUDA graphs of a period on the card
+(``replay/anakin.py``); the line then carries an ``anakin_throughput``
+block (the fused loop against the vector fleet beside the megastep at the
+same env count and policy, ``replay/anakin_bench.py``; skip it with
+``--no-anakin-bench``). ``--mesh`` (item 15) and a non-f32
+``--precision`` (item 11) wait for later ``ROADMAP.md`` items and raise
+by name.
 """
 
 from __future__ import annotations
@@ -66,9 +76,9 @@ def parse_profile(spec):
 
 def build_config(smoke: bool, seed: int, **options):
   """The JAX CLI's smoke and full configs, field for field. `options` are
-  further config fields (device_resident, vector_actors, profile_window,
-  the checkpoint fields, and those of the paths that wait for later
-  items: anakin, mesh_dp, precision, which the config refuses off their
+  further config fields (device_resident, vector_actors, anakin,
+  profile_window, the checkpoint fields, and those of the paths that wait
+  for later items: mesh_dp, precision, which the config refuses off their
   defaults by name)."""
   from tensor2robot_tpu_torch.replay.loop import ReplayLoopConfig
   if smoke:
@@ -86,12 +96,14 @@ def build_config(smoke: bool, seed: int, **options):
 
 def run(steps: int, smoke: bool, logdir: str, seed: int,
         device: Device = None, actor_bench: bool = True,
-        learner_bench: bool = True, **options) -> dict:
+        learner_bench: bool = True, anakin_bench: bool = True,
+        **options) -> dict:
   """The loop for `steps` optimizer steps: TinyQ under `smoke`, the
   flagship critic otherwise (`options`: config fields, as
   ``build_config``). With vector actors and `actor_bench` the result
   gains the ``actor_throughput`` block, device-resident with
-  `learner_bench` the ``learner_throughput`` block. Returns the loop's
+  `learner_bench` the ``learner_throughput`` block, Anakin with
+  `anakin_bench` the ``anakin_throughput`` block. Returns the loop's
   result."""
   from tensor2robot_tpu_torch.replay.loop import ReplayTrainLoop
   config = build_config(smoke, seed, **options)
@@ -135,7 +147,26 @@ def run(steps: int, smoke: bool, logdir: str, seed: int,
         scripted_fraction=config.scripted_fraction,
         cem_num_samples=config.cem_num_samples,
         cem_num_elites=config.cem_num_elites,
-        cem_iterations=config.cem_iterations, seed=seed, device=device)
+        cem_iterations=config.cem_iterations, batch_size=config.batch_size,
+        gamma=config.gamma, seed=seed, device=device)
+  if config.anakin and anakin_bench:
+    # The fused loop against the vector fleet beside the megastep at the
+    # same env count and policy (replay/anakin_bench).
+    from tensor2robot_tpu_torch.replay.anakin_bench import (
+        measure_anakin_throughput,
+    )
+    results["anakin_throughput"] = measure_anakin_throughput(
+        image_size=config.image_size if smoke else 16,
+        action_size=config.action_size, max_attempts=config.max_attempts,
+        grasp_radius=config.grasp_radius,
+        exploration_epsilon=config.exploration_epsilon,
+        scripted_fraction=config.scripted_fraction,
+        cem_num_samples=config.cem_num_samples,
+        cem_num_elites=config.cem_num_elites,
+        cem_iterations=config.cem_iterations,
+        train_every=config.anakin_train_every,
+        batch_size=config.batch_size, gamma=config.gamma, seed=seed,
+        device=device)
   results["mode"] = "smoke" if smoke else "full"
   results["metric"] = ("QT-Opt off-policy replay loop: eval Bellman "
                        "residual reduction")
@@ -165,7 +196,12 @@ def main(argv=None) -> None:
                       help="skip the actor_throughput block of a "
                            "--vector-actors run")
   parser.add_argument("--anakin", action="store_true",
-                      help="waits for ROADMAP.md item 10")
+                      help="the fused loop: the env, acting, the replay "
+                           "extend and the learner on the card "
+                           "(replay/anakin.py)")
+  parser.add_argument("--no-anakin-bench", action="store_true",
+                      help="skip the anakin_throughput block of an "
+                           "--anakin run")
   parser.add_argument("--mesh", default="0",
                       help="DP[,TP]; any mesh waits for ROADMAP.md item 15")
   parser.add_argument("--precision", default="f32", choices=("f32", "bf16"),
@@ -188,7 +224,8 @@ def main(argv=None) -> None:
   logdir = args.logdir or tempfile.mkdtemp(prefix="qtopt_replay_")
   results = run(steps, args.smoke, logdir, args.seed, device=args.device,
                 actor_bench=not args.no_actor_bench,
-                learner_bench=not args.no_learner_bench, **options)
+                learner_bench=not args.no_learner_bench,
+                anakin_bench=not args.no_anakin_bench, **options)
   line = json.dumps(results)
   if args.out:
     with open(args.out, "w") as f:

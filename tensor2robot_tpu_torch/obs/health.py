@@ -6,7 +6,9 @@ host loop runs:
 - ``SUMMARY_KEYS``: the fixed health-summary schema every learn path
   emits; ``SCAN_MAX_KEYS`` and ``reduce_scanned_metrics``: the megastep's
   reduction of K inner steps' metrics (the max for the spike keys, the
-  last step's value for the rest);
+  last step's value for the rest); ``merge_scan_metrics`` and
+  ``zero_summary``: the Anakin loop's running form of the same reduction
+  and its carry's initial value;
 - ``tree_nonfinite_count`` / ``tree_global_norm``: the summary's
   reductions over a tree of tensors (non-finite elements of the float
   leaves; the global L2 norm, summed in float32), as a float32 scalar on
@@ -22,8 +24,7 @@ host loop runs:
 The JAX monitor also escalates into the process metric registry and a
 flight-recorder dump; those belong to the obs tier (``ROADMAP.md``'s
 flagship item 15), and passing ``registry=`` or ``recorder=`` raises by
-name. The Anakin loop's scan-carry merge and the fleet Q-drift report
-wait with the paths that call them.
+name. The fleet Q-drift report waits with the path that calls it.
 """
 
 from __future__ import annotations
@@ -100,6 +101,23 @@ def tree_global_norm(tree) -> torch.Tensor:
   return torch.sqrt(_leaf_sums(tree, lambda leaf: torch.square(leaf.float())))
 
 
+def merge_scan_metrics(new: Mapping[str, torch.Tensor],
+                       old: Mapping[str, torch.Tensor],
+                       gate: torch.Tensor) -> Dict[str, torch.Tensor]:
+  """The fused loops' per-key carry merge: where the 0-d bool `gate` is
+  true the SCAN_MAX_KEYS keep their running max (a spike inside a
+  dispatch survives to its readout) and every other key takes the new
+  value; where false every key keeps its old value. No host sync, so a
+  CUDA graph can hold it."""
+  out = {}
+  for key, new_value in new.items():
+    old_value = old[key]
+    if key in SCAN_MAX_KEYS:
+      new_value = torch.maximum(new_value, old_value)
+    out[key] = torch.where(gate, new_value, old_value)
+  return out
+
+
 def reduce_scanned_metrics(stacked: Mapping[str, torch.Tensor]
                            ) -> Dict[str, torch.Tensor]:
   """Metrics stacked along a leading axis of inner steps, reduced per key:
@@ -107,6 +125,13 @@ def reduce_scanned_metrics(stacked: Mapping[str, torch.Tensor]
   return {key: (value.max(dim=0).values if key in SCAN_MAX_KEYS
                 else value[-1])
           for key, value in stacked.items()}
+
+
+def zero_summary(device=None) -> Dict[str, torch.Tensor]:
+  """The all-zeros summary: the fused loops' carry before a dispatch's
+  first trained step, and the placeholder of one that never trained."""
+  return {key: torch.zeros((), dtype=torch.float32, device=device)
+          for key in SUMMARY_KEYS}
 
 
 @dataclasses.dataclass(frozen=True)

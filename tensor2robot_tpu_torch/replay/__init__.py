@@ -18,11 +18,15 @@
   acting;
 - ``device_buffer``: ``DeviceReplayBuffer``, the ring and its sum tree on
   the device, and ``MegastepLearner``, K learner steps a dispatch (CUDA
-  graphs on the card), the loop's ``device_resident`` path.
-
-The fused Anakin loop waits for ``ROADMAP.md``'s flagship item 10d.
+  graphs on the card), the loop's ``device_resident`` path;
+- ``anakin``: ``AnakinLoop``, act -> env step -> extend -> learn on the
+  card around ``research.qtopt.device_grasping.DeviceGraspEnv`` (CUDA
+  graphs of a period on the card), the loop's ``anakin`` path;
+  ``anakin_bench``: the fused loop against the vector fleet, and its
+  resume bar.
 """
 
+from tensor2robot_tpu_torch.replay.anakin import AnakinLoop
 from tensor2robot_tpu_torch.replay.bellman import (
     BellmanUpdater,
     TargetNetwork,
@@ -46,6 +50,7 @@ from tensor2robot_tpu_torch.replay.smoke import TinyQCriticModel
 from tensor2robot_tpu_torch.replay.sum_tree import SumTree
 
 __all__ = [
+    "AnakinLoop",
     "BellmanUpdater",
     "CollectorWorker",
     "DeviceReplayBuffer",

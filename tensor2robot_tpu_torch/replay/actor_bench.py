@@ -1,12 +1,16 @@
-"""Actor throughput: threaded scalar collectors against the vector fleet.
+"""Actor throughput: threaded scalar collectors against the vector fleet,
+and the learner beside the fleet.
 
-Counterpart of ``tensor2robot_tpu/replay/actor_bench.py``'s first two
-phases. At the same policy (one shared hot-reload predictor, the same CEM
-settings) and the same total env count, it times the threaded collectors
+Counterpart of ``tensor2robot_tpu/replay/actor_bench.py``. At the same
+policy (one shared hot-reload predictor, the same CEM settings) and the
+same total env count, it times the threaded collectors
 (``scalar_collectors`` threads, each stepping its share of scalar
 ``GraspRetryEnv``s through its own small bucket) against one
 ``VectorActor`` stepping every env in lockstep through one bucket pinned
-to the fleet. No learner runs, so the numbers isolate acting.
+to the fleet; no learner runs in those two phases, so their numbers
+isolate acting. The overlap phase then runs the megastep learner
+(``device_buffer.MegastepLearner`` over a pre-filled device ring) while a
+fresh fleet collects.
 
 The block, every timed field a {median, min, max, trials} spread:
 
@@ -15,10 +19,14 @@ The block, every timed field a {median, min, max, trials} spread:
     transitions_per_sec    transitions enqueued per second (the threaded
                            path enqueues at episode ends)
   speedup                  per-trial vector / scalar env steps
-  overlap                  None: the JAX bench's third phase, the
-                           ``MegastepLearner`` beside the fleet, is not
-                           ported yet (``ROADMAP.md`` Queue 1)
-  compile_counts           both policies' bucket builds (one each)
+  overlap:
+    acting_learning_overlap_fraction   the fleet's busy seconds over the
+                           learner's wall seconds (1.0: acting never
+                           paused while the learner trained)
+    learner_steps_per_sec_while_acting the megastep's optimizer steps/s
+                           beside the fleet
+  compile_counts           both policies' bucket builds and the
+                           megastep's (one each)
 """
 
 from __future__ import annotations
@@ -27,19 +35,28 @@ import time
 from typing import Dict
 
 import numpy as np
-import torch
 
 from tensor2robot_tpu_torch import Device, resolve_device
 from tensor2robot_tpu_torch.replay.actor import ActorFleet
+from tensor2robot_tpu_torch.replay.device_buffer import (
+    DeviceReplayBuffer,
+    MegastepLearner,
+)
 from tensor2robot_tpu_torch.replay.ingest import TransitionQueue
-from tensor2robot_tpu_torch.replay.learner_bench import _spread
+from tensor2robot_tpu_torch.replay.learner_bench import (
+    _spread,
+    _synthetic_transitions,
+)
 from tensor2robot_tpu_torch.replay.loop import (
     CollectorWorker,
     _HotReloadPredictor,
+    transition_spec,
 )
 from tensor2robot_tpu_torch.replay.smoke import TinyQCriticModel
 from tensor2robot_tpu_torch.serving.bucketing import BucketLadder
 from tensor2robot_tpu_torch.serving.policy import CEMFleetPolicy
+from tensor2robot_tpu_torch.train.trainer import Trainer
+from tensor2robot_tpu_torch.utils import optimizers
 
 
 def measure_actor_throughput(
@@ -56,21 +73,31 @@ def measure_actor_throughput(
     cem_iterations: int = 2,
     window_s: float = 1.0,
     trials: int = 3,
+    batch_size: int = 32,
+    learner_capacity: int = 256,
+    learner_inner_steps: int = 5,
+    gamma: float = 0.8,
+    learning_rate: float = 3e-3,
     seed: int = 0,
     device: Device = None,
 ) -> Dict:
-  """Times both actor paths (TinyQ's policy on `device`, the GPU unless
-  'cpu' is asked for); returns the block. Both buckets are built before
-  any timing, on this thread."""
+  """Times both actor paths, then the overlap phase (TinyQ on `device`,
+  the GPU unless 'cpu' is asked for); returns the block. Both buckets and
+  the megastep's graph are built before any timing, on this thread."""
   if num_envs % scalar_collectors:
     raise ValueError(
         f"num_envs {num_envs} must split evenly over "
         f"scalar_collectors {scalar_collectors}")
   device = resolve_device(device)
   envs_per_collector = num_envs // scalar_collectors
-  model = TinyQCriticModel(image_size=image_size, action_size=action_size)
-  predictor = _HotReloadPredictor(model, model.init_variables(
-      torch.Generator().manual_seed(seed), device=device))
+  model = TinyQCriticModel(
+      image_size=image_size, action_size=action_size,
+      optimizer_fn=optimizers.create_adam_optimizer(learning_rate))
+  trainer = Trainer(model, seed=seed, device=device)
+  state = trainer.create_train_state()
+  host_variables = {key: value.detach().clone()
+                    for key, value in state.variables(use_ema=True).items()}
+  predictor = _HotReloadPredictor(model, host_variables)
   cem_kwargs = dict(action_size=action_size, num_samples=cem_num_samples,
                     num_elites=cem_num_elites, iterations=cem_iterations,
                     seed=seed + 7)
@@ -130,6 +157,42 @@ def measure_actor_throughput(
   finally:
     fleet.stop()
 
+  # --- the overlap phase: the megastep learner beside a fresh fleet ---------
+  buffer = DeviceReplayBuffer(
+      transition_spec(image_size, action_size), learner_capacity, batch_size,
+      seed=seed, prioritized=True, ingest_chunk=min(64, learner_capacity),
+      device=device)
+  buffer.extend(_synthetic_transitions(learner_capacity, image_size,
+                                       action_size, seed + 17))
+  learner = MegastepLearner(
+      model, trainer, buffer, action_size=action_size, gamma=gamma,
+      num_samples=cem_num_samples, num_elites=cem_num_elites,
+      iterations=cem_iterations, inner_steps=learner_inner_steps,
+      seed=seed + 13)
+  learner.refresh(host_variables, step=0)
+  # Untimed: the eager first dispatch, then the capture (on the card).
+  for _ in range(2):
+    state, _ = learner.step(state)
+  overlap_fleet = ActorFleet(
+      vector_policy, TransitionQueue(max(4096, 4 * num_envs)), image_size,
+      total_envs=num_envs, seed=seed + 99, **env_kwargs)
+  overlap_fleet.start()
+  overlap_fracs, learner_sps = [], []
+  try:
+    for _ in range(trials):
+      busy0 = overlap_fleet.busy_seconds()
+      steps = 0
+      start = time.perf_counter()
+      while time.perf_counter() - start < window_s:
+        state, _ = learner.step(state)
+        steps += learner_inner_steps
+      elapsed = time.perf_counter() - start
+      overlap_fracs.append(
+          min(1.0, (overlap_fleet.busy_seconds() - busy0) / elapsed))
+      learner_sps.append(steps / elapsed)
+  finally:
+    overlap_fleet.stop()
+
   return {
       "num_envs": num_envs,
       "scalar_collectors": scalar_collectors,
@@ -146,12 +209,16 @@ def measure_actor_throughput(
       },
       "speedup": _spread(
           [v / max(s, 1e-9) for v, s in zip(vector_sps, scalar_sps)], 2),
-      "overlap": None,
+      "overlap": {
+          "acting_learning_overlap_fraction": _spread(overlap_fracs, 3),
+          "learner_steps_per_sec_while_acting": _spread(learner_sps, 2),
+      },
       "compile_counts": {
           **{f"scalar_cem_bucket_{k}": v
              for k, v in sorted(scalar_policy.compile_counts.items())},
           **{f"vector_cem_bucket_{k}": v
              for k, v in sorted(vector_policy.compile_counts.items())},
+          **learner.compile_counts,
       },
       "note": (
           "same shared hot-reload predictor, same CEM settings, same total "
@@ -159,6 +226,7 @@ def measure_actor_throughput(
           f"threads x {envs_per_collector} GraspRetryEnvs each (one small "
           "bucket call a thread step); vector path = one VectorActor "
           f"stepping all {num_envs} envs through one bucket and one "
-          "put_batch chunk a step. overlap is None: the megastep phase is "
-          "not ported yet."),
+          "put_batch chunk a step. The overlap phase runs the megastep "
+          "learner while a fresh fleet collects: overlap fraction = actor "
+          "busy seconds / learner wall seconds."),
   }

@@ -1,0 +1,538 @@
+"""AnakinLoop: act -> env step -> extend -> learn with the host out of the loop.
+
+Counterpart of ``tensor2robot_tpu/replay/anakin.py``. The megastep
+(``device_buffer.MegastepLearner``) put the learner on the card and the
+vector actor (``actor.VectorActor``) batched acting, but the two still
+meet on the host: the actor replays a CEM bucket a control step, steps
+numpy, enqueues, and the feeder copies the same bytes back to the card.
+Here the environment (``research/qtopt/device_grasping.DeviceGraspEnv``),
+acting, the replay extend and the optimizer step all run on the card, the
+Anakin architecture of Podracer (arXiv:2104.06272). Each control step:
+
+  obs      = env_state.images           (uint8, the pre-step snapshot)
+  act      : fleet CEM (``cem.fleet_cem_optimize`` over
+             ``bellman.make_cem_states_and_score``, factored where the
+             model has the form) on the live EMA variables, then the
+             collectors' epsilon-uniform and scripted-near-object mix;
+  env step : ``DeviceGraspEnv.step_fn`` (auto-reset in place);
+  extend   : ``DeviceReplayBuffer.extend_fn`` at the fleet's chunk, with
+             next_image = obs (the scene is static within an episode);
+  learn    : on every ``train_every``-th control step once the ring holds
+             ``min_fill`` rows, ``device_buffer.make_learn_iteration_fn``
+             (sample -> CEM-Bellman label against the target net ->
+             train -> TD -> reprioritize), its metrics merged into the
+             dispatch's carry by ``health.merge_scan_metrics``.
+
+A dispatch is ``inner_steps`` control steps, ``inner_steps /
+train_every`` periods of ``train_every`` control steps and one learn. The
+host reads back one metrics vector a dispatch.
+
+**No data-dependent branch on the card.** JAX gates the learn with a
+``lax.cond`` on the ring's size inside its program. Here the host knows
+the size (it counts every extend: ``num_envs`` rows a control step), so
+before a dispatch it knows which learns pass the gate. On the card, a
+dispatch whose learns all pass replays one CUDA graph of a period once a
+period, the period's draws copied into the graph's input row first; any
+other dispatch (warm-up, or the one that crosses ``min_fill``) runs the
+same body eagerly on a side stream, as the megastep's first dispatch
+does. The first graphed dispatch captures the period, once for the
+loop's life: ``compile_counts == {"anakin_step": 1}``. On the CPU, or
+with ``graphs=False``, every dispatch runs the body eagerly (it is built
+once, and counted once).
+
+**The draws.** JAX keys each draw by ``fold_in(key(seed + c), tick)``
+with threefry inside its program, tick = outer * inner_steps + inner;
+threefry and Philox cannot agree. The port draws them on the host with
+numpy, ``np.random.default_rng((seed + c, tick))``, the offsets c those
+of the JAX keys: per control step the acting CEM noise (c = 7, (n,
+iterations, N, A) standard normals), the exploration draws (c = 555: an
+epsilon uniform (n,), uniform actions (n, A) in [-1, 1), scripted noise
+(n, 2) standard normals, scaled by 0.12 on the card) and, with no bank,
+the reset targets (c = 31, ``device_grasping.procedural_draws``); per
+learn, at its control step's tick, the ring's slot draws
+(``device_buffer.sample_draws(seed, tick, ...)`` at the size the host
+counts) and the label noise (c = 1, (B, iterations, N, A)). A dispatch's
+draws reach the card in one copy from pinned memory; the next dispatch's
+are drawn while the card runs. ``step(draws=)`` takes the JAX package's
+own draws in the parity tests.
+
+Refused by name: ``ledger=`` (the executable ledger, ``ROADMAP.md``'s
+flagship item 15) and a scoring precision other than "f32" (item 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from tensor2robot_tpu_torch.obs import health as health_lib
+from tensor2robot_tpu_torch.ops import graph_launches
+from tensor2robot_tpu_torch.replay.bellman import (
+    TargetNetwork,
+    make_bellman_targets_fn,
+    make_cem_states_and_score,
+)
+from tensor2robot_tpu_torch.replay.device_buffer import (
+    DeviceReplayBuffer,
+    make_learn_iteration_fn,
+    sample_draws,
+)
+from tensor2robot_tpu_torch.research.qtopt import cem
+from tensor2robot_tpu_torch.research.qtopt.device_grasping import (
+    DeviceGraspEnv,
+    procedural_draws,
+)
+from tensor2robot_tpu_torch.train import trainer as trainer_lib
+
+# The draw streams' seed offsets: the JAX loop's key offsets.
+_LABEL, _ACT, _ENV_INIT, _ENV, _EXPLORE = 1, 7, 21, 31, 555
+_LOSS_KEYS = ("loss", "td_error", "q_next", "staleness")
+
+
+class DrawLayout:
+  """Named fields of one period's flat float32 row of draws."""
+
+  def __init__(self, fields: Sequence[Tuple[str, Tuple[int, ...]]]):
+    self.fields: Dict[str, Tuple[int, int, Tuple[int, ...]]] = {}
+    offset = 0
+    for name, shape in fields:
+      size = math.prod(shape)
+      self.fields[name] = (offset, size, tuple(shape))
+      offset += size
+    self.width = offset
+
+  def views(self, row):
+    """{name: view} of one (width,) tensor or array."""
+    return {name: row[offset:offset + size].reshape(shape)
+            for name, (offset, size, shape) in self.fields.items()}
+
+
+class _AnakinGraph:
+  """One period (``train_every`` control steps and a learn) captured in a
+  CUDA graph over the loop's input row. ``holds`` says whether a train
+  state still has the tensors the graph was captured on."""
+
+  def __init__(self, loop: "AnakinLoop", state, stream: torch.cuda.Stream):
+    self.graph = torch.cuda.CUDAGraph()
+    state.opt_state.zero_grad(set_to_none=True)
+    current = torch.cuda.current_stream(loop.device)
+    stream.wait_stream(current)
+    try:
+      with graph_launches.capture(self.graph, stream) as self.tally:
+        loop._period(state, loop._row, learn=True)
+    except RuntimeError as e:
+      raise NotImplementedError(
+          f"AnakinLoop cannot capture {type(loop._model).__name__}'s period "
+          f"in a CUDA graph: {e}") from e
+    current.wait_stream(stream)
+    self._tensors = [t.data_ptr() for t in trainer_lib._state_tensors(state)]
+    self._hyperparameters = trainer_lib._hyperparameters(state.opt_state)
+
+  def holds(self, state) -> bool:
+    return ([t.data_ptr() for t in trainer_lib._state_tensors(state)]
+            == self._tensors
+            and trainer_lib._hyperparameters(state.opt_state)
+            == self._hyperparameters)
+
+  def replay(self) -> None:
+    self.graph.replay()
+    graph_launches.replayed(self.tally)
+
+
+class AnakinLoop(TargetNetwork):
+  """The act -> step -> extend -> learn loop around a ``DeviceGraspEnv``.
+
+  Args:
+    model / trainer / buffer: the megastep's trio, on one device; the
+      buffer's ``ingest_chunk`` must equal the fleet width (one extend
+      shape).
+    env: a ``DeviceGraspEnv`` (bank or procedural scenes).
+    action_size / gamma / num_samples / num_elites / iterations: acting's
+      and labelling's CEM and the discount.
+    inner_steps: control steps a dispatch, a multiple of `train_every`.
+    train_every: one optimizer step every `train_every` control steps.
+    min_fill: the ring size a learn waits for (``ReplayFeeder.ready``'s
+      gate).
+    exploration_epsilon / scripted_fraction: the collectors' mix.
+    seed: keys every draw (see the module's docstring).
+    polyak_tau: None copies the online variables on ``refresh``.
+    ledger / precision: item 15's ledger and item 11's tiers; refused.
+    health: the learn adds ``health.SUMMARY_KEYS`` to the metrics, the
+      spike keys reduced by their running max over the dispatch.
+    graphs: on the card, replay the period's graph (False runs every
+      dispatch eagerly: the bit-parity control).
+  """
+
+  def __init__(
+      self,
+      model,
+      trainer,
+      buffer: DeviceReplayBuffer,
+      env: DeviceGraspEnv,
+      action_size: int = 4,
+      gamma: float = 0.9,
+      num_samples: int = 32,
+      num_elites: int = 4,
+      iterations: int = 2,
+      inner_steps: int = 40,
+      train_every: int = 8,
+      min_fill: int = 0,
+      exploration_epsilon: float = 0.2,
+      scripted_fraction: float = 0.25,
+      seed: int = 0,
+      polyak_tau: Optional[float] = None,
+      ledger=None,
+      precision: str = "f32",
+      health: bool = False,
+      graphs: bool = True,
+  ):
+    if ledger is not None:
+      raise NotImplementedError(
+          "AnakinLoop(ledger=) records into the obs tier's executable "
+          "ledger, which waits for ROADMAP.md's flagship item 15.")
+    if inner_steps < 1 or train_every < 1 or inner_steps % train_every:
+      raise ValueError(
+          f"inner_steps {inner_steps} must be a positive multiple of "
+          f"train_every {train_every}")
+    if buffer.ingest_chunk != env.num_envs:
+      raise ValueError(
+          f"buffer ingest_chunk {buffer.ingest_chunk} must equal the env "
+          f"fleet width {env.num_envs}: the loop extends the ring at one "
+          "chunk shape, the fleet's")
+    if not trainer.device == buffer.device == env.device:
+      raise ValueError(
+          f"the trainer runs on {trainer.device}, the ring lives on "
+          f"{buffer.device} and the env on {env.device}")
+    if buffer.capacity >= 2 ** 24:
+      raise ValueError(
+          f"capacity {buffer.capacity} >= 2^24: slot draws ride the float32 "
+          "draw buffer and must be exact")
+    super().__init__(polyak_tau=polyak_tau, device=trainer.device)
+    self.precision = cem.validate_precision(precision)
+    self.dtype = str(cem.scoring_dtype(precision)).replace("torch.", "")
+    self._model = model
+    self._trainer = trainer
+    self._buffer = buffer
+    self._env = env
+    self._action_size = action_size
+    self._gamma = gamma
+    self._num_samples = num_samples
+    self._num_elites = num_elites
+    self._iterations = iterations
+    self.inner_steps = inner_steps
+    self.train_every = train_every
+    self.min_fill = min_fill
+    self._epsilon = exploration_epsilon
+    self._scripted = scripted_fraction
+    self._seed = seed
+    self._clip_targets = getattr(model, "loss_type",
+                                 "cross_entropy") == "cross_entropy"
+    self.health = bool(health)
+    self._graphs = graphs and self.device.type == "cuda"
+    self._factored = getattr(model, "factored_cem_fns", lambda: None)()
+    self._env_step = env.step_fn()
+    self._extend = buffer.extend_fn()
+    self._learn = None
+    self._graph: Optional[_AnakinGraph] = None
+    self._built = False
+    self._warmed = False
+    self._side_stream = None
+    self.compile_counts: Dict[str, int] = {}
+
+    n, steps, batch = env.num_envs, train_every, buffer.sample_batch_size
+    self._noise_shape = (iterations, num_samples, action_size)
+    fields = [("act_noise", (steps, n) + self._noise_shape),
+              ("draw", (steps, n)), ("uniform", (steps, n, action_size)),
+              ("normal", (steps, n, 2))]
+    if env.bank is None:
+      fields.append(("reset_targets", (steps, n, 2)))
+    fields += [("slots", (batch,)), ("uniforms", (batch,)),
+               ("label_noise", (batch,) + self._noise_shape)]
+    self.layout = DrawLayout(fields)
+    self.periods = inner_steps // train_every
+    shape = (self.periods, self.layout.width)
+    pin = self.device.type == "cuda"
+    # Two host buffers: the next dispatch's draws are made into one while
+    # the card runs the dispatch copied from the other.
+    self._host = [torch.empty(shape, dtype=torch.float32, pin_memory=pin)
+                  for _ in range(2)]
+    self._prefetched = None  # (host buffer, outer, ring size) it holds
+    self._draws = torch.empty(shape, dtype=torch.float32, device=self.device)
+    self._row = torch.empty(self.layout.width, dtype=torch.float32,
+                            device=self.device)  # the graph's input
+    self._keys = _LOSS_KEYS + (health_lib.SUMMARY_KEYS if health else ())
+    self._carry = {key: torch.zeros((), dtype=torch.float32,
+                                    device=self.device)
+                   for key in self._keys}
+    self._true = torch.ones((), dtype=torch.bool, device=self.device)
+    self.env_state = env.init_state(
+        None if env.bank is not None
+        else procedural_draws(seed + _ENV_INIT, 0, n))
+    self._outer = 0
+    self._episodes = self._successes = 0
+    self.env_steps = 0
+    self.trained_steps = 0
+    # Wall seconds from a dispatch's launch to its metrics on the host:
+    # the bench's host_blocked_fraction denominator.
+    self.exec_seconds = 0.0
+
+  # --- fleet bookkeeping -----------------------------------------------------
+
+  @property
+  def mesh_shape(self) -> Dict[str, int]:
+    """The mesh the loop spans: one device."""
+    return {"data": 1}
+
+  @property
+  def episodes(self) -> int:
+    """Episodes the fleet ended, as of the last dispatch's readback."""
+    return self._episodes
+
+  @property
+  def successes(self) -> int:
+    return self._successes
+
+  # --- crash-resume ------------------------------------------------------------
+
+  def checkpoint_state(self):
+    """The carried device state: the env fleet, the ring and the target
+    net (the train state stays with the caller)."""
+    return {"env": self.env_state, "buffer": self._buffer.state,
+            "target": self._target_variables}
+
+  def checkpoint_meta(self) -> Dict[str, int]:
+    """The host counters the device state does not carry."""
+    return {"outer": self._outer, "env_steps": self.env_steps,
+            "trained_steps": self.trained_steps,
+            "refresh_count": self._refresh_count,
+            "last_refresh_step": self.last_refresh_step}
+
+  def restore_checkpoint_state(self, composite, meta) -> None:
+    """Copies a restored composite into the env's, the ring's and the
+    target's own tensors (a captured graph keeps reading them) and
+    restores the counters, so the next dispatch continues the draws where
+    the save cut them."""
+    self.env_state.load(composite["env"])
+    self._buffer.load_state(composite["buffer"])
+    self._assign(composite["target"], polyak=False)
+    self._outer = int(meta["outer"])
+    self.env_steps = int(meta["env_steps"])
+    self.trained_steps = int(meta["trained_steps"])
+    self._refresh_count = int(meta["refresh_count"])
+    self.last_refresh_step = int(meta["last_refresh_step"])
+    self._episodes = int(self.env_state.episodes)
+    self._successes = int(self.env_state.successes)
+    self._prefetched = None
+
+  # --- the body ------------------------------------------------------------------
+
+  def _build_learn(self):
+    trainer, buffer, health = self._trainer, self._buffer, self.health
+    targets_fn = make_bellman_targets_fn(
+        self._model, self._action_size, self._gamma, self._num_samples,
+        self._num_elites, self._iterations, self._clip_targets,
+        factored=self._factored is not None, precision=self.precision)
+
+    def step_fn(state, features, labels):
+      return trainer.train_step(state, features, labels, with_health=health)
+
+    return make_learn_iteration_fn(
+        self._model, step_fn, buffer.sample_fn(),
+        buffer.update_priorities_fn(), targets_fn,
+        getattr(self._model, "target_key", "target_q"), self._clip_targets,
+        health_entropy_fn=buffer.priority_entropy_fn() if health else None)
+
+  def _act(self, variables, obs: torch.Tensor, targets: torch.Tensor,
+           draws: Mapping[str, torch.Tensor], t: int) -> torch.Tensor:
+    """The fleet's actions at control step `t` of a period: CEM's best,
+    then the collectors' exploration mix (``CollectorWorker.step_once``'s
+    fractions and order)."""
+    states, score = make_cem_states_and_score(
+        self._model, self._factored, variables, obs,
+        precision=self.precision)
+    best, _ = cem.fleet_cem_optimize(
+        score, states, draws["act_noise"][t], self._action_size,
+        num_samples=self._num_samples, num_elites=self._num_elites,
+        iterations=self._iterations, precision=self.precision)
+    draw, uniform = draws["draw"][t], draws["uniform"][t]
+    scripted = torch.cat(
+        [torch.clamp(targets + draws["normal"][t] * 0.12, -1.0, 1.0),
+         uniform[:, 2:]], dim=1)
+    actions = torch.where((draw < self._epsilon)[:, None], uniform, best)
+    return torch.where((draw >= 1.0 - self._scripted)[:, None], scripted,
+                       actions)
+
+  def _period(self, state, row: torch.Tensor, learn: bool) -> None:
+    """`train_every` control steps, then (with `learn`) one learn whose
+    metrics merge into the carry; every tensor changes in place and
+    nothing waits on the card, so a CUDA graph can hold it."""
+    if self._learn is None:
+      self._learn = self._build_learn()
+    draws = self.layout.views(row)
+    env, ring = self.env_state, self._buffer.state
+    variables = state.variables(use_ema=True)
+    with torch.no_grad():
+      for t in range(self.train_every):
+        obs = env.images.clone()
+        actions = self._act(variables, obs, env.targets, draws, t)
+        _, (rewards, dones, _) = self._env_step(
+            env, actions,
+            draws["reset_targets"][t] if "reset_targets" in draws else None)
+        self._extend(ring, {"image": obs, "action": actions,
+                            "reward": rewards, "done": dones,
+                            "next_image": obs})
+    if not learn:
+      return
+    _, _, metrics = self._learn(
+        state, ring, self._target_variables,
+        (draws["slots"].long(), draws["uniforms"]), draws["label_noise"])
+    with torch.no_grad():
+      merged = health_lib.merge_scan_metrics(metrics, self._carry, self._true)
+      for key, value in merged.items():
+        self._carry[key].copy_(value)
+
+  # --- the draws ---------------------------------------------------------------
+
+  def _fill(self, slot: int, outer: int, size: int) -> None:
+    """Dispatch `outer`'s draws into host buffer `slot`, for a ring that
+    holds `size` rows when it starts."""
+    host = self._host[slot].numpy()
+    k, steps = self.inner_steps, self.train_every
+    n, batch = self._env.num_envs, self._buffer.sample_batch_size
+    for p in range(self.periods):
+      views = self.layout.views(host[p])
+      for t in range(steps):
+        tick = outer * k + p * steps + t
+        views["act_noise"][t] = np.random.default_rng(
+            (self._seed + _ACT, tick)).standard_normal(
+                (n,) + self._noise_shape, dtype=np.float32)
+        explore = np.random.default_rng((self._seed + _EXPLORE, tick))
+        views["draw"][t] = explore.random(n, dtype=np.float32)
+        views["uniform"][t] = explore.uniform(-1.0, 1.0,
+                                              (n, self._action_size))
+        views["normal"][t] = explore.standard_normal((n, 2),
+                                                     dtype=np.float32)
+        if "reset_targets" in views:
+          views["reset_targets"][t] = procedural_draws(self._seed + _ENV,
+                                                       tick, n)
+      tick = outer * k + (p + 1) * steps - 1
+      filled = min(self._buffer.capacity, size + n * steps * (p + 1))
+      views["slots"][:], views["uniforms"][:] = sample_draws(
+          self._seed, tick, batch, filled)
+      views["label_noise"][:] = np.random.default_rng(
+          (self._seed + _LABEL, tick)).standard_normal(
+              (batch,) + self._noise_shape, dtype=np.float32)
+    self._prefetched = (slot, outer, size)
+
+  def _stage_draws(self, slot: int, draws) -> None:
+    """This dispatch's draws (prefetched, or made now), `draws`' fields
+    written over them, then one copy to the card."""
+    if self._prefetched != (slot, self._outer, self._buffer.size):
+      self._fill(slot, self._outer, self._buffer.size)
+    if draws is not None:
+      host = self._host[slot].numpy()
+      for p in range(self.periods):
+        views = self.layout.views(host[p])
+        for name, value in draws.items():
+          views[name][...] = np.asarray(value)[p]
+      self._prefetched = None
+    self._draws.copy_(self._host[slot], non_blocking=True)
+
+  # --- dispatch ------------------------------------------------------------------
+
+  def _count_build(self) -> None:
+    self.compile_counts["anakin_step"] = (
+        self.compile_counts.get("anakin_step", 0) + 1)
+
+  def compiled(self, train_state):
+    """Builds the dispatch program once and returns it: on the card the
+    period's CUDA graph over `train_state`'s tensors (an eager dispatch
+    that trained must have warmed them), elsewhere the period's body.
+    ``compile_counts["anakin_step"]`` counts the builds."""
+    if not self._graphs:
+      if not self._built:
+        self._built = True
+        self._count_build()
+      return self._period
+    if not self._warmed:
+      raise RuntimeError("the Anakin period's graph is captured after an "
+                         "eager dispatch that trained: call step() first")
+    trainer_lib.check_graphable(train_state.opt_state)
+    if self._graph is None or not self._graph.holds(train_state):
+      self._graph = _AnakinGraph(self, train_state, self._side_stream)
+      self._count_build()
+    return self._graph
+
+  def _dispatch(self, state, gates: List[bool]) -> None:
+    """The dispatch's periods on the staged draws, each learning where
+    its gate passed."""
+    for value in self._carry.values():
+      value.zero_()
+    if self._graphs and self._warmed and all(gates):
+      graph = self.compiled(state)
+      for p in range(self.periods):
+        self._row.copy_(self._draws[p])
+        graph.replay()
+      return
+    if not self._graphs:
+      body = self.compiled(state)
+      for p, gate in enumerate(gates):
+        body(state, self._draws[p], gate)
+      return
+    # The card's eager dispatches run on a side stream, as the megastep's
+    # first: the capture then finds cuDNN, cuBLAS and Adam's state warm.
+    trainer_lib.check_graphable(state.opt_state)
+    if self._side_stream is None:
+      self._side_stream = torch.cuda.Stream(self.device)
+    current = torch.cuda.current_stream(self.device)
+    self._side_stream.wait_stream(current)
+    with torch.cuda.stream(self._side_stream):
+      for p, gate in enumerate(gates):
+        self._period(state, self._draws[p], gate)
+    current.wait_stream(self._side_stream)
+    self._warmed |= any(gates)
+
+  def step(self, train_state, draws: Optional[Mapping[str, np.ndarray]]
+           = None):
+    """One dispatch: `inner_steps` control steps and one optimizer step a
+    period whose learn passes the min-fill gate. Returns (state, metrics)
+    with the metrics as host floats (the dispatch's one readback) and
+    ``trained_steps``.
+
+    `draws`: {field: (periods, *field shape)} draws to use in place of
+    the loop's own (``layout``'s fields), as the parity tests pass the
+    JAX package's."""
+    if self._target_variables is None:
+      raise ValueError("call refresh(variables, step=0) before step()")
+    k, n = self.inner_steps, self._env.num_envs
+    size = self._buffer.size
+    capacity = self._buffer.capacity
+    gates = [min(capacity, size + n * self.train_every * (p + 1))
+             >= self.min_fill for p in range(self.periods)]
+    slot = self._outer % 2
+    self._stage_draws(slot, draws)
+    start = time.perf_counter()
+    self._dispatch(train_state, gates)
+    # While the card works: the next dispatch's draws.
+    self._fill(1 - slot, self._outer + 1, min(capacity, size + n * k))
+    with torch.no_grad():
+      values = torch.cat([
+          torch.stack([self._carry[key] for key in self._keys]).double(),
+          torch.stack([self.env_state.episodes,
+                       self.env_state.successes]).double()]).cpu().tolist()
+    self.exec_seconds += time.perf_counter() - start
+    self._buffer.advance_host_counts(n * k)
+    trained = sum(gates)
+    self._outer += 1
+    self.env_steps += k * n
+    self.trained_steps += trained
+    self._episodes, self._successes = int(values[-2]), int(values[-1])
+    metrics = dict(zip(self._keys, values[:-2]))
+    metrics["trained_steps"] = trained
+    return dataclasses.replace(train_state,
+                               step=train_state.step + trained), metrics

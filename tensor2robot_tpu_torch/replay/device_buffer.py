@@ -466,6 +466,22 @@ class DeviceReplayBuffer:
                                 for key, value in chunk.items()})
     return self.ingest_chunk
 
+  def advance_host_counts(self, rows: int) -> None:
+    """Moves the host's ``size``, ``next_slot`` and ``append_count`` on by
+    `rows` that a caller wrote with ``extend_fn`` itself (the Anakin loop's
+    graph), whole chunks only; refuses while host rows are staged."""
+    if rows % self.ingest_chunk:
+      raise ValueError(f"{rows} rows is not a whole number of "
+                       f"{self.ingest_chunk}-row chunks")
+    with self._lock:
+      if self._pending_count:
+        raise RuntimeError(
+            f"advance_host_counts with {self._pending_count} host rows "
+            "staged: writing out of order would scramble the ring")
+      self._next = (self._next + rows) % self.capacity
+      self._size = min(self._size + rows, self.capacity)
+      self._appended += rows
+
   def sample(self, draws: Optional[Tuple[np.ndarray, np.ndarray]] = None
              ) -> Tuple[ts.TensorSpecStruct, SampleInfo]:
     """One fixed-shape batch and its SampleInfo, as host numpy.

@@ -21,8 +21,10 @@ a snapshot of the EMA variables:
   host path (the learner's step is ``learner_bench.host_learner_step``)
   or, with ``device_resident``, the device-resident ring and the megastep
   learner (``device_buffer.MegastepLearner``: K steps a dispatch as CUDA
-  graphs on the card), and returns the JAX result's keys, less the obs
-  tier's ``obs`` block.
+  graphs on the card), or, with ``anakin``, the fused loop
+  (``anakin.AnakinLoop``: the env, acting, the extend and the learner all
+  on the card, no collector threads), and returns the JAX result's keys,
+  less the obs tier's ``obs`` block.
   With ``vector_actors`` one ``actor.VectorActor`` steps every env through
   one bucket pinned to the fleet; with ``checkpoint_every`` it saves the
   train state with a sidecar (target net, ring, counters, eval history,
@@ -36,8 +38,8 @@ that reads it. The policy's lock covers each call's copy-in, replay and
 copy-out. The collectors' bucket is captured before their threads start,
 so no capture ever runs beside another thread's launches.
 
-Not ported, and named where asked for: the Anakin path (item 10d), the
-mesh and the checkpoints' mesh stamp (item 15), and
+Not ported, and named where asked for: the mesh and the checkpoints'
+mesh stamp (item 15), and
 the metric registry, trace spans, flight recorder, watchdog and fault
 seam (the obs tier, item 15).
 """
@@ -222,11 +224,16 @@ class CollectorWorker:
 # Options whose paths wait for a later ROADMAP.md item, with their defaults:
 # a config that asks for one raises by name.
 _WAITING = {
-    "anakin": (False, "item 10 (the Anakin loop, 10d)"),
     "mesh_dp": (0, "item 15 (the parallel tier)"),
     "mesh_tp": (1, "item 15 (the parallel tier)"),
     "zero1": (None, "item 15 (the parallel tier)"),
 }
+
+
+# The config that resumes each path's checkpoints.
+_PATH_FLAGS = {"host": "device_resident=False and anakin=False",
+               "device-resident": "device_resident=True",
+               "anakin": "anakin=True"}
 
 
 @dataclass
@@ -234,8 +241,11 @@ class ReplayLoopConfig:
   """Knobs of the replay loop, field for field with the JAX defaults (the
   chipless smoke scale). The host loop reads the first block,
   ``vector_actors``, the checkpoint, health and profile fields;
-  ``device_resident`` adds ``megastep_inner`` and ``ingest_chunk``. The
-  rest belong to paths that wait for later items, and setting one off its
+  ``device_resident`` adds ``megastep_inner`` and ``ingest_chunk``;
+  ``anakin`` adds ``anakin_inner``, ``anakin_train_every`` and
+  ``anakin_bank_scenes`` (its fleet is ``num_collectors *
+  envs_per_collector`` envs, which is also its ring's chunk). The rest
+  belong to paths that wait for later items, and setting one off its
   default raises NotImplementedError naming the item."""
   image_size: int = 16
   action_size: int = 4
@@ -444,15 +454,27 @@ class ReplayTrainLoop:
     self.trainer = Trainer(self.model, seed=config.seed, device=device)
     self.writer = MetricWriter(logdir)
     spec = transition_spec(config.image_size, config.action_size)
-    if config.device_resident:
-      # The device ring is the whole ring on this path: the host shards
-      # exist to relieve a host lock it does not have.
+    if config.device_resident or config.anakin:
+      # The device ring is the whole ring on these paths: the host shards
+      # exist to relieve a host lock it does not have. The Anakin loop
+      # extends it at one chunk, the env fleet's width.
       from tensor2robot_tpu_torch.replay.device_buffer import (
           DeviceReplayBuffer,
       )
+      chunk = (config.num_collectors * config.envs_per_collector
+               if config.anakin else config.ingest_chunk)
+      if config.anakin and config.capacity < chunk:
+        # The ring would clamp its chunk below the fleet, and the loop
+        # would then refuse a chunk that names the wrong knob.
+        raise ValueError(
+            f"anakin=True needs capacity >= the env fleet width "
+            f"(num_collectors {config.num_collectors} x "
+            f"envs_per_collector {config.envs_per_collector} = {chunk}): "
+            f"capacity {config.capacity} would clamp the extend chunk "
+            "below the fleet")
       self.buffer = DeviceReplayBuffer(
           spec, config.capacity, config.batch_size, seed=config.seed,
-          prioritized=config.prioritized, ingest_chunk=config.ingest_chunk,
+          prioritized=config.prioritized, ingest_chunk=chunk,
           device=self.trainer.device)
     elif config.num_buffer_shards > 1:
       self.buffer = ShardedReplayBuffer(
@@ -593,16 +615,17 @@ class ReplayTrainLoop:
     return errors
 
   def _ledger(self, updater, policy, *builds) -> Dict[str, int]:
-    """Every program's builds: the loop's, `builds`' (the megastep's and
-    the device ring's), the updater's under the JAX names and the acting
-    buckets'."""
+    """Every program's builds: the loop's, `builds`' (the megastep's or
+    the Anakin loop's, and the device ring's), the updater's under the JAX
+    names and the acting buckets' (the Anakin path has no `policy`)."""
     ledger = dict(self.compile_counts)
     for counts in builds:
       ledger.update(counts)
     ledger.update({k if k.startswith("bellman") else f"bellman_{k}": v
                    for k, v in updater.compile_counts.items()})
-    ledger.update({f"cem_bucket_{k}": v
-                   for k, v in sorted(policy.compile_counts.items())})
+    if policy is not None:
+      ledger.update({f"cem_bucket_{k}": v
+                     for k, v in sorted(policy.compile_counts.items())})
     return ledger
 
   def _emit(self, step: int, scalars: Dict[str, float]) -> None:
@@ -700,6 +723,12 @@ class ReplayTrainLoop:
 
   # --- crash-resume checkpoints --------------------------------------------
 
+  def _path(self) -> str:
+    """The loop path this config runs, as a checkpoint records it."""
+    c = self.config
+    return ("anakin" if c.anakin
+            else "device-resident" if c.device_resident else "host")
+
   def _checkpoint_fingerprint(self) -> Dict:
     """The shape-critical slice of the config a resume must match: a
     drifted batch or capacity would change every fixed shape, so it
@@ -731,6 +760,7 @@ class ReplayTrainLoop:
       self._saved_step = step
     meta = {
         "fingerprint": self._checkpoint_fingerprint(),
+        "path": self._path(),
         **path_meta,
         "queue_counters": {key: value
                            for key, value in self.queue.stats().items()
@@ -765,12 +795,12 @@ class ReplayTrainLoop:
           f"{meta.get('fingerprint')}, this loop is {fingerprint}; resume "
           "needs an identically configured loop (shapes would drift "
           "otherwise)")
-    fused = "fused" in meta
-    if fused != self.config.device_resident:
+    # Checkpoints that predate the "path" key: "fused" marks the megastep.
+    saved = meta.get("path", "device-resident" if "fused" in meta else "host")
+    if saved != self._path():
       raise ValueError(
           f"checkpoint step {step} under {self.checkpoint_root} was saved "
-          f"by the {'device-resident' if fused else 'host'} path; resume it "
-          f"with device_resident={fused}")
+          f"by the {saved} path; resume it with {_PATH_FLAGS[saved]}")
     state = self._ckpt_manager.restore(state, step=step)
     if int(state.step) != int(step):
       raise ValueError(f"restored TrainState.step {int(state.step)} != "
@@ -812,19 +842,23 @@ class ReplayTrainLoop:
 
   def _save_fused_checkpoint(self, step: int, state, learner,
                              initial_eval: Dict, eval_history: List) -> None:
-    """A checkpoint between dispatches of the device-resident path: what
-    the megastep carries (the ring's tensors and the lagged target) and
-    the learner's draw counters ride the sidecar."""
+    """A checkpoint between dispatches of the device-resident or the
+    Anakin path: what `learner` (the megastep or the Anakin loop) carries
+    (the ring's tensors, the lagged target and the Anakin fleet's env
+    state) and its draw counters ride the sidecar."""
+    carried = learner.checkpoint_state()
+    flats = {"buffer": carried["buffer"].arrays()}
+    if "env" in carried:
+      flats["env"] = carried["env"].arrays()
     self._write_checkpoint(
         step, state, trees={"target": learner.target_state()[0]},
-        flats={"buffer": learner.checkpoint_state()["buffer"].arrays()},
-        path_meta={"fused": learner.checkpoint_meta()},
+        flats=flats, path_meta={"fused": learner.checkpoint_meta()},
         initial_eval=initial_eval, eval_history=eval_history)
 
   def _restore_fused_checkpoint(self, state, learner):
-    """Restores the device-resident path's newest valid checkpoint into
-    `state`, the ring and the learner (all copied into their own tensors);
-    returns (state, step, meta), or None."""
+    """Restores the device-resident or the Anakin path's newest valid
+    checkpoint into `state` and what `learner` carries (all copied into
+    their own tensors); returns (state, step, meta), or None."""
     from tensor2robot_tpu_torch.replay.device_buffer import (
         DeviceReplayBuffer,
     )
@@ -832,15 +866,20 @@ class ReplayTrainLoop:
     if loaded is None:
       return None
     state, step, trees, flats, meta = loaded
-    learner.restore_checkpoint_state(
-        {"buffer": DeviceReplayBuffer.state_from_arrays(flats["buffer"]),
-         "target": trees["target"]}, meta["fused"])
+    composite = {
+        "buffer": DeviceReplayBuffer.state_from_arrays(flats["buffer"]),
+        "target": trees["target"]}
+    if "env" in flats:
+      composite["env"] = flats["env"]
+    learner.restore_checkpoint_state(composite, meta["fused"])
     return state, step, meta
 
   # --- the loop ------------------------------------------------------------
 
   def run(self, num_steps: int) -> Dict:
     """Runs the closed loop for `num_steps` optimizer steps."""
+    if self.config.anakin:
+      return self._run_anakin(num_steps)
     if self.config.device_resident:
       return self._run_device_resident(num_steps)
     return self._run_host(num_steps)
@@ -1081,3 +1120,133 @@ class ReplayTrainLoop:
                      self.buffer.compile_counts),
         param_refreshes=learner.refresh_count - 1,  # less the cold start
         device_resident=True, megastep_inner=k)
+
+  def _anakin_loop(self):
+    """The Anakin path's loop over the loop's ring and a fleet of
+    ``num_collectors * envs_per_collector`` envs on a bank of
+    ``anakin_bank_scenes`` oracle scenes, with a cold target."""
+    from tensor2robot_tpu_torch.replay.anakin import AnakinLoop
+    from tensor2robot_tpu_torch.research.qtopt.device_grasping import (
+        DeviceGraspEnv,
+        make_scene_bank,
+    )
+    c = self.config
+    device = self.trainer.device
+    # The one host render of the run: the oracle's own scenes, copied to
+    # the card once.
+    bank = make_scene_bank(c.anakin_bank_scenes, image_size=c.image_size,
+                           base_seed=c.seed, device=device)
+    env = DeviceGraspEnv(c.num_collectors * c.envs_per_collector,
+                         image_size=c.image_size,
+                         max_attempts=c.max_attempts, radius=c.grasp_radius,
+                         bank=bank, device=device)
+    return AnakinLoop(
+        self.model, self.trainer, self.buffer, env,
+        action_size=c.action_size, gamma=c.gamma,
+        num_samples=c.cem_num_samples, num_elites=c.cem_num_elites,
+        iterations=c.cem_iterations, inner_steps=c.anakin_inner,
+        train_every=c.anakin_train_every, min_fill=c.min_fill,
+        exploration_epsilon=c.exploration_epsilon,
+        scripted_fraction=c.scripted_fraction, seed=c.seed + 13,
+        polyak_tau=c.polyak_tau, precision=c.precision,
+        health=self.health_monitor is not None)
+
+  def _run_anakin(self, num_steps: int) -> Dict:
+    """The Anakin path: the env, acting, the extend and the learner on the
+    card (``anakin.AnakinLoop``), no collector threads and no queue. The
+    host dispatches, reads one metrics vector a dispatch, and runs the
+    refresh, log, eval and checkpoint cadences between dispatches; they
+    count optimizer steps and fire after the dispatch that crosses a
+    multiple. It stops once `num_steps` optimizer steps have run: the
+    dispatches before ``min_fill`` collect without training, so their
+    number adapts. The JAX result's ``param_sharding`` belongs to the mesh
+    (item 15) and is left out."""
+    c = self.config
+    total_envs = c.num_collectors * c.envs_per_collector
+    state = self.trainer.create_train_state()
+    host_variables = self._host_variables(state)
+    # Eval only, as on the device-resident path: the loop labels and
+    # computes TD on the card.
+    updater = BellmanUpdater(
+        self.model, None, action_size=c.action_size, gamma=c.gamma,
+        num_samples=c.cem_num_samples, num_elites=c.cem_num_elites,
+        iterations=c.cem_iterations, seed=c.seed + 13,
+        precision=c.precision, device=self.trainer.device)
+    loop = self._anakin_loop()
+    loop.refresh(host_variables, step=0)  # the cold start, not a refresh
+    resume_step, resume_meta = 0, None
+    if c.resume and self._ckpt_manager is not None:
+      restored = self._restore_fused_checkpoint(state, loop)
+      if restored is not None:
+        state, resume_step, resume_meta = restored
+    checkpointing = self._ckpt_manager is not None and c.checkpoint_every
+    profile_hook = self._profile_hook()
+    eval_batches, eval_q_stars = eval_transitions(c)
+    initial_eval, eval_history = self._eval_baseline(
+        updater, state, eval_batches, eval_q_stars, resume_meta)
+    # The warm-up (min_fill at total_envs rows a control step) and the
+    # training budget, doubled: a loop that stops training raises instead
+    # of spinning.
+    learns_per_dispatch = c.anakin_inner // c.anakin_train_every
+    max_dispatches = 2 * (-(-c.min_fill // (total_envs * c.anakin_inner))
+                          + -(-num_steps // learns_per_dispatch)) + 2
+    dispatches = 0
+    prev_step = resume_step
+    try:
+      while loop.trained_steps < num_steps:
+        if dispatches >= max_dispatches:
+          raise RuntimeError(
+              f"anakin loop stalled: {loop.trained_steps} optimizer steps "
+              f"after {dispatches} dispatches (min_fill={c.min_fill}, "
+              f"buffer size={self.buffer.size})")
+        state, metrics = loop.step(state)
+        dispatches += 1
+        step = loop.trained_steps
+        self._profile_step(profile_hook, step)
+        # A dispatch that did not train reports the zero carry, not a
+        # summary.
+        if self.health_monitor is not None and metrics["trained_steps"]:
+          self.health_monitor.observe(step,
+                                      self._fused_health_summary(metrics))
+
+        def crossed(every: int) -> bool:
+          return step // every > prev_step // every
+
+        done = step >= num_steps
+        if crossed(c.refresh_every):
+          loop.refresh(self._host_variables(state), step)
+        if (crossed(c.log_every) or done) and metrics["trained_steps"]:
+          self._emit(step, {
+              "replay/train_loss": metrics["loss"],
+              "replay/train_td_error": metrics["td_error"],
+              "replay/train_q_next": metrics["q_next"],
+              "replay/sample_staleness": metrics["staleness"],
+              "replay/target_lag": float(loop.target_lag(step)),
+              "replay/episodes": float(loop.episodes),
+              "replay/env_steps": float(loop.env_steps),
+              **self.buffer.metrics(),
+          })
+          if self.health_monitor is not None:
+            self._emit(step, dict(self.health_monitor.last_summary))
+        if crossed(c.eval_every) or done:
+          evals = self._eval(updater, state.variables(use_ema=True),
+                             eval_batches, eval_q_stars)
+          eval_history.append(dict(step=step, **evals))
+          self._emit(step, {"replay/" + k_: v for k_, v in evals.items()})
+        if checkpointing and crossed(c.checkpoint_every):
+          self._save_fused_checkpoint(step, state, loop, initial_eval,
+                                      eval_history)
+        prev_step = step
+    finally:
+      self._profile_step(profile_hook, loop.trained_steps, final=True)
+      self.writer.close()
+    return self._assemble_result(
+        loop.trained_steps, initial_eval, eval_history,
+        self._ledger(updater, None, loop.compile_counts,
+                     self.buffer.compile_counts),
+        param_refreshes=loop.refresh_count - 1,  # less the cold start
+        device_resident=True, anakin=True, anakin_inner=c.anakin_inner,
+        anakin_train_every=c.anakin_train_every, mesh_shape=loop.mesh_shape,
+        zero1=False, episodes_collected=loop.episodes,
+        env_steps_collected=loop.env_steps,
+        collector_success_rate=loop.successes / max(1, loop.episodes))

@@ -9,8 +9,8 @@ bucket is built once across three hot reloads. One module-scoped
 ``run_qtopt_replay --smoke --vector-actors`` on the CPU holds the JAX
 smoke's checks (``tests/test_actor.py``): the eval TD reduction bar of
 0.30, one acting bucket, every program built once, and the
-``actor_throughput`` block with the JAX keys (``overlap`` None: the
-bench's megastep phase is not ported yet).
+``actor_throughput`` block with the JAX keys (its overlap phase: the
+megastep learner beside a fresh fleet).
 """
 
 import dataclasses
@@ -302,12 +302,18 @@ class TestVectorSmoke:
   def test_actor_throughput_block_has_the_jax_keys(self, vector_smoke):
     block = vector_smoke["actor_throughput"]
     assert set(block) == BENCH_KEYS
-    assert block["overlap"] is None
-    for path in ("scalar_threads", "vector_actor"):
-      for key in ("env_steps_per_sec", "transitions_per_sec"):
+    for path, keys in (
+        ("scalar_threads", ("env_steps_per_sec", "transitions_per_sec")),
+        ("vector_actor", ("env_steps_per_sec", "transitions_per_sec")),
+        ("overlap", ("acting_learning_overlap_fraction",
+                     "learner_steps_per_sec_while_acting"))):
+      assert set(block[path]) == set(keys)
+      for key in keys:
         spread = block[path][key]
         assert set(spread) == {"median", "min", "max", "trials"}
         assert spread["min"] > 0
+    assert block["overlap"]["acting_learning_overlap_fraction"]["max"] <= 1
     assert set(block["speedup"]) == {"median", "min", "max", "trials"}
     assert block["compile_counts"] == {"scalar_cem_bucket_4": 1,
-                                       "vector_cem_bucket_32": 1}
+                                       "vector_cem_bucket_32": 1,
+                                       "megastep": 1}

@@ -608,7 +608,7 @@ class TestDeviceResidentLoop:
 
   def test_refusals_that_stay(self):
     assert loop.ReplayLoopConfig(device_resident=True).device_resident
-    for name, value in (("anakin", True), ("mesh_dp", 2), ("zero1", True),
+    for name, value in (("mesh_dp", 2), ("zero1", True),
                         ("precision", "bf16")):
       with pytest.raises(NotImplementedError):
         loop.ReplayLoopConfig(device_resident=True, **{name: value})

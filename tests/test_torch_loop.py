@@ -367,7 +367,6 @@ class TestLoopPieces:
     assert json.loads(out.read_text()) == obj
 
   @pytest.mark.parametrize("argv, item", [
-      (["--anakin"], "item 10"),
       (["--mesh", "8"], "item 15"), (["--precision", "bf16"], "item 11")])
   def test_cli_refuses_by_name(self, tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=item):

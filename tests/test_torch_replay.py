@@ -643,7 +643,6 @@ class TestCollector:
     assert fields(loop.ReplayLoopConfig) == fields(jax_loop.ReplayLoopConfig)
 
   @pytest.mark.parametrize("name, value, item", [
-      ("anakin", True, "item 10"),
       ("mesh_dp", 2, "item 15"), ("mesh_tp", 2, "item 15"),
       ("zero1", True, "item 15"), ("precision", "bf16", "item 11")])
   def test_config_refuses_what_waits_by_name(self, name, value, item):

@@ -90,6 +90,13 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   ``run_qtopt_replay --smoke --anakin`` to the JAX bar at seeds 0 and 1
   with the Anakin bench, the production ``--anakin`` run at full width,
   and its fused resume.
+- slice 13 runs the bf16 and int8 scoring tiers (``qtopt_precision``):
+  the fleet policy's graphs at each tier against eager bit for bit over
+  hot reloads, the precision bench's bf16 agreement and the int8 bench's
+  agreement and served bytes, the megastep and the Anakin loop at bf16
+  against eager, ``run_qtopt_replay --smoke --anakin --precision bf16``
+  beside f32 at seeds 0 and 1, and each tier's fleet replays at 472x472,
+  megastep device time and production ``--anakin`` rates beside f32.
 
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
@@ -2652,11 +2659,11 @@ DEVICE_SPEEDUP_BARS = {"max": 2.0, "median": 1.5}
 
 
 def megastep_learner(torch, dev, flagship: bool, inner_steps: int,
-                     graphs: bool, seed: int = 0):
+                     graphs: bool, seed: int = 0, precision: str = "f32"):
   """(state, ring, learner): a MegastepLearner with the health keys over a
   prioritized ring of DEVICE_RING synthetic transitions at batch 32;
   TinyQ at 16x16 (the smoke's CEM 16/4/2) or the production loop's 64x64
-  critic (CEM 64/6/3)."""
+  critic (CEM 64/6/3); its labels scored at `precision`."""
   from tensor2robot_tpu_torch.bin import run_qtopt_replay
   from tensor2robot_tpu_torch.replay import learner_bench
   from tensor2robot_tpu_torch.replay.device_buffer import (
@@ -2687,7 +2694,8 @@ def megastep_learner(torch, dev, flagship: bool, inner_steps: int,
       model, trainer, ring, action_size=config.action_size,
       gamma=config.gamma, num_samples=config.cem_num_samples,
       num_elites=config.cem_num_elites, iterations=config.cem_iterations,
-      inner_steps=inner_steps, seed=seed + 13, health=True, graphs=graphs)
+      inner_steps=inner_steps, seed=seed + 13, health=True, graphs=graphs,
+      precision=precision)
   learner.refresh(state.variables(use_ema=True), step=0)
   return state, ring, learner
 
@@ -2709,7 +2717,7 @@ def dispatch_device_ms(torch, learner, state, reps: int = 3) -> float:
 
 
 def megastep_graph_vs_eager(torch, dev, flagship: bool, inner_steps: int,
-                            seed: int) -> dict:
+                            seed: int, precision: str = "f32") -> dict:
   """Three dispatches of a graphed learner (the first eager, the second
   captures) against three of an eager one, compared after each; then the
   capture's seconds and memory and a graphed dispatch's device time."""
@@ -2717,9 +2725,9 @@ def megastep_graph_vs_eager(torch, dev, flagship: bool, inner_steps: int,
   torch.backends.cudnn.deterministic = True
   try:
     graphed = list(megastep_learner(torch, dev, flagship, inner_steps, True,
-                                    seed))
+                                    seed, precision))
     eager = list(megastep_learner(torch, dev, flagship, inner_steps, False,
-                                  seed))
+                                  seed, precision))
     walls = {"graphed": [], "eager": []}
     metrics_equal, capture_bytes = True, None
     for dispatch in range(3):
@@ -2749,7 +2757,7 @@ def megastep_graph_vs_eager(torch, dev, flagship: bool, inner_steps: int,
   eager_ms = dispatch_device_ms(torch, eager[2], eager[0], reps=1)
   return {
       "model": "flagship_64x64" if flagship else "tinyq_16x16",
-      "inner_steps": inner_steps,
+      "precision": precision, "inner_steps": inner_steps,
       "bit_equal": bool(metrics_equal and ring_equal
                         and not any(diff.values())),
       "metrics_equal": bool(metrics_equal), "ring_equal": bool(ring_equal),
@@ -3065,11 +3073,12 @@ def anakin_env_on_card(torch, dev, seed: int) -> dict:
 
 
 def anakin_loop(torch, dev, flagship: bool, inner: int, train_every: int,
-                min_fill: int, graphs: bool, seed: int):
+                min_fill: int, graphs: bool, seed: int,
+                precision: str = "f32"):
   """(state, ring, loop): an AnakinLoop of 32 envs over a bank of 256
   scenes and a prioritized ring of ANAKIN_GRAPH_RING, the health keys on;
   TinyQ at 16x16 (CEM 16/4/2) or the production loop's 64x64 critic (CEM
-  64/6/3)."""
+  64/6/3); acting and labels scored at `precision`."""
   from tensor2robot_tpu_torch.bin import run_qtopt_replay
   from tensor2robot_tpu_torch.replay.anakin import AnakinLoop
   from tensor2robot_tpu_torch.replay.device_buffer import DeviceReplayBuffer
@@ -3104,12 +3113,13 @@ def anakin_loop(torch, dev, flagship: bool, inner: int, train_every: int,
       train_every=train_every, min_fill=min_fill,
       exploration_epsilon=c.exploration_epsilon,
       scripted_fraction=c.scripted_fraction, seed=seed + 13, health=True,
-      graphs=graphs)
+      graphs=graphs, precision=precision)
   loop.refresh(state.variables(use_ema=True), step=0)
   return state, ring, loop
 
 
-def anakin_graph_vs_eager(torch, dev, case, seed: int) -> dict:
+def anakin_graph_vs_eager(torch, dev, case, seed: int,
+                          precision: str = "f32") -> dict:
   """Three dispatches of a graphed loop (the first eager across min_fill,
   the second captures the period, the third replays it; a refresh after
   the second) against three eager ones, with cuDNN deterministic; then the
@@ -3120,7 +3130,8 @@ def anakin_graph_vs_eager(torch, dev, case, seed: int) -> dict:
   torch.backends.cudnn.deterministic = True
   try:
     runs = {graphs: list(anakin_loop(torch, dev, flagship, inner,
-                                     train_every, min_fill, graphs, seed))
+                                     train_every, min_fill, graphs, seed,
+                                     precision))
             for graphs in (True, False)}
     walls = {True: [], False: []}
     metrics_equal, capture_bytes, trained = True, None, []
@@ -3168,6 +3179,7 @@ def anakin_graph_vs_eager(torch, dev, case, seed: int) -> dict:
   dispatch_ms = float(np.median(times))
   return {
       "model": "flagship_64x64" if flagship else "tinyq_16x16",
+      "precision": precision, "dtype": gloop.dtype,
       "envs": ANAKIN_ENVS, "inner_steps": inner, "train_every": train_every,
       "min_fill": min_fill, "trained_steps": trained,
       "bit_equal": bool(metrics_equal and carried_equal
@@ -3202,17 +3214,21 @@ def trace_top_kernels(path: str, count: int = 8) -> list:
                                           key=lambda kv: -kv[1][0])[:count]]
 
 
-def run_anakin_production(torch, dev, seed: int, root: str) -> dict:
+def run_anakin_production(torch, dev, seed: int, root: str,
+                          precision: str = "f32",
+                          steps: int = ANAKIN_PRODUCTION_STEPS,
+                          profile: bool = True) -> dict:
   """``run_qtopt_replay --anakin`` at full width (the flagship 64x64
   critic, 32 envs, anakin_inner 200, train_every 8, a bank of 4,096
-  scenes, CEM 64/6/3, a ring of 50,000, min_fill 2,000) for
-  ANAKIN_PRODUCTION_STEPS optimizer steps, timed by dispatch and profiled
-  over the third."""
+  scenes, CEM 64/6/3, a ring of 50,000, min_fill 2,000) at `precision`
+  for `steps` optimizer steps, timed by dispatch and, with `profile`,
+  profiled over the third."""
   from tensor2robot_tpu_torch.bin import run_qtopt_replay
   from tensor2robot_tpu_torch.replay.loop import ReplayTrainLoop
   config = run_qtopt_replay.build_config(
-      False, seed, anakin=True, profile_window=ANAKIN_PROFILE_WINDOW)
-  logdir = os.path.join(root, "anakin_production")
+      False, seed, anakin=True, precision=precision,
+      profile_window=ANAKIN_PROFILE_WINDOW if profile else None)
+  logdir = os.path.join(root, f"anakin_production_{precision}")
   replay = ReplayTrainLoop(config, logdir, device=dev)
   starts, ends, trained, made = [], [], [], {}
   make = replay._anakin_loop
@@ -3239,21 +3255,28 @@ def run_anakin_production(torch, dev, seed: int, root: str) -> dict:
   torch.cuda.empty_cache()
   torch.cuda.reset_peak_memory_stats()
   start = time.perf_counter()
-  run = replay.run(ANAKIN_PRODUCTION_STEPS)
+  run = replay.run(steps)
   wall = time.perf_counter() - start
   loop = made["loop"]
   per_dispatch = config.anakin_inner * ANAKIN_ENVS
   # The profiled dispatch is the one whose steps reach the window's end;
   # the one after it pays the trace's export before it starts, so the
-  # steady window runs from that one's end to the last.
-  after = next(i for i in range(len(trained))
-               if sum(trained[:i + 1]) >= ANAKIN_PROFILE_WINDOW[1]) + 1
+  # steady window runs from that one's end to the last. Unprofiled, it
+  # runs from the capture's dispatch's end.
+  after = (next(i for i in range(len(trained))
+                if sum(trained[:i + 1]) >= ANAKIN_PROFILE_WINDOW[1]) + 1
+           if profile else 1)
   steady = ends[after:]
   window = ends[-1] - starts[0]
-  traces = sorted(os.listdir(os.path.join(logdir, "profile")))
-  trace = os.path.join(logdir, "profile", traces[0])
-  idle = trace_idle(trace)
+  profiled = {}
+  if profile:
+    traces = sorted(os.listdir(os.path.join(logdir, "profile")))
+    trace = os.path.join(logdir, "profile", traces[0])
+    profiled = {"profiled_dispatch": trace_idle(trace),
+                "traces": len(traces),
+                "top_kernels": trace_top_kernels(trace)}
   return {
+      "precision": precision, "dtype": loop.dtype,
       "steps": run["steps"], "dispatches": len(ends),
       "trained_by_dispatch": trained, "inner_steps": config.anakin_inner,
       "train_every": config.anakin_train_every, "envs": ANAKIN_ENVS,
@@ -3271,9 +3294,7 @@ def run_anakin_production(torch, dev, seed: int, root: str) -> dict:
       "first_dispatch_s": ends[0] - starts[0],
       "capture_dispatch_s": ends[1] - starts[1],
       "capture_s": (ends[1] - starts[1]) - (ends[-1] - starts[-1]),
-      "exec_s": loop.exec_seconds,
-      "profiled_dispatch": idle, "traces": len(traces),
-      "top_kernels": trace_top_kernels(trace),
+      "exec_s": loop.exec_seconds, **profiled,
       "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
       "ring_size": run["buffer"]["replay/size"],
       "env_steps": run["env_steps_collected"],
@@ -3389,6 +3410,280 @@ def run_qtopt_anakin(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
   if not parity["parity_ok"]:
     raise AssertionError(f"Anakin fused resume parity: {parity}")
   result["resume_parity"] = True
+  return result
+
+
+# Slice 13: the bf16 and int8 scoring tiers. (a) CEMFleetPolicy at each tier
+# over TinyQ 16x16 (the smoke's CEM 16/4/2), every rung's graph against its
+# eager control bit for bit (cuDNN deterministic), one capture a rung over
+# 3 hot reloads; (b) the precision bench's agreement phase (bf16 >= 0.95)
+# and the int8 bench's (>= 0.99) at q_tol 0.05 on a trained TinyQ; (c) the
+# megastep and the Anakin loop at bf16, graphs against eager bit for bit;
+# (d) run_qtopt_replay --smoke --anakin at f32 and bf16 at seeds 0 and 1,
+# the bf16 reduction >= 0.30 and its converged-phase mean within 0.05 of
+# f32's; (e) the flagship's int8 served bytes >= 3x smaller; (f) each
+# tier's 472x472 fleet replays by rung, the megastep's device ms a step at
+# 64x64 (K = 50) and the production --anakin run's steady rates.
+PRECISION_TIERS = ("bf16", "int8")
+PRECISION_CEM = dict(num_samples=16, num_elites=4, iterations=2)
+PRECISION_PRODUCTION_STEPS = 100  # dispatches of 18, then 25 steps
+
+
+def tier_policy_graphs(torch, dev, seed: int, tier: str) -> dict:
+  """(a): the TinyQ fleet policy's graphs at `tier` against its eager
+  control at every rung, before and after FLEET_RELOADS hot reloads."""
+  from tensor2robot_tpu_torch.replay.loop import _HotReloadPredictor
+  from tensor2robot_tpu_torch.replay.smoke import TinyQCriticModel
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_grasping as sg
+  from tensor2robot_tpu_torch.serving import CEMFleetPolicy
+  model = TinyQCriticModel()
+
+  def variables(s):
+    return model.init_variables(torch.Generator().manual_seed(s), device=dev)
+
+  predictor = _HotReloadPredictor(model, variables(seed))
+  policy = CEMFleetPolicy(predictor, action_size=4, seed=seed,
+                          precision=tier, **PRECISION_CEM)
+  scenes, _ = sg.sample_scenes(max(FLEET_RUNGS), 16, seed + 5)
+
+  def graph_vs_eager(bucket):
+    images = list(scenes[:bucket])
+    seeds = np.arange(bucket, dtype=np.uint32)
+    graphed, scores = policy(images, seeds, return_scores=True)
+    fn, _ = predictor.device_fn()
+    with torch.inference_mode():
+      eager, eager_scores = policy._control(
+          fn, torch.from_numpy(np.stack(images)).to(dev),
+          torch.from_numpy(policy.noise_for(seeds)).to(dev))
+    if not (np.array_equal(graphed, eager.cpu().numpy())
+            and np.array_equal(scores, eager_scores.cpu().numpy())
+            and scores.dtype == np.float32 and np.isfinite(graphed).all()
+            and np.abs(graphed).max() <= 1.0):
+      raise AssertionError(f"{tier} bucket {bucket}: the graph gives "
+                           f"{graphed}, the eager control "
+                           f"{eager.cpu().numpy()}")
+    return graphed
+
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    for bucket in FLEET_RUNGS:
+      graph_vs_eager(bucket)
+    before = graph_vs_eager(2)
+    for reload in range(1, FLEET_RELOADS + 1):
+      predictor.set_variables(variables(seed + reload))
+      for bucket in FLEET_RUNGS:
+        graph_vs_eager(bucket)
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  int8 = sorted({str(v["int8_q"].dtype) for v in policy._served.values()
+                 if isinstance(v, dict)})
+  line = {"tier": tier, "model": "tinyq_16x16", "cem": PRECISION_CEM,
+          "rungs": list(FLEET_RUNGS), "reloads": FLEET_RELOADS,
+          "graph_equals_eager": True,
+          "reload_changed_actions": not np.array_equal(graph_vs_eager(2),
+                                                       before),
+          "compile_counts": dict(policy.compile_counts),
+          "served_int8_dtypes": int8,
+          "model_version": predictor.model_version}
+  if not (line["reload_changed_actions"]
+          and policy.compile_counts == {b: 1 for b in FLEET_RUNGS}
+          and (int8 == ["torch.int8"]) == (tier == "int8")):
+    raise AssertionError(f"the {tier} fleet policy: {line}")
+  return line
+
+
+def tier_fleet_timings(torch, dev, seed: int, tier: str, smi: str) -> list:
+  """(f): the 472x472 uint8 GroupNorm critic's fleet policy at `tier`,
+  CEM 64/6/3, every rung: graph against eager bit for bit, request ms,
+  replay device ms, peak memory."""
+  from tensor2robot_tpu_torch.replay.loop import _HotReloadPredictor
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_grasping as sg
+  from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+      IMAGE_SIZE,
+      QTOptGraspingModel,
+  )
+  from tensor2robot_tpu_torch.serving import CEMFleetPolicy
+  model = QTOptGraspingModel(uint8_images=True, norm="group")
+  predictor = _HotReloadPredictor(model, model.init_variables(
+      torch.Generator().manual_seed(seed), device=dev))
+  policy = CEMFleetPolicy(predictor, action_size=4, seed=seed,
+                          precision=tier, **CEM_SERVING)
+  scenes, _ = sg.sample_scenes(max(FLEET_RUNGS), IMAGE_SIZE, seed + 5)
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  rungs = []
+  try:
+    for bucket in FLEET_RUNGS:
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      held_mib = torch.cuda.memory_allocated() / 2**20
+      images = list(scenes[:bucket])
+      seeds = np.arange(bucket, dtype=np.uint32)
+      begin = time.perf_counter()
+      graphed = policy(images, seeds)
+      first_s = time.perf_counter() - begin
+      fn, _ = predictor.device_fn()
+      with torch.inference_mode():
+        eager, _ = policy._control(
+            fn, torch.from_numpy(np.stack(images)).to(dev),
+            torch.from_numpy(policy.noise_for(seeds)).to(dev))
+      if not np.array_equal(graphed, eager.cpu().numpy()):
+        raise AssertionError(f"{tier} at 472x472, bucket {bucket}: graph "
+                             f"{graphed} against eager {eager.cpu().numpy()}")
+      calls = []
+      for _ in range(3):
+        begin = time.perf_counter()
+        policy(images)
+        calls.append((time.perf_counter() - begin) * 1e3)
+      key = (bucket, scenes.shape[1:], scenes.dtype)
+      rungs.append({
+          "tier": tier, "bucket": bucket,
+          "images_per_cem_iteration": bucket * CEM_SERVING["num_samples"],
+          "graph_equals_eager": True, "first_call_s": first_s,
+          "request_ms_median": float(np.median(calls)),
+          "replay_device_ms": stream_ms(
+              torch, lambda: policy._buckets[key].graph.replay(), inner=3,
+              reps=3),
+          "held_mib": held_mib,
+          "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20})
+      emit("qtopt_precision_fleet", card=smi, **rungs[-1])
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  if policy.compile_counts != {b: 1 for b in FLEET_RUNGS}:
+    raise AssertionError(f"{tier} fleet captures: {policy.compile_counts}")
+  del policy, predictor
+  gc.collect()
+  torch.cuda.empty_cache()
+  return rungs
+
+
+def tier_megastep_ms(torch, dev, seed: int, tier: str) -> dict:
+  """(f): the production megastep (64x64 critic, K = 50, CEM 64/6/3) at
+  `tier`: two dispatches (eager, then the capture), then a graphed
+  dispatch's device time."""
+  state, _, learner = megastep_learner(torch, dev, True, DEVICE_FLAGSHIP_K,
+                                       True, seed, tier)
+  for _ in range(2):
+    state, metrics = learner.step(state)
+  ms = dispatch_device_ms(torch, learner, state)
+  out = {"tier": tier, "inner_steps": DEVICE_FLAGSHIP_K,
+         "dispatch_device_ms": ms,
+         "device_ms_per_step": ms / DEVICE_FLAGSHIP_K,
+         "compile_counts": dict(learner.compile_counts),
+         "td_error": metrics["td_error"]}
+  del state, learner
+  gc.collect()
+  torch.cuda.empty_cache()
+  if not (out["compile_counts"] == {"megastep": 1}
+          and np.isfinite(out["td_error"])):
+    raise AssertionError(f"the {tier} megastep: {out}")
+  return out
+
+
+def run_qtopt_precision(torch, dev, seed: int, root: str, smi: str,
+                        f32_production: dict) -> dict:
+  """Slice 13's phase, parts (a)-(f) (see the constants above). Raises
+  when a check or a bar fails. `f32_production` is the f32 production
+  --anakin run of this call (``qtopt_anakin``), which (f) sits beside."""
+  from tensor2robot_tpu_torch.replay import precision_bench, tpquant_bench
+  result = {"card": smi}
+
+  # (a) The fleet policy's graphs at each tier.
+  result["policy"] = {}
+  for tier in PRECISION_TIERS:
+    line = tier_policy_graphs(torch, dev, seed, tier)
+    emit("qtopt_precision_policy", card=smi, **line)
+    result["policy"][tier] = line["compile_counts"]
+
+  # (c) The megastep and the Anakin loop at bf16, graphs against eager.
+  line = megastep_graph_vs_eager(torch, dev, False, DEVICE_TINY_K, seed,
+                                 "bf16")
+  emit("qtopt_precision_megastep_graph", card=smi, **line)
+  if not (line["bit_equal"] and line["compile_counts"] == {"megastep": 1}):
+    raise AssertionError(f"bf16 megastep graph vs eager: {line}")
+  result["graphs"] = [{key: line[key] for key in (
+      "model", "precision", "device_ms_per_step")}]
+  for case in ANAKIN_GRAPH_CASES:
+    line = anakin_graph_vs_eager(torch, dev, case, seed, "bf16")
+    emit("qtopt_precision_anakin_graph", card=smi, **line)
+    if not (line["bit_equal"] and line["trained_steps"][0] > 0
+            and line["dtype"] == "bfloat16"
+            and line["compile_counts"] == line["compile_counts_eager"]
+            == {"anakin_step": 1}):
+      raise AssertionError(f"bf16 Anakin graph vs eager: {line}")
+    result["graphs"].append({key: line[key] for key in (
+        "model", "precision", "device_ms_per_control_step")})
+
+  # (b) and (e) The benches, each raising on its bars.
+  start = time.perf_counter()
+  bench = precision_bench.measure_precision(fused_loop=False, seed=seed,
+                                            device=dev)
+  bench["seconds"] = time.perf_counter() - start
+  emit("qtopt_precision_agreement", card=smi, **bench)
+  start = time.perf_counter()
+  quant = tpquant_bench.measure_tpquant(seed=seed, device=dev)
+  quant["seconds"] = time.perf_counter() - start
+  emit("qtopt_precision_int8", card=smi, **quant)
+  result["bf16_agreement"] = bench["agreement"]["overall_rate"]
+  result["int8_agreement"] = quant["int8_agreement"]["overall_rate"]
+  result["int8_bytes_reduction"] = quant["int8_bytes_reduction"]
+
+  # (d) The Anakin smoke at f32 and bf16, at two seeds.
+  result["fused_loop"] = {}
+  for s in LOOP_SEEDS:
+    start = time.perf_counter()
+    fused = precision_bench._measure_fused_loop(LOOP_SMOKE_STEPS, s,
+                                                device=dev)
+    fused["seconds"] = time.perf_counter() - start
+    emit("qtopt_precision_fused_loop", card=smi, seed=s, **fused)
+    bf16 = fused["bf16"]
+    if not (bf16["eval_td_reduction_final_point"] >= LOOP_BAR
+            and fused["td_delta"] <= precision_bench.R14_TD_DELTA_BAR
+            and bf16["precision"] == "bf16"
+            and all(fused[t]["ledger_all_one"]
+                    and fused[t]["anakin_step_compiles"] == 1
+                    for t in ("f32", "bf16"))):
+      raise AssertionError(f"the bf16 Anakin smoke at seed {s}: {fused}")
+    result["fused_loop"][s] = {
+        tier: {key: fused[tier][key] for key in (
+            "eval_td_reduction_final_point",
+            "eval_td_reduction_converged")} for tier in ("f32", "bf16")}
+    result["fused_loop"][s]["td_delta"] = fused["td_delta"]
+
+  # (f) Timings beside f32, in this call.
+  fleet = {}
+  for tier in ("f32",) + PRECISION_TIERS:
+    fleet[tier] = tier_fleet_timings(torch, dev, seed, tier, smi)
+  result["fleet_replay_device_ms"] = {
+      tier: {r["bucket"]: r["replay_device_ms"] for r in rungs}
+      for tier, rungs in fleet.items()}
+  result["fleet_peak_memory_mib"] = {
+      tier: {r["bucket"]: r["peak_memory_mib"] for r in rungs}
+      for tier, rungs in fleet.items()}
+  megastep = {}
+  for tier in ("f32",) + PRECISION_TIERS:
+    megastep[tier] = tier_megastep_ms(torch, dev, seed, tier)
+    emit("qtopt_precision_megastep", card=smi, **megastep[tier])
+  result["megastep_device_ms_per_step"] = {
+      tier: line["device_ms_per_step"] for tier, line in megastep.items()}
+  production = {"f32": f32_production}
+  for tier in PRECISION_TIERS:
+    line = run_anakin_production(torch, dev, seed, root, precision=tier,
+                                 steps=PRECISION_PRODUCTION_STEPS,
+                                 profile=False)
+    emit("qtopt_precision_anakin_production", card=smi, **line)
+    if not (line["steps"] >= PRECISION_PRODUCTION_STEPS
+            and line["compile_counts"] == {"anakin_step": 1,
+                                           "bellman_td_error": 1}
+            and line["queue_enqueued"] == 0 and line["breach_count"] == 0
+            and np.isfinite(line["eval_td_last"])):
+      raise AssertionError(f"{tier} Anakin production: {line}")
+    production[tier] = {key: line[key] for key in (
+        "steady_env_steps_per_s", "steady_train_steps_per_s",
+        "env_steps_per_s", "train_steps_per_s", "first_dispatch_s",
+        "capture_s", "peak_memory_gb")}
+  result["anakin_production"] = production
   return result
 
 
@@ -3590,6 +3885,16 @@ def main(argv=None) -> int:
     anakin_result = run_qtopt_anakin(torch, gl, dev, args.seed, tmp, smi)
     emit("qtopt_anakin", seconds=time.perf_counter() - start,
          **anakin_result)
+
+  # Slice 13's main paths: the bf16 and int8 scoring tiers through the
+  # fleet policy, the benches, the megastep and the Anakin loop; no TPU
+  # kernel runs on them.
+  with tempfile.TemporaryDirectory() as tmp:
+    start = time.perf_counter()
+    precision_result = run_qtopt_precision(
+        torch, dev, args.seed, tmp, smi, anakin_result["production"])
+    emit("qtopt_precision", seconds=time.perf_counter() - start,
+         **precision_result)
 
   timing = time_spatial_softmax(torch, ss, feature_map)
   emit("kernel_timing", spatial_softmax=timing)

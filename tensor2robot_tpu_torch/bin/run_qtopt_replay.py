@@ -44,9 +44,10 @@ oracle scenes, acting, the replay extend and the learner all on the card,
 (``replay/anakin.py``); the line then carries an ``anakin_throughput``
 block (the fused loop against the vector fleet beside the megastep at the
 same env count and policy, ``replay/anakin_bench.py``; skip it with
-``--no-anakin-bench``). ``--mesh`` (item 15) and a non-f32
-``--precision`` (item 11) wait for later ``ROADMAP.md`` items and raise
-by name.
+``--no-anakin-bench``). ``--precision bf16`` scores acting and labels
+at bfloat16 (``research/qtopt/cem.py``); the TD metrics stay float32.
+``--mesh`` (item 15) waits for a later ``ROADMAP.md`` item and raises by
+name.
 """
 
 from __future__ import annotations
@@ -77,9 +78,9 @@ def parse_profile(spec):
 def build_config(smoke: bool, seed: int, **options):
   """The JAX CLI's smoke and full configs, field for field. `options` are
   further config fields (device_resident, vector_actors, anakin,
-  profile_window, the checkpoint fields, and those of the paths that wait
-  for later items: mesh_dp, precision, which the config refuses off their
-  defaults by name)."""
+  profile_window, precision, the checkpoint fields, and mesh_dp, which
+  waits for a later item and which the config refuses off its default by
+  name)."""
   from tensor2robot_tpu_torch.replay.loop import ReplayLoopConfig
   if smoke:
     return ReplayLoopConfig(seed=seed, envs_per_collector=4, batch_size=32,
@@ -205,7 +206,7 @@ def main(argv=None) -> None:
   parser.add_argument("--mesh", default="0",
                       help="DP[,TP]; any mesh waits for ROADMAP.md item 15")
   parser.add_argument("--precision", default="f32", choices=("f32", "bf16"),
-                      help="CEM scoring tier; bf16 waits for item 11")
+                      help="CEM scoring tier of acting and labels")
   parser.add_argument("--profile", default=None,
                       help="START,END optimizer-step window traced with "
                            "torch.profiler into <logdir>/profile")

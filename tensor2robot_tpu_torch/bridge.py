@@ -74,6 +74,21 @@ def _to_torch(collection: str, path, leaf) -> tuple:
   return ".".join(scope + [name]), tensor
 
 
+def flax_last_axis(key: str, ndim: int) -> int:
+  """The axis of state_dict tensor `key` (of rank `ndim`) that holds its
+  flax leaf's LAST axis, the output channel of a flax kernel: 0 for a
+  ``weight`` the bridge transposes (OIHW, (out, in, k), (out, in)), the
+  last for a leaf kept verbatim (``stem_s2d_kernel``) and for a vector.
+  Raises for a key with no flax counterpart."""
+  *scope, name = key.split(".")
+  if not scope and name in _VERBATIM or ndim < 2:
+    return ndim - 1
+  if scope and name == "weight" and ndim in (2, 3, 4):
+    return 0
+  raise KeyError(f"state_dict key {key!r} of rank {ndim} has no flax "
+                 "counterpart.")
+
+
 def variables_to_state_dict(variables: Mapping[str, Any],
                             module: nn.Module) -> Dict[str, torch.Tensor]:
   """The flax variables tree as a state_dict for `module`, on the CPU.

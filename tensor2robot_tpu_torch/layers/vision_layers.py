@@ -7,7 +7,9 @@ no layout copy is made either way.
 
 Numerics follow flax: parameters stay in float32; ``Conv`` and ``Dense``
 cast their input, kernel and bias to the compute dtype; normalisation
-computes in float32 and returns the compute dtype; convolutions pad as
+computes in float32, with the parameters and statistics promoted to
+float32 where a scoring tier hands them over in bfloat16, and returns the
+compute dtype; convolutions pad as
 XLA's "SAME" does, with the odd pixel at the high end.
 """
 
@@ -112,10 +114,12 @@ class BatchNorm(nn.Module):
                                (self.running_var, var)):
           running.mul_(_BATCH_NORM_MOMENTUM).add_(
               batch, alpha=1.0 - _BATCH_NORM_MOMENTUM)
+    # Parameters and statistics a scoring tier hands over in bfloat16
+    # normalise in float32 too (a no-op on float32 tensors).
     return F.batch_norm(
-        x, None if train else self.running_mean,
-        None if train else self.running_var, self.weight, self.bias,
-        training=train, eps=_BATCH_NORM_EPSILON,
+        x, None if train else self.running_mean.float(),
+        None if train else self.running_var.float(), self.weight.float(),
+        self.bias.float(), training=train, eps=_BATCH_NORM_EPSILON,
     ).to(self.compute_dtype)
 
 
@@ -133,7 +137,9 @@ class GroupNormAuto(nn.Module):
     self.compute_dtype = dtype
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return self.GroupNorm_0(x.float()).to(self.compute_dtype)
+    norm = self.GroupNorm_0
+    return F.group_norm(x.float(), norm.num_groups, norm.weight.float(),
+                        norm.bias.float(), norm.eps).to(self.compute_dtype)
 
 
 def make_norm(kind: str, dtype: torch.dtype) -> Callable[[int], nn.Module]:

@@ -56,8 +56,14 @@ draws reach the card in one copy from pinned memory; the next dispatch's
 are drawn while the card runs. ``step(draws=)`` takes the JAX package's
 own draws in the parity tests.
 
+**Scoring tiers.** ``precision`` sets the tier of acting's CEM and of the
+label's max (``research/qtopt/cem.py``), the casts inside the period's
+graph; the env step, the extend, the gradients and the TD errors stay
+float32, and the loop still captures once. ``dtype`` names the scoring
+dtype.
+
 Refused by name: ``ledger=`` (the executable ledger, ``ROADMAP.md``'s
-flagship item 15) and a scoring precision other than "f32" (item 11).
+flagship item 15).
 """
 
 from __future__ import annotations
@@ -161,7 +167,8 @@ class AnakinLoop(TargetNetwork):
     exploration_epsilon / scripted_fraction: the collectors' mix.
     seed: keys every draw (see the module's docstring).
     polyak_tau: None copies the online variables on ``refresh``.
-    ledger / precision: item 15's ledger and item 11's tiers; refused.
+    precision: the scoring tier of acting and labels.
+    ledger: item 15's executable ledger; refused.
     health: the learn adds ``health.SUMMARY_KEYS`` to the metrics, the
       spike keys reduced by their running max over the dispatch.
     graphs: on the card, replay the period's graph (False runs every

@@ -26,9 +26,14 @@ reads them (the megastep's, ``replay/device_buffer.py``) sees each one.
 ``compile_counts`` counts the builds of the label and TD closures under
 the JAX package's names; each stays 1 for the updater's life.
 
-The JAX updater's bf16/int8 scoring tiers (``ROADMAP.md`` item 11), its
-executable ledger and its multi-process target placement (item 15) are
-not ported; asking for them raises by name.
+**Scoring tiers.** ``precision`` ("f32", "bf16", "int8";
+``research/qtopt/cem.py``) sets the tier of the target net's scoring in
+the CEM max. Targets, TD errors (priorities and the eval metric against
+Q*) and everything after the max stay float32 under every tier.
+
+The JAX updater's executable ledger and its multi-process target
+placement (``ROADMAP.md`` item 15) are not ported; asking for them raises
+by name.
 """
 
 from __future__ import annotations
@@ -57,12 +62,26 @@ def make_cem_states_and_score(model, fns, variables, images,
   `fns` is the model's ``factored_cem_fns()`` result: None scores full
   images through ``predict_fn`` (tiled); (encode_fn, q_from_code_fn)
   encodes each image once and scores the codes, the same Q function with
-  the image tower out of the sample loop."""
-  cem.validate_precision(precision)
+  the image tower out of the sample loop.
+
+  `precision` is the scoring tier (``cem.SCORING_PRECISIONS``); "f32" is
+  the pre-tier recipe. Under "bf16" and "int8" the factored encode runs
+  once at the tier, over ``cem.scoring_weights_view`` (dense: int8's is
+  the quantize -> dequantize round trip, the weights the fleet policy
+  scores with) and a floating image cast to the scoring dtype (the model
+  scales a uint8 one, as at f32), and the codes are scored at the
+  tier."""
   if fns is None:
-    return images, cem.make_batched_tiled_q_score_fn(model.predict_fn,
-                                                     variables)
+    return images, cem.make_batched_tiled_q_score_fn(
+        model.predict_fn, variables, precision)
   encode_fn, q_from_code_fn = fns
+  if cem.validate_precision(precision) != "f32":
+    if images.is_floating_point():
+      images = images.to(cem.scoring_dtype(precision))
+    states = encode_fn(cem.scoring_weights_view(variables, precision),
+                       {"image": images})
+    return states, cem.make_batched_tiled_q_score_fn(
+        q_from_code_fn, variables, precision)
   return (encode_fn(variables, {"image": images}),
           cem.make_batched_tiled_q_score_fn(q_from_code_fn, variables))
 
@@ -77,7 +96,10 @@ def make_bellman_targets_fn(model, action_size: int, gamma: float,
   (target_variables, next_images, rewards, dones, noise) -> (targets,
   q_next), with noise (B, iterations, N, A). The cross-entropy critic's
   targets are clipped to [0, 1]. factored=True needs
-  ``model.factored_cem_fns()``. The arithmetic after the max is float32.
+  ``model.factored_cem_fns()``. `precision` is the tier of the target
+  net's scoring inside the search; the best logits return to float32, so
+  the arithmetic after the max (reward, discount, done mask, clip) is
+  float32 under every tier.
   """
   cem.validate_precision(precision)
   fns = model.factored_cem_fns() if factored else None
@@ -88,10 +110,10 @@ def make_bellman_targets_fn(model, action_size: int, gamma: float,
 
   def targets_fn(target_variables, next_images, rewards, dones, noise):
     states, score = make_cem_states_and_score(model, fns, target_variables,
-                                              next_images)
+                                              next_images, precision)
     _, best_logits = cem.fleet_cem_optimize(
         score, states, noise, action_size, num_samples=num_samples,
-        num_elites=num_elites, iterations=iterations)
+        num_elites=num_elites, iterations=iterations, precision=precision)
     q_next = q_value_from_logits(best_logits, clip_targets)
     targets = (rewards.float()
                + gamma * (1.0 - dones.float()) * q_next)
@@ -201,7 +223,8 @@ class BellmanUpdater(TargetNetwork):
     seed: with the label seed, fixes each state's CEM draws.
     polyak_tau: None = hard copy on refresh().
     ledger: the JAX package's executable ledger; waits for item 15.
-    precision: the CEM scoring tier; only "f32" (item 11).
+    precision: the CEM scoring tier of the labels (TD errors stay
+      float32).
     device: where labels and TD errors are computed; the GPU unless
       'cpu' is asked for.
   """

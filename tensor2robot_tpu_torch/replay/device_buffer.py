@@ -38,9 +38,13 @@ counter. A dispatch's draws reach the card in one host-to-device copy into
 the graph's input buffer. ``sample(draws=)`` and the learn iteration take
 the JAX package's own draws in the parity tests.
 
+**Scoring tiers.** ``MegastepLearner(precision=)`` runs the label
+stage's CEM at the tier (``research/qtopt/cem.py``), its casts inside the
+captured graph over the target net's float32 tensors; the train step, the
+TD errors and the priorities stay float32.
+
 Not ported, and refused by name: a mesh with capacity sharding and the
-executable ledger (``ROADMAP.md``'s flagship item 15), and the bf16/int8
-scoring tiers (item 11).
+executable ledger (``ROADMAP.md``'s flagship item 15).
 """
 
 from __future__ import annotations
@@ -697,7 +701,8 @@ class MegastepLearner(TargetNetwork):
 
   The train state must live on the learner's device, its optimizer
   graphable (``trainer.check_graphable``: Adam needs ``capturable=True``).
-  `ledger` waits for item 15, a `precision` other than "f32" for item 11.
+  `precision` is the label stage's scoring tier; `ledger` waits for
+  item 15.
   """
 
   def __init__(

@@ -285,6 +285,10 @@ class ReplayLoopConfig:
   mesh_dp: int = 0
   mesh_tp: int = 1
   zero1: Optional[bool] = None
+  # The CEM scoring tier ("f32", "bf16", "int8") of acting and labels on
+  # every path: the host BellmanUpdater, the collectors' and the vector
+  # actor's CEMFleetPolicy, the megastep and the Anakin loop. Gradients,
+  # TD errors and the eval metric stay float32.
   precision: str = "f32"
   checkpoint_every: int = 0
   checkpoint_keep: int = 3
@@ -386,9 +390,17 @@ class _HotReloadPredictor(AbstractPredictor):
   def update(self, variables) -> None:
     self._served = (self._place(variables), self._served[1] + 1)
 
-  def set_variables(self, variables, version: Optional[int] = None) -> None:
+  def set_variables(self, variables, version: Optional[int] = None,
+                    cast: bool = False) -> None:
     """``update()`` carrying the candidate's export version, so
-    ``model_version`` names the promoted learner step."""
+    ``model_version`` names the promoted learner step. ``cast=True``,
+    the JAX predictors' seam for variables already cast on disk, waits
+    for ROADMAP.md's flagship item 13 and raises."""
+    if cast:
+      raise NotImplementedError(
+          "set_variables(cast=True) installs variables cast on disk onto "
+          "the served dtypes, which waits for ROADMAP.md's flagship item "
+          "13 (the predictors' set_variables).")
     self._served = (self._place(variables),
                     self._served[1] + 1 if version is None else int(version))
 

@@ -1,0 +1,379 @@
+"""The precision bench: the bf16 scoring tier against the f32 oracle.
+
+Counterpart of ``tensor2robot_tpu/replay/precision_bench.py``, the
+acceptance instrument of the scoring tiers (``research/qtopt/cem.py``).
+Its phases:
+
+1. **Selected-action agreement.** A TinyQ critic is first trained to the
+   retry env's analytic fixed point (Q* = success ? 1 : gamma), so the
+   bar runs on a real Q landscape. Then, at every ladder bucket, the same
+   (scene, seed) requests go through an f32 and a bf16 ``CEMFleetPolicy``
+   (the same CEM knobs and per-request draws; only the tier differs) over
+   a bank of oracle scenes (``device_grasping.make_scene_bank``). A pair
+   agrees when the bf16 action's value under the f32 oracle is within
+   ``q_tol`` of the f32 action's: in continuous-action QT-Opt the
+   action's value, not its identity, is what serving promises. The
+   geometric deltas are reported beside a seed-noise control (two f32
+   policies that differ only in their sampling seed). Bar: 0.95 overall.
+2. **The fused loop's TD bar.** ``run_qtopt_replay --smoke --anakin`` once
+   a tier (``eval_every`` 15); each reduction is measured by the f32 eval
+   metric against Q*, as the mean over the eval points past steps / 3
+   (the converged phase), and the bf16 one must land within 0.05 of the
+   f32 one.
+
+The JAX bench's third phase (the per-tier executable ledger and its tier
+shares) waits for ``ROADMAP.md``'s flagship item 15, and its fourth (a
+tier walked through shadow, canary and promote) for item 9: asking for
+them raises by name. ``measure_precision(skip_waiting=True)``, the
+default, runs phases 1 and 2.
+"""
+
+from __future__ import annotations
+
+import tempfile
+import time
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from tensor2robot_tpu_torch import Device, resolve_device
+
+R14_BUCKETS = (1, 2, 4, 8, 16)
+R14_Q_TOL = 0.05          # per-request q-delta bar, value space [0, 1]
+R14_GEO_TOL = 0.1         # max-abs action delta diagnostic, [-1, 1] box
+R14_AGREEMENT_BAR = 0.95
+R14_TD_DELTA_BAR = 0.05   # |bf16 - f32| eval-TD-reduction ceiling
+
+
+def _pretrain_critic(image_size: int, action_size: int, gamma: float,
+                     grasp_radius: float, steps: int, batch_size: int,
+                     seed: int, device: Device = None):
+  """A TinyQ critic fitted to the analytic Q*: supervised on (scene,
+  action) -> (success ? 1 : gamma), half the actions near the object, as
+  the loop's eval set draws them. Returns (model, EMA variables, final
+  loss)."""
+  from tensor2robot_tpu_torch.replay.smoke import TinyQCriticModel
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_grasping as sg
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  from tensor2robot_tpu_torch.utils import optimizers
+
+  device = resolve_device(device)
+  model = TinyQCriticModel(
+      image_size=image_size, action_size=action_size,
+      optimizer_fn=optimizers.create_adam_optimizer(3e-3))
+  trainer = Trainer(model, seed=seed, device=device)
+  state = trainer.create_train_state()
+
+  n = batch_size * 16
+  rng = np.random.default_rng(seed + 77)
+  images, targets = sg.sample_scenes(n, image_size=image_size,
+                                     seed=seed + 78, num_distractors=0,
+                                     occlusion=False)
+  actions = rng.uniform(-1.0, 1.0, (n, action_size)).astype(np.float32)
+  near = rng.random(n) < 0.5
+  noise = rng.normal(0.0, 0.12, (n, 2)).astype(np.float32)
+  actions[near, :2] = np.clip(targets[near] + noise[near], -1.0, 1.0)
+  success = sg.grasp_success(targets, actions, grasp_radius)
+  q_star = np.where(success, 1.0, gamma).astype(np.float32)
+  images, actions, q_star = (torch.from_numpy(a).to(device)
+                             for a in (images, actions, q_star))
+
+  loss = None
+  for step in range(steps):
+    part = torch.arange(step * batch_size, (step + 1) * batch_size,
+                        device=device) % n
+    state, metrics = trainer.train_step(
+        state, {"image": images[part], "action": actions[part]},
+        {model.target_key: q_star[part]})
+    loss = metrics["loss"]
+  variables = {k: v.detach().clone()
+               for k, v in state.variables(use_ema=True).items()}
+  return model, variables, float(loss)
+
+
+def _paired_agreement(model, variables, candidate: str,
+                      buckets: Sequence[int], corpus_scenes: int,
+                      q_tolerance: float, cem_num_samples: int,
+                      cem_num_elites: int, cem_iterations: int,
+                      action_size: int, image_size: int, seed: int,
+                      geo_tolerance=None, timed: bool = False) -> Dict:
+  """f32 against `candidate` selected actions, bucket by bucket, over a
+  bank of oracle scenes; each pair shares the predictor, the CEM budget
+  and the request's draws, so every delta is the tier's numerics. With
+  `geo_tolerance` the geometric deltas and the seed-noise control (first
+  bucket) are reported too; with `timed` each tier's warmed actions/s."""
+  from tensor2robot_tpu_torch.replay.loop import _HotReloadPredictor
+  from tensor2robot_tpu_torch.research.qtopt.device_grasping import (
+      make_scene_bank,
+  )
+  from tensor2robot_tpu_torch.serving.bucketing import BucketLadder
+  from tensor2robot_tpu_torch.serving.policy import CEMFleetPolicy
+
+  device = next(iter(variables.values())).device
+  predictor = _HotReloadPredictor(model, variables)
+  scenes = make_scene_bank(corpus_scenes, image_size=image_size,
+                           base_seed=seed + 5, device="cpu").images.numpy()
+
+  def oracle_values(frames, actions) -> np.ndarray:
+    with torch.inference_mode():
+      q = model.q_value(model.predict_fn(variables, {
+          "image": torch.from_numpy(np.stack(frames)).to(device),
+          "action": torch.from_numpy(
+              np.asarray(actions, np.float32)).to(device)}))
+    return q.reshape(-1).cpu().numpy()
+
+  def make_policy(precision, policy_seed, bucket):
+    return CEMFleetPolicy(
+        predictor, action_size=action_size, num_samples=cem_num_samples,
+        num_elites=cem_num_elites, iterations=cem_iterations,
+        seed=policy_seed, ladder=BucketLadder((bucket,)),
+        precision=precision)
+
+  tiers = ("f32", candidate)
+  per_bucket, builds = {}, {}
+  rates = {tier: [] for tier in tiers}
+  agree_total = pairs_total = 0
+  control_geo, control_qd = [], []
+  for bucket in buckets:
+    policies = {tier: make_policy(tier, seed + 7, bucket) for tier in tiers}
+    control = (make_policy("f32", seed + 8, bucket)
+               if geo_tolerance is not None and bucket == buckets[0]
+               else None)
+    geo_diffs, q_deltas = [], []
+    calls = max(1, corpus_scenes // bucket)
+    timing = {tier: 0.0 for tier in tiers}
+    for call in range(calls):
+      idx = (np.arange(bucket) + call * bucket) % corpus_scenes
+      frames = [scenes[i] for i in idx]
+      seeds = np.arange(call * bucket, (call + 1) * bucket, dtype=np.uint32)
+      actions = {}
+      for tier, policy in policies.items():
+        start = time.perf_counter()
+        actions[tier] = np.asarray(policy(frames, seeds))
+        if call:  # the first call pays the bucket's build
+          timing[tier] += time.perf_counter() - start
+      geo_diffs.append(np.max(np.abs(actions["f32"] - actions[candidate]),
+                              axis=1))
+      q_f32 = oracle_values(frames, actions["f32"])
+      q_deltas.append(q_f32 - oracle_values(frames, actions[candidate]))
+      if control is not None:
+        control_actions = np.asarray(control(frames, seeds))
+        control_geo.append(np.max(np.abs(actions["f32"] - control_actions),
+                                  axis=1))
+        control_qd.append(q_f32 - oracle_values(frames, control_actions))
+    for tier, policy in policies.items():
+      builds[f"cem_bucket_{bucket}" + ("" if tier == "f32"
+                                       else f"_{tier}")] = dict(
+                                           policy.compile_counts)[bucket]
+    geo_diffs = np.concatenate(geo_diffs)
+    q_deltas = np.concatenate(q_deltas)
+    agree = int(np.sum(q_deltas <= q_tolerance))
+    agree_total += agree
+    pairs_total += q_deltas.size
+    if calls > 1:
+      for tier in tiers:
+        rates[tier].append((calls - 1) * bucket / max(timing[tier], 1e-9))
+    row = {
+        "pairs": int(q_deltas.size),
+        "agreement_rate": agree / q_deltas.size,
+        "q_delta_mean": float(q_deltas.mean()),
+        "q_delta_p99": float(np.percentile(q_deltas, 99)),
+        "q_delta_max": float(q_deltas.max()),
+    }
+    if geo_tolerance is not None:
+      row.update({
+          "action_maxabs_mean": float(geo_diffs.mean()),
+          "action_maxabs_p99": float(np.percentile(geo_diffs, 99)),
+          "geo_within_tol": float(np.mean(geo_diffs <= geo_tolerance))})
+    per_bucket[str(bucket)] = row
+  out = {
+      "q_tolerance": q_tolerance,
+      "corpus_scenes": corpus_scenes,
+      "per_bucket": per_bucket,
+      "pairs": pairs_total,
+      "overall_rate": agree_total / max(pairs_total, 1),
+      # Each tier's bucket built once: the per-tier exactly-once count
+      # (the JAX ledger's keys; the ledger itself waits for item 15).
+      "builds": builds,
+  }
+  if geo_tolerance is not None:
+    control_geo = np.concatenate(control_geo)
+    control_qd = np.concatenate(control_qd)
+    out["geo_tolerance"] = geo_tolerance
+    out["seed_noise_control"] = {
+        "pairs": int(control_geo.size),
+        "action_maxabs_mean": float(control_geo.mean()),
+        "geo_within_tol": float(np.mean(control_geo <= geo_tolerance)),
+        "q_agreement_rate": float(np.mean(control_qd <= q_tolerance)),
+    }
+  if timed:
+    hz = {tier: float(np.mean(r)) if r else None for tier, r in rates.items()}
+    out["scoring_rate"] = {
+        "f32_actions_per_sec": hz["f32"],
+        f"{candidate}_actions_per_sec": hz[candidate],
+        f"{candidate}_speedup": (hz[candidate] / hz["f32"]
+                                 if hz["f32"] and hz[candidate] else None),
+        "note": "warmed calls (the bucket's build excluded), host clock "
+                "around each call",
+    }
+  return out
+
+
+def _measure_agreement(model, variables, buckets: Sequence[int],
+                       corpus_scenes: int, q_tolerance: float,
+                       geo_tolerance: float, cem_num_samples: int,
+                       cem_num_elites: int, cem_iterations: int,
+                       action_size: int, image_size: int, seed: int) -> Dict:
+  """Phase 1: f32 against bf16 selected actions at every bucket, with the
+  geometric diagnostics, the seed-noise control and each tier's rate."""
+  return _paired_agreement(
+      model, variables, "bf16", buckets, corpus_scenes, q_tolerance,
+      cem_num_samples, cem_num_elites, cem_iterations, action_size,
+      image_size, seed, geo_tolerance=geo_tolerance, timed=True)
+
+
+def _measure_fused_loop(steps: int, seed: int, device: Device = None,
+                        precisions: Sequence[str] = ("f32", "bf16"),
+                        eval_every: int = 15) -> Dict:
+  """Phase 2: ``run_qtopt_replay --smoke --anakin`` once a tier (the f32
+  run is the bar the others are held against); every reduction by the
+  f32 eval metric against Q*."""
+  from tensor2robot_tpu_torch.bin import run_qtopt_replay
+
+  out = {"steps": steps, "eval_every": eval_every}
+  for precision in precisions:
+    with tempfile.TemporaryDirectory(prefix="prec_") as logdir:
+      result = run_qtopt_replay.run(
+          steps, smoke=True, logdir=logdir, seed=seed, device=device,
+          anakin=True, anakin_bench=False, precision=precision,
+          eval_every=eval_every)
+    initial = result["initial_eval"]["eval_td_error"]
+    # The converged phase's mean: the converged loop's eval TD oscillates
+    # with the replay mixture, so one final point is a lottery no 0.05
+    # cross-run bar can ride on; the window (step > steps / 3) is fixed
+    # in advance, the same for every tier.
+    converged = [entry["eval_td_error"] for entry in result["eval_history"]
+                 if entry["step"] > steps // 3]
+    counts = dict(result["compile_counts"])
+    out[precision] = {
+        "eval_td_reduction_converged": 1.0 - float(np.mean(converged))
+        / max(initial, 1e-9),
+        "converged_eval_points": len(converged),
+        "eval_td_reduction_final_point": result["eval_td_reduction"],
+        "initial_eval_td": initial,
+        "final_eval_td": result["final_eval"]["eval_td_error"],
+        "eval_history": [{"step": entry["step"],
+                          "eval_td_error": entry["eval_td_error"]}
+                         for entry in result["eval_history"]],
+        "precision": result["precision"],
+        "anakin_step_compiles": counts.get("anakin_step"),
+        "ledger_all_one": all(v == 1 for v in counts.values()),
+    }
+  for precision in precisions[1:]:
+    out[f"td_delta_{precision}"] = abs(
+        out[precision]["eval_td_reduction_converged"]
+        - out["f32"]["eval_td_reduction_converged"])
+  if "bf16" in precisions:
+    out["td_delta"] = out["td_delta_bf16"]
+  return out
+
+
+def _measure_tier_ledger(*_args, **_kwargs):
+  raise NotImplementedError(
+      "the precision bench's per-tier executable ledger and its tier "
+      "shares wait for ROADMAP.md's flagship item 15 (the obs tier's "
+      "ledger).")
+
+
+def _measure_rollout(*_args, **_kwargs):
+  raise NotImplementedError(
+      "the precision bench's live-traffic rollout of a tier (shadow, "
+      "canary, promote) waits for ROADMAP.md's flagship item 9 (the "
+      "serving fleet tier).")
+
+
+def measure_precision(
+    buckets: Sequence[int] = R14_BUCKETS,
+    corpus_scenes: int = 64,
+    q_tolerance: float = R14_Q_TOL,
+    geo_tolerance: float = R14_GEO_TOL,
+    pretrain_steps: int = 250,
+    loop_steps: int = 300,
+    cem_num_samples: int = 16,
+    cem_num_elites: int = 4,
+    cem_iterations: int = 2,
+    image_size: int = 16,
+    action_size: int = 4,
+    gamma: float = 0.8,
+    grasp_radius: float = 0.4,
+    seed: int = 0,
+    skip_waiting: bool = True,
+    fused_loop: bool = True,
+    device: Device = None,
+) -> Dict:
+  """The precision protocol's ported phases; returns the JAX artifact's
+  fields and raises if a bar of the phases run fails.
+  ``skip_waiting=False`` asks for the ledger and rollout phases, which
+  raise by name; ``fused_loop=False`` skips phase 2."""
+  if not skip_waiting:
+    _measure_tier_ledger()
+    _measure_rollout()
+  device = resolve_device(device)
+  model, variables, pretrain_loss = _pretrain_critic(
+      image_size, action_size, gamma, grasp_radius, pretrain_steps,
+      batch_size=64, seed=seed, device=device)
+  agreement = _measure_agreement(
+      model, variables, buckets, corpus_scenes, q_tolerance, geo_tolerance,
+      cem_num_samples, cem_num_elites, cem_iterations, action_size,
+      image_size, seed)
+  fused = (_measure_fused_loop(loop_steps, seed, device=device)
+           if fused_loop else None)
+  result = {
+      "metric": "precision-tiered CEM: bf16 Q-scoring vs the f32 oracle",
+      "device": str(device),
+      "device_kind": (torch.cuda.get_device_name(device)
+                      if device.type == "cuda" else "cpu"),
+      "cem": {"num_samples": cem_num_samples, "num_elites": cem_num_elites,
+              "iterations": cem_iterations},
+      "buckets": [int(b) for b in buckets],
+      "pretrain": {"steps": pretrain_steps, "final_loss": pretrain_loss},
+      "agreement": agreement,
+      "agreement_bar": R14_AGREEMENT_BAR,
+      "fused_loop": fused,
+      "td_delta_bar": R14_TD_DELTA_BAR,
+      "cem_bf16_action_agreement": agreement["overall_rate"],
+      "waiting": {"tier_ledger": "item 15", "rollout": "item 9"},
+  }
+  failures = []
+  if agreement["overall_rate"] < R14_AGREEMENT_BAR:
+    failures.append(
+        f"agreement {agreement['overall_rate']} < {R14_AGREEMENT_BAR}")
+  if set(agreement["builds"].values()) != {1}:
+    failures.append(f"builds not exactly once: {agreement['builds']}")
+  if fused is not None:
+    if fused["td_delta"] > R14_TD_DELTA_BAR:
+      failures.append(f"td_delta {fused['td_delta']} > {R14_TD_DELTA_BAR}")
+    if not (fused["f32"]["ledger_all_one"]
+            and fused["bf16"]["ledger_all_one"]):
+      failures.append("fused-loop builds not all ones")
+  if failures:
+    raise AssertionError(
+        "precision bench bars failed: " + "; ".join(failures))
+  return result
+
+
+def main(argv=None) -> None:
+  """CLI: runs phases 1 and 2 and prints one JSON line."""
+  import argparse
+  import json
+
+  parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument("--device", default=None)
+  parser.add_argument("--seed", type=int, default=0)
+  args = parser.parse_args(argv)
+  print(json.dumps(measure_precision(seed=args.seed, device=args.device)))
+
+
+if __name__ == "__main__":
+  main()

@@ -46,11 +46,13 @@ class _TinyQModule(nn.Module):
     self.q_head = _Dense(32, 1)
 
   def encode(self, features) -> torch.Tensor:
-    """(B, S, S, 3) image -> (B, 32) position code. A uint8 image
-    normalises in float32; a floating one keeps its dtype."""
+    """(B, S, S, 3) image -> (B, 32) position code. A uint8 image takes
+    its first layer's dtype (flax promotes uint8 with the parameters'
+    float type: float32, or bfloat16 under a scoring tier); a floating
+    one keeps its dtype."""
     image = features["image"]
     if not image.is_floating_point():
-      image = image.float()
+      image = image.to(self.img_fc1.weight.dtype)
     image = image / torch.tensor(255.0, dtype=image.dtype)
     x = image.reshape(image.shape[0], -1)
     return self.img_code(torch.relu(self.img_fc1(x)))

@@ -65,7 +65,8 @@ class _GroupNorm(nn.GroupNorm):
 
   def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
     del train  # no batch statistics
-    return super().forward(x.float()).to(self.compute_dtype)
+    return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                        self.bias.float(), self.eps).to(self.compute_dtype)
 
 
 class _GraspingQModule(nn.Module):

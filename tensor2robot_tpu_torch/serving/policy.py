@@ -28,10 +28,17 @@ pinned host buffer each, and its actions and scores back the same way:
 two copies up, one graph replay and two copies down a call, under one
 lock with one wait at the end.
 
+**Scoring tier.** One policy serves one ``precision``
+(``research/qtopt/cem.py``): every bucket's graph scores at it. Under
+"int8" the policy's own copy holds the int8 weights and their scales,
+quantized when the variables are placed; a hot reload quantizes into
+those tensors, and each replay dequantizes them. The host path, which
+scores through ``predict``, serves "f32" only and refuses another tier.
+
 Waiting for later ``ROADMAP.md`` items, and refused by name: ``device=``
 (a replica pinned to a device or a mesh) and ``param_specs=`` (item 15),
-``ledger=`` (item 15), a non-f32 ``precision`` (item 11) and the per-call
-``variables=`` override (item 9's rollout tier).
+``ledger=`` (item 15) and the per-call ``variables=`` override (item 9's
+rollout tier).
 """
 
 from __future__ import annotations
@@ -46,6 +53,23 @@ from tensor2robot_tpu_torch.ops import graph_launches
 from tensor2robot_tpu_torch.research.qtopt import cem
 from tensor2robot_tpu_torch.serving import bucketing
 from tensor2robot_tpu_torch.serving.bucketing import BucketLadder
+
+
+def _clone(value):
+  """A copy of one served tensor, or of a quantized weight's pair."""
+  if isinstance(value, dict):
+    return {key: tensor.detach().clone() for key, tensor in value.items()}
+  return value.detach().clone()
+
+
+def _copy_into(target, value) -> None:
+  """Copies a served tensor, or a quantized weight's pair, into the
+  policy's own."""
+  if isinstance(target, dict):
+    for key, tensor in target.items():
+      tensor.copy_(value[key])
+  else:
+    target.copy_(value)
 
 
 class _Graph:
@@ -174,29 +198,39 @@ class CEMFleetPolicy:
 
   # -- the device path -------------------------------------------------------
 
+  def _placed(self, live):
+    """The served form of `live`: its int8 quantization under the int8
+    tier, else the variables themselves."""
+    if self.precision == "int8":
+      return cem.quantize_scoring_variables(live)
+    return live
+
   def _serve(self, live, version) -> None:
     """Copies the predictor's variables into the policy's own copy when
-    its version moved (under the lock): a hot reload, no rebuild."""
+    its version moved (under the lock): a hot reload, no rebuild. Under
+    int8 the copy holds the quantized weights, and a reload quantizes
+    into them."""
     if self._served is None:
-      self._served = {k: v.detach().clone() for k, v in live.items()}
+      self._served = {k: _clone(v) for k, v in self._placed(live).items()}
     elif version != self._served_version:
       if live.keys() != self._served.keys():
         raise ValueError(
             f"served variables changed keys: {sorted(live)} against "
             f"{sorted(self._served)}")
       with torch.no_grad():
-        for key, value in live.items():
-          self._served[key].copy_(value)
+        for key, value in self._placed(live).items():
+          _copy_into(self._served[key], value)
     self._served_version = version
 
   def _control(self, fn, images: torch.Tensor, noise: torch.Tensor):
     """The fleet control step over the served copy: ((B, A) actions,
     (B,) their scores)."""
-    score = cem.make_batched_tiled_q_score_fn(fn, self._served)
+    score = cem.make_batched_tiled_q_score_fn(fn, self._served,
+                                              self.precision)
     return cem.fleet_cem_optimize(
         score, images, noise, self._action_size,
         num_samples=self._num_samples, num_elites=self._num_elites,
-        iterations=self._iterations)
+        iterations=self._iterations, precision=self.precision)
 
   def _capture(self, fn, padded: torch.Tensor,
                padded_noise: torch.Tensor) -> _Graph:
@@ -226,7 +260,9 @@ class CEMFleetPolicy:
     bucket's first call, then replayed on the GPU, run eagerly on the
     CPU."""
     key = (bucket, padded.shape[1:], padded.dtype)
-    device = next(iter(self._served.values())).device
+    first = next(iter(self._served.values()))
+    device = (next(iter(first.values())) if isinstance(first, dict)
+              else first).device
     images = torch.from_numpy(padded)
     noise = torch.from_numpy(padded_noise)
     if key not in self._buckets:
@@ -258,7 +294,15 @@ class CEMFleetPolicy:
                  padded_noise: np.ndarray) -> np.ndarray:
     """predict()-based fleet CEM over the padded batch: one ``predict`` a
     CEM iteration at the one flat (bucket * N) shape, the same refits and
-    draws as the device path."""
+    draws as the device path. It serves the f32 tier only."""
+    if self.precision != "f32":
+      raise ValueError(
+          f"scoring precision {self.precision!r} requires the "
+          "predictor's device path (device_fn): the host fallback "
+          "scores through predictor.predict, whose compute dtype "
+          "cannot be retiered per policy. Of the supported tiers "
+          f"{cem.SCORING_PRECISIONS} only 'f32' can serve host-side; "
+          "serve the f32 tier, or use a device-resident predictor.")
     b, num = padded.shape[0], self._num_samples
     tiled = np.repeat(padded, num, axis=0)
 

@@ -608,10 +608,12 @@ class TestDeviceResidentLoop:
 
   def test_refusals_that_stay(self):
     assert loop.ReplayLoopConfig(device_resident=True).device_resident
-    for name, value in (("mesh_dp", 2), ("zero1", True),
-                        ("precision", "bf16")):
+    for name, value in (("mesh_dp", 2), ("zero1", True)):
       with pytest.raises(NotImplementedError):
         loop.ReplayLoopConfig(device_resident=True, **{name: value})
+    # The scoring tiers, once item 11's refusal, take the fused path.
+    assert loop.ReplayLoopConfig(device_resident=True,
+                                 precision="bf16").precision == "bf16"
 
   def test_fused_resume_equals_an_uninterrupted_run(self):
     """Through the loop's own save and restore, on a frozen ring: two

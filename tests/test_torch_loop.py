@@ -366,12 +366,23 @@ class TestLoopPieces:
     assert obj["steps"] == 40 and obj["health"]["breach_count"] == 0
     assert json.loads(out.read_text()) == obj
 
-  @pytest.mark.parametrize("argv, item", [
-      (["--mesh", "8"], "item 15"), (["--precision", "bf16"], "item 11")])
+  @pytest.mark.parametrize("argv, item", [(["--mesh", "8"], "item 15")])
   def test_cli_refuses_by_name(self, tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=item):
       run_qtopt_replay.main(["--smoke", "--device", "cpu", "--logdir",
                              str(tmp_path), *argv])
+
+  def test_cli_precision_bf16(self, tmp_path, capsys):
+    """``--precision bf16``, once item 11's refusal: the host path's smoke
+    labels and acts at bf16, its TD metric float32."""
+    run_qtopt_replay.main([
+        "--smoke", "--steps", "40", "--device", "cpu", "--precision",
+        "bf16", "--logdir", str(tmp_path)])
+    lines = [l for l in capsys.readouterr().out.splitlines() if l.strip()]
+    obj = json.loads(lines[-1])
+    assert obj["precision"] == "bf16" and obj["steps"] == 40
+    assert set(obj["compile_counts"].values()) == {1}
+    assert np.isfinite(obj["final_eval"]["eval_td_error"])
 
   def test_health_halt_stops_the_loop(self, tmp_path, monkeypatch):
     """health_halt=True: a non-finite summary (here the parameters' count)

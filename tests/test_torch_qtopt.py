@@ -579,16 +579,31 @@ class TestCEM:
     assert best.shape == (2, 4) and scores.shape == (2,)
     np.testing.assert_array_equal(best[0].numpy(), best[1].numpy())
 
-  def test_waiting_tiers_raise_by_name(self):
+  def test_waiting_tiers_raise_by_name(self, tmp_path):
+    """The tiers that waited for item 11 now score: each builds its score
+    closure and runs one fleet CEM call at its tier, with float32 scores;
+    an unknown tier still raises with the supported set named."""
     assert cem.scoring_dtype("f32") == torch.float32
+    predictor = ExportedModelPredictor(smoke.TinyQCriticModel(),
+                                       str(tmp_path), device="cpu")
+    predictor.init_randomly()
+    fn, variables = predictor.device_fn()
+    image = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (16, 16, 3), np.uint8))
+    noise = torch.randn((1, 3, 64, 4),
+                        generator=torch.Generator().manual_seed(5))
     for tier in ("bf16", "int8"):
-      with pytest.raises(NotImplementedError, match="item 11"):
-        cem.make_tiled_q_score_fn(None, None, precision=tier)
+      assert cem.scoring_dtype(tier) == torch.bfloat16
+      best, scores = cem.fleet_cem_optimize(
+          cem.make_batched_tiled_q_score_fn(fn, variables, precision=tier),
+          image[None], noise, 4, precision=tier)
+      assert best.shape == (1, 4) and scores.dtype == torch.float32
+      assert torch.isfinite(scores).all() and best.abs().max() <= 1.0
     with pytest.raises(ValueError, match="supported tiers"):
       cem.validate_precision("fp8")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="supported tiers"):
       cem.fleet_cem_optimize(None, torch.zeros(1, 2), torch.zeros(1, 3, 64, 4),
-                             4, precision="bf16")
+                             4, precision="fp8")
 
 
 @pytest.fixture

@@ -644,10 +644,16 @@ class TestCollector:
 
   @pytest.mark.parametrize("name, value, item", [
       ("mesh_dp", 2, "item 15"), ("mesh_tp", 2, "item 15"),
-      ("zero1", True, "item 15"), ("precision", "bf16", "item 11")])
+      ("zero1", True, "item 15")])
   def test_config_refuses_what_waits_by_name(self, name, value, item):
     with pytest.raises(NotImplementedError, match=item):
       loop.ReplayLoopConfig(**{name: value})
+
+  @pytest.mark.parametrize("tier", ["bf16", "int8"])
+  def test_config_takes_the_scoring_tiers(self, tier):
+    assert loop.ReplayLoopConfig(precision=tier).precision == tier
+    with pytest.raises(ValueError, match="supported tiers"):
+      loop.ReplayLoopConfig(precision="fp8")
 
   def test_eval_transitions_bit_identical_to_jax(self, needs_jax):
     config = loop.ReplayLoopConfig(seed=4, eval_batches=2)
@@ -922,8 +928,14 @@ class TestBellmanUpdater:
       bellman.BellmanUpdater(model, state, ledger=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
       bellman.TargetNetwork(state, sharding=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-      bellman.BellmanUpdater(model, state, precision="bf16", device="cpu")
+    # The bf16 tier, once item 11's refusal: one label at the tier,
+    # float32 and clipped.
+    updater = bellman.BellmanUpdater(model, state, precision="bf16",
+                                     device="cpu", **CEM_KNOBS)
+    targets, q_next = updater.compute_targets(_bellman_batch(3, 1))
+    assert updater.precision == "bf16"
+    assert targets.dtype == q_next.dtype == np.float32
+    assert targets.min() >= 0.0 and targets.max() <= 1.0
     from tensor2robot_tpu_torch.research.qtopt import t2r_models
     with pytest.raises(ValueError, match="no factored CEM form"):
       bellman.make_bellman_targets_fn(t2r_models.QTOptGraspingModel(), 4,

@@ -285,12 +285,18 @@ class TestPolicy:
 
   @pytest.mark.parametrize("kwargs, item", [
       (dict(device="cuda:1"), "item 15"), (dict(param_specs={}), "item 15"),
-      (dict(ledger=object()), "item 15"), (dict(precision="bf16"),
-                                           "item 11"),
-      (dict(precision="int8"), "item 11")])
+      (dict(ledger=object()), "item 15")])
   def test_refusals_name_their_items(self, kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
       _policy(**kwargs)
+
+  @pytest.mark.parametrize("tier", ["bf16", "int8"])
+  def test_policy_serves_the_scoring_tiers(self, tier):
+    _, policy = _policy(precision=tier)
+    actions, scores = policy(_images(2, 12), [4, 5], return_scores=True)
+    assert policy.precision == tier and policy.compile_counts == {2: 1}
+    assert actions.shape == (2, 4) and scores.dtype == np.float32
+    assert np.isfinite(scores).all() and np.abs(actions).max() <= 1.0
 
   def test_variables_override_names_its_item(self):
     predictor, policy = _policy()

@@ -28,8 +28,8 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   held-out episodes, the JAX package's own bar; then it holds 3 float32
   steps on the GPU against the CPU and drives ``train_eval_model`` to an
   export that loads.
-- slice 6 runs that training as the JAX package's users do, at seeds 0
-  and 1: 2000 episodes written as jpeg TFRecords, 1500 steps through the
+- slice 6 runs that training as the JAX package's users do, at seed 0:
+  2000 episodes written as jpeg TFRecords, 1500 steps through the
   CLI (``bin/run_t2r_trainer.py``) and ``pose_env_train.cfg`` into a
   ``model_dir``, in two calls of 750 steps (the second resumes from the
   checkpoint), then ``model_dir/export/latest`` served to the same reach
@@ -61,7 +61,7 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
 - slice 9 closes the loop as ``run_qtopt_replay`` runs it: collector
   threads acting through ``CEMFleetPolicy`` (one CUDA graph per bucket)
   while the learner trains with the health sentinel and hot-reloads the
-  policy: the JAX smoke's bar at seeds 0 and 1, the production loop at
+  policy: the JAX smoke's bar at seed 0, the production loop at
   full width (the 64x64 critic, 4 collectors of 8 envs, a ring of
   50,000), and the fleet policy at the published 472x472 at every rung,
   its graph against its eager control bit for bit, captured once across
@@ -73,7 +73,7 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   times a checkpoint's save and restore at the production ring and traces
   a ``--profile`` window; ``qtopt_vector`` runs the loop with one
   ``VectorActor`` stepping every env through one bucket: the smoke's bar
-  at seeds 0 and 1, the production loop's learner beside the actor and
+  at seed 1, the production loop's learner beside the actor and
   alone, and the vector-against-threaded actor bench.
 - slice 11 runs the learner device-resident (``qtopt_device``): the ring
   and its sum tree on the card, and the megastep, K sample -> label ->
@@ -97,6 +97,16 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   against eager, ``run_qtopt_replay --smoke --anakin --precision bf16``
   beside f32 at seeds 0 and 1, and each tier's fleet replays at 472x472,
   megastep device time and production ``--anakin`` rates beside f32.
+- slice 14 runs the obs spine and one serving replica: ``obs_loop`` runs
+  ``run_qtopt_replay --smoke`` with a ``--profile`` window on the host path
+  and device-resident under a started watchdog (the loop's spans as
+  ``record_function`` ranges in the trace, its stage counts, heartbeats, no
+  stall, registry gauges equal to the JSONL records); ``serve_fleet`` runs
+  ``bench_serving --fleet --smoke`` at 16 clients (one capture a rung, the
+  amortization beside the JAX bar), then ``FleetServer`` over
+  ``CheckpointPredictor`` restored from a ``model_dir`` at 472x472: 16
+  client threads, a held flush of 16 bit for bit against the policy called
+  directly, and a hot reload mid-serve that captures nothing.
 
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
@@ -192,8 +202,9 @@ def flash_limit(torch, want):
 POSE_EPISODES, POSE_STEPS, POSE_LR = 2000, 1500, 1e-3
 REACH_EPISODES, REACH_SEED, REACH_THRESHOLD, REACH_BAR = 200, 1234, 0.05, 0.80
 # Slice 6: the same run from jpeg records through the CLI and model_dir,
-# in two calls (the second resumes), at two seeds.
-RECORD_SEEDS = (0, 1)
+# in two calls (the second resumes), at seed 0 (seeds 0 and 1 before slice
+# 14's phases joined, to keep the script inside its time limit).
+RECORD_SEEDS = (0,)
 RECORD_HALF = 750
 RECORD_CFG = os.path.join("tensor2robot_tpu_torch", "research", "pose_env",
                           "configs", "pose_env_train.cfg")
@@ -265,9 +276,9 @@ LABEL_472_REPEATS = 3
 # (no TF32 in matmuls), the same products summed in other shapes.
 LABEL_FACTORED_ATOL = 1e-5
 # Slice 9: the closed QT-Opt loop. (a) run_qtopt_replay --smoke (TinyQ,
-# the JAX smoke's bar) at two seeds; (b) the production loop of the JAX
+# the JAX smoke's bar); (b) the production loop of the JAX
 # CLI's non-smoke config (collectors acting through CEMFleetPolicy's
-# bucket-8 graph while the learner trains) for 50 steps (the collector
+# bucket-8 graph while the learner trains) for 20 steps (the collector
 # threads' env stepping holds the interpreter, and the eager learner runs
 # at ~1.3 steps/s beside them on an H100, against ~27 alone:
 # scripts/profile_qtopt_loop.py); (c) CEMFleetPolicy at the published
@@ -275,12 +286,18 @@ LABEL_FACTORED_ATOL = 1e-5
 # graph against its eager control bit for bit (cuDNN deterministic), and
 # at 64x64 float32 against the CPU.
 LOOP_SEEDS = (0, 1)
+# The host-path and vector-actor smokes (~47 s each at 300 steps) run one
+# seed each since slice 14's phases joined (both at seeds 0 and 1 before),
+# to keep the script inside its time limit; the fused paths' cheap smokes
+# keep both seeds.
+HOST_SMOKE_SEEDS = (0,)
+VECTOR_SMOKE_SEEDS = (1,)
 LOOP_BAR = 0.30
 LOOP_SMOKE_STEPS = 300
-# 50 steps (200 before slice 10's phases joined, 100 before slice 11's, to
-# keep the script near half its time limit): no hot reload; the vector
-# production loop of slice 10 covers one.
-LOOP_PRODUCTION_STEPS = 50
+# 20 steps (200 before slice 10's phases joined, 100 before slice 11's, 50
+# before slice 14's, to keep the script inside its time limit): no hot
+# reload; the vector production loop of slice 10 covers one.
+LOOP_PRODUCTION_STEPS = 20
 FLEET_RUNGS = (1, 2, 4, 8, 16)
 FLEET_RELOADS = 3
 FLEET_CALLS = 7
@@ -2172,9 +2189,9 @@ def run_qtopt_loop(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
   from tensor2robot_tpu_torch.serving import CEMFleetPolicy
   result = {"card": smi}
 
-  # (a) The JAX smoke through the port's CLI entry, at two seeds.
+  # (a) The JAX smoke through the port's CLI entry.
   smoke = {}
-  for s in LOOP_SEEDS:
+  for s in HOST_SMOKE_SEEDS:
     start = time.perf_counter()
     run = run_qtopt_replay.run(LOOP_SMOKE_STEPS, smoke=True,
                                logdir=os.path.join(root, f"smoke_{s}"),
@@ -2357,7 +2374,7 @@ RESUME_SMOKE_HALF = 150
 RESUME_PRODUCTION_STEPS = 10
 PROFILE_WINDOW = "5,8"
 PROFILE_STEPS = 20
-# Slice 10's vector actor: the smoke with --vector-actors at two seeds (the
+# Slice 10's vector actor: the smoke with --vector-actors at one seed (the
 # 0.30 bar, one acting bucket), the production loop with one VectorActor
 # over the 32 envs, and the learner alone in the same call (the actor
 # stopped once the ring passes min_fill). ROADMAP's bar, reported and not
@@ -2533,12 +2550,12 @@ def run_qtopt_vector(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
   result = {"card": smi}
 
   smoke = {}
-  for s in LOOP_SEEDS:
+  for s in VECTOR_SMOKE_SEEDS:
     start = time.perf_counter()
     run = run_qtopt_replay.run(LOOP_SMOKE_STEPS, smoke=True,
                                logdir=os.path.join(root, f"smoke_{s}"),
                                seed=s, device=dev, vector_actors=True,
-                               actor_bench=s == LOOP_SEEDS[0])
+                               actor_bench=s == VECTOR_SMOKE_SEEDS[0])
     buckets = [k for k in run["compile_counts"] if k.startswith("cem_bucket")]
     line = {"seed": s, "steps": run["steps"],
             "initial_eval_td": run["initial_eval"]["eval_td_error"],
@@ -3687,6 +3704,339 @@ def run_qtopt_precision(torch, dev, seed: int, root: str, smi: str,
   return result
 
 
+# Slice 14. (a) obs_loop: run_qtopt_replay --smoke with a --profile
+# window, on the host path, then device-resident, under a started watchdog:
+# the trace holds the loop's spans as record_function ranges, the result's
+# trace_stage_counts covers the loop's stages, the learner, feeder and
+# collector heartbeats beat and no stall fires, and the registry's gauges
+# equal the JSONL records; the spans' share of the window and their cost
+# are reported. (b) serve_fleet: bench_serving --fleet --smoke at 16
+# clients, then FleetServer over CEMFleetPolicy over CheckpointPredictor
+# restored from a model_dir at 472x472 (CEM 64/6/3): 16 client threads, a
+# held flush of 16 bit for bit against the policy called directly, a hot
+# reload mid-serve that captures nothing.
+OBS_PATHS = (("host", 40, (20, 25)), ("device-resident", 200, (100, 150)))
+OBS_SPANS = {"host": ("act/cem_policy", "extend/drain", "learn/train_step"),
+             "device-resident": ("act/cem_policy", "extend/drain",
+                                 "learn/megastep")}
+OBS_STAGES = ("act", "extend", "learn", "replay")
+SPAN_COST_CALLS = 20_000
+SERVE_SMOKE_ARGS = ("--fleet", "--smoke", "--clients", "16", "--frames",
+                    "80", "--repeats", "3")
+SERVE_JAX_AMORTIZATION_BAR = 3.0  # tests/test_serving.py, reported only
+SERVE_CLIENTS = 16
+SERVE_FRAMES = 4
+SERVE_SINGLE_FRAMES = 30
+SERVE_IMAGE_SIZE = 472  # the flagship's published size
+
+
+def span_cost_us(trace_lib, profiling, root: str) -> dict:
+  """Host microseconds of one empty span, outside a profiler window and
+  inside one (where it also opens a record_function range)."""
+  out = {}
+  for inside in (False, True):
+    # A host-activity window: what a span adds there is host work (the
+    # record_function range), and no device work runs to trace.
+    if inside and not profiling.start_trace(os.path.join(root, "cost"),
+                                            device="cpu"):
+      raise AssertionError("a profiler window was already open")
+    try:
+      start = time.perf_counter()
+      for _ in range(SPAN_COST_CALLS):
+        with trace_lib.span("obs/cost"):
+          pass
+      out["inside_window" if inside else "outside_window"] = (
+          (time.perf_counter() - start) / SPAN_COST_CALLS * 1e6)
+    finally:
+      if inside:
+        profiling.stop_trace()
+  trace_lib.get_tracer().clear()
+  return out
+
+
+def window_spans(path: str, names) -> dict:
+  """The trace's record_function ranges of `names`: per name the count and
+  host ms, per thread the share of the window its top-level loop spans
+  cover, and the window's length."""
+  with open(path) as f:
+    events = [e for e in json.load(f)["traceEvents"]
+              if e.get("ph") == "X" and "ts" in e]
+  window_us = (max(float(e["ts"]) + float(e.get("dur", 0.0))
+                   for e in events)
+               - min(float(e["ts"]) for e in events))
+  ranges = [e for e in events if e.get("cat") == "user_annotation"
+            and "/" in e.get("name", "")]
+  by_name, by_thread = {}, {}
+  for e in ranges:
+    entry = by_name.setdefault(e["name"], {"count": 0, "host_ms": 0.0})
+    entry["count"] += 1
+    entry["host_ms"] += float(e["dur"]) / 1e3
+    if e["name"] in names:
+      by_thread[e["tid"]] = by_thread.get(e["tid"], 0.0) + float(e["dur"])
+  return {"window_ms": window_us / 1e3, "ranges": by_name,
+          "thread_share": sorted((us / window_us for us in
+                                  by_thread.values()), reverse=True),
+          "missing": sorted(set(names) - set(by_name))}
+
+
+def run_obs_loop(torch, dev, seed: int, root: str, smi: str) -> dict:
+  """Slice 14 (a): the obs spine through run_qtopt_replay on the card."""
+  from tensor2robot_tpu_torch.bin import run_qtopt_replay
+  from tensor2robot_tpu_torch.obs import flight_recorder
+  from tensor2robot_tpu_torch.obs import registry as registry_lib
+  from tensor2robot_tpu_torch.obs import trace as trace_lib
+  from tensor2robot_tpu_torch.obs.watchdog import Watchdog
+  from tensor2robot_tpu_torch.utils import profiling
+
+  class SeenWatchdog(Watchdog):
+    """Keeps every heartbeat registered with it."""
+
+    def __init__(self, **kwargs):
+      super().__init__(**kwargs)
+      self.seen = []
+
+    def register(self, name, deadline_s=None):
+      heartbeat = super().register(name, deadline_s)
+      self.seen.append(heartbeat)
+      return heartbeat
+
+  result = {"card": smi,
+            "span_cost_us": span_cost_us(trace_lib, profiling, root)}
+  for path, steps, window in OBS_PATHS:
+    logdir = os.path.join(root, path)
+    dumps = os.path.join(root, f"{path}_dumps")
+    dog = SeenWatchdog(poll_s=0.5, default_deadline_s=60.0,
+                       recorder=flight_recorder.FlightRecorder(
+                           dump_dir=dumps),
+                       registry=registry_lib.MetricRegistry())
+    trace_lib.get_tracer().clear()
+    start = time.perf_counter()
+    with dog:
+      run = run_qtopt_replay.run(
+          steps, smoke=True, logdir=logdir, seed=seed, device=dev,
+          watchdog=dog, learner_bench=False, profile_window=window,
+          device_resident=path == "device-resident")
+    seconds = time.perf_counter() - start
+    (trace_path,) = [os.path.join(logdir, "profile", f)
+                     for f in os.listdir(os.path.join(logdir, "profile"))]
+    spans = window_spans(trace_path, OBS_SPANS[path])
+    beats = {}
+    for heartbeat in dog.seen:
+      name = heartbeat.name.split("#")[0]
+      beats[name] = beats.get(name, 0) + heartbeat.beats
+    last = {}
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+      for line in f:
+        record = json.loads(line)
+        for key in ("step", "wall_time", "host", "pid"):
+          record.pop(key)
+        last.update(record)
+    gauges = registry_lib.get_registry().snapshot(names=last)
+    in_window = sum(entry["count"] for entry in spans["ranges"].values())
+    line = {
+        "path": path, "steps": run["steps"], "profile_window": window,
+        "seconds": seconds,
+        "eval_td_reduction": run["eval_td_reduction"],
+        "trace_stage_counts": run["obs"]["trace_stage_counts"],
+        "heartbeat_beats": beats, "watchdog_events": dog.events,
+        "stall_dumps": (sorted(os.listdir(dumps))
+                        if os.path.isdir(dumps) else []),
+        "registry_gauges_equal_jsonl": gauges == last,
+        "gauges_checked": len(last), **spans,
+        "spans_in_window": in_window,
+        "span_cost_share_of_window": (
+            in_window * result["span_cost_us"]["inside_window"] / 1e3
+            / spans["window_ms"]),
+        "compile_counts": run["compile_counts"]}
+    emit("obs_loop_path", card=smi, **line)
+    learner_beats = (run["steps"] if path == "host"
+                     else run["steps"] // run["megastep_inner"])
+    if not (not spans["missing"]
+            and set(OBS_STAGES) <= set(run["obs"]["trace_stage_counts"])
+            and beats.get("replay/learner") == learner_beats
+            and beats.get("replay/feeder", 0) > 0
+            and beats.get("act/collector", 0) > 0
+            and dog.events == [] and not line["stall_dumps"]
+            and dog.snapshot()["components"] == {}
+            and line["registry_gauges_equal_jsonl"]
+            and set(run["compile_counts"].values()) == {1}):
+      raise AssertionError(f"obs_loop {path}: {line}")
+    result[path] = {k: line[k] for k in (
+        "seconds", "trace_stage_counts", "heartbeat_beats", "window_ms",
+        "thread_share", "spans_in_window", "span_cost_share_of_window")}
+  return result
+
+
+def run_serve_fleet(torch, dev, seed: int, root: str, smi: str) -> dict:
+  """Slice 14 (b): one serving replica on the card."""
+  import contextlib
+  import io
+  import threading
+
+  from tensor2robot_tpu_torch.bin import bench_serving
+  from tensor2robot_tpu_torch.obs.registry import MetricRegistry
+  from tensor2robot_tpu_torch.predictors.checkpoint_predictor import (
+      CheckpointPredictor,
+  )
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_grasping as sg
+  from tensor2robot_tpu_torch.research.qtopt.cem import CEMPolicy
+  from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+      QTOptGraspingModel,
+  )
+  from tensor2robot_tpu_torch.serving import CEMFleetPolicy, FleetServer
+  from tensor2robot_tpu_torch.serving.stats import ServingStats
+  from tensor2robot_tpu_torch.train.checkpoints import CheckpointManager
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  result = {"card": smi}
+
+  # (a) The serving layer alone: bench_serving --fleet --smoke.
+  start = time.perf_counter()
+  with contextlib.redirect_stdout(io.StringIO()) as out:
+    bench_serving.main(list(SERVE_SMOKE_ARGS))
+  line = json.loads(out.getvalue().strip().splitlines()[-1])
+  (point,) = line["fleet_sweep"]
+  smoke = {"seconds": time.perf_counter() - start,
+           "device_kind": line["device_kind"],
+           "compile_counts": line["compile_counts"],
+           "single_client_closed_loop_hz": line[
+               "single_client_closed_loop_hz"],
+           "single_client_trials_hz": line["single_client_trials_hz"],
+           **point, "amortization": line["amortization_at_max_clients"],
+           "jax_amortization_bar": SERVE_JAX_AMORTIZATION_BAR}
+  emit("serve_fleet_smoke", card=smi, **smoke)
+  if not (line["compile_counts"] == {str(b): 1 for b in FLEET_RUNGS}
+          and point["latency_p99_ms"] >= point["latency_p50_ms"] > 0
+          and 0 < point["batch_occupancy"] <= 1
+          and line["device_kind"] == torch.cuda.get_device_name(0)):
+    raise AssertionError(f"serve_fleet smoke: {smoke}")
+  result["smoke"] = {k: smoke[k] for k in (
+      "amortization", "aggregate_images_per_sec",
+      "single_client_closed_loop_hz", "latency_p50_ms", "latency_p99_ms",
+      "batch_occupancy")}
+
+  # (b) The flagship served from a model_dir at 472x472.
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  model = QTOptGraspingModel(image_size=SERVE_IMAGE_SIZE, uint8_images=True)
+  model_dir = os.path.join(root, "model_dir")
+  state = Trainer(model, seed=seed, device=dev).create_train_state()
+  CheckpointManager(os.path.join(model_dir, "checkpoints")).save(1, state)
+  del state
+  predictor = CheckpointPredictor(model, model_dir, device=dev)
+  if not (predictor.restore() and predictor.model_version == 1):
+    raise AssertionError("CheckpointPredictor did not restore step 1")
+  policy = CEMFleetPolicy(predictor, action_size=4, seed=seed,
+                          **CEM_SERVING)
+  scenes, _ = sg.sample_scenes(SERVE_CLIENTS, SERVE_IMAGE_SIZE, seed + 7)
+  images = list(scenes)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  start = time.perf_counter()
+  policy.warm(lambda i: images[i % len(images)])
+  warm_s = time.perf_counter() - start
+  warm_peak_mib = torch.cuda.max_memory_allocated() / 2**20
+  ledger = dict(policy.compile_counts)
+
+  single = CEMPolicy(predictor, action_size=4, seed=seed, **CEM_SERVING)
+  single(images[0])
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  for i in range(SERVE_SINGLE_FRAMES):
+    single(images[i % len(images)])
+  single_hz = SERVE_SINGLE_FRAMES / (time.perf_counter() - start)
+  del single
+
+  registry = MetricRegistry()
+  server = FleetServer(policy, deadline_ms=5.0,
+                       stats=ServingStats(registry=registry))
+  answers = [[] for _ in range(SERVE_CLIENTS)]
+  errors = []
+  reloaded = threading.Event()
+
+  def client(i):
+    try:
+      for _ in range(SERVE_FRAMES):
+        answers[i].append(server.act(images[i], timeout=300))
+    except Exception as e:  # noqa: BLE001 — raised below
+      errors.append(e)
+
+  fresh = model.init_variables(torch.Generator().manual_seed(seed + 1),
+                               device=dev)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  with server:
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    start = time.perf_counter()
+    for thread in threads:
+      thread.start()
+    # The hot reload mid-serve, once the first frames are answered.
+    while (not errors and sum(len(a) for a in answers) < SERVE_CLIENTS
+           and time.perf_counter() - start < 300):
+      time.sleep(0.001)
+    predictor.set_variables(fresh, version=2)
+    reloaded.set()
+    for thread in threads:
+      thread.join()
+    elapsed = time.perf_counter() - start
+    # The rungs' graphs keep their pools: reserved holds them, allocated
+    # only what lives across replays.
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    reserved_mib = torch.cuda.max_memory_reserved() / 2**20
+    served_snap = server.snapshot()
+    # One held flush of 16, against the policy called with its seeds.
+    first_seed = int(policy.assign_seeds(1)[0]) + 1
+    with server.batcher.hold_flushes():
+      futures = [server.submit(image) for image in images]
+    held = np.stack([f.result(timeout=300) for f in futures])
+  direct = policy(images, np.arange(first_seed, first_seed + SERVE_CLIENTS,
+                                    dtype=np.uint32))
+  torch.backends.cudnn.deterministic = deterministic
+  actions = np.stack([a for per in answers for a in per])
+  requests_sent = SERVE_CLIENTS * SERVE_FRAMES + SERVE_CLIENTS
+  full = {
+      "model": f"QTOptGraspingModel(uint8_images=True), "
+               f"{SERVE_IMAGE_SIZE}x{SERVE_IMAGE_SIZE}, random weights saved "
+               "as model_dir step 1",
+      "cem": CEM_SERVING, "clients": SERVE_CLIENTS,
+      "frames_per_client": SERVE_FRAMES, "warm_s": warm_s,
+      "compile_counts": dict(policy.compile_counts),
+      "images_per_s": SERVE_CLIENTS * SERVE_FRAMES / elapsed,
+      "single_robot_hz": single_hz,
+      "amortization": SERVE_CLIENTS * SERVE_FRAMES / elapsed / single_hz,
+      "latency_p50_ms": served_snap["latency_p50_ms"],
+      "latency_p99_ms": served_snap["latency_p99_ms"],
+      "batch_occupancy": served_snap["batch_occupancy"],
+      "flushes": served_snap["flushes"],
+      "mean_batch_size": served_snap["mean_batch_size"],
+      "warm_peak_memory_mib": warm_peak_mib,
+      "serving_peak_allocated_mib": peak_mib,
+      "serving_peak_reserved_mib": reserved_mib,
+      "held_flush_equals_policy": bool(np.array_equal(held, direct)),
+      "model_version": predictor.model_version,
+      "serving_requests_counter": registry.counter(
+          "serving/requests").value,
+      "requests_sent": requests_sent}
+  emit("serve_fleet_flagship", card=smi, **full)
+  if not (not errors and all(len(a) == SERVE_FRAMES for a in answers)
+          and np.isfinite(actions).all() and np.abs(actions).max() <= 1.0
+          and full["held_flush_equals_policy"]
+          and policy.compile_counts == ledger
+          == {b: 1 for b in FLEET_RUNGS}
+          and predictor.model_version == 2 and reloaded.is_set()
+          and full["serving_requests_counter"] == requests_sent
+          and served_snap["latency_p99_ms"]
+          >= served_snap["latency_p50_ms"] > 0):
+    raise AssertionError(f"serve_fleet flagship: {full} {errors[:1]}")
+  result["flagship"] = {k: full[k] for k in (
+      "images_per_s", "single_robot_hz", "amortization", "latency_p50_ms",
+      "latency_p99_ms", "batch_occupancy", "warm_peak_memory_mib",
+      "serving_peak_reserved_mib")}
+  del policy, predictor, server
+  torch.cuda.empty_cache()
+  return result
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -3805,7 +4155,7 @@ def main(argv=None) -> int:
     emit("pose_train_eval", **run_train_eval(torch, dev, args.seed, tmp))
 
   # Slice 6's main path: the same run from jpeg records through the CLI,
-  # model_dir and a resume, at two seeds.
+  # model_dir and a resume.
   records = [crc_rates()]
   with tempfile.TemporaryDirectory() as tmp:
     for seed in RECORD_SEEDS:
@@ -3895,6 +4245,18 @@ def main(argv=None) -> int:
         torch, dev, args.seed, tmp, smi, anakin_result["production"])
     emit("qtopt_precision", seconds=time.perf_counter() - start,
          **precision_result)
+
+  # Slice 14's main paths: the obs spine through the replay loop, and one
+  # serving replica; no TPU kernel runs on them.
+  with tempfile.TemporaryDirectory() as tmp:
+    start = time.perf_counter()
+    obs_result = run_obs_loop(torch, dev, args.seed, tmp, smi)
+    emit("obs_loop", seconds=time.perf_counter() - start, **obs_result)
+  with tempfile.TemporaryDirectory() as tmp:
+    start = time.perf_counter()
+    serve_result = run_serve_fleet(torch, dev, args.seed, tmp, smi)
+    emit("serve_fleet", seconds=time.perf_counter() - start,
+         **serve_result)
 
   timing = time_spatial_softmax(torch, ss, feature_map)
   emit("kernel_timing", spatial_softmax=timing)

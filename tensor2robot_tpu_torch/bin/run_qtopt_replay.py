@@ -98,13 +98,14 @@ def build_config(smoke: bool, seed: int, **options):
 def run(steps: int, smoke: bool, logdir: str, seed: int,
         device: Device = None, actor_bench: bool = True,
         learner_bench: bool = True, anakin_bench: bool = True,
-        **options) -> dict:
+        watchdog=None, **options) -> dict:
   """The loop for `steps` optimizer steps: TinyQ under `smoke`, the
   flagship critic otherwise (`options`: config fields, as
   ``build_config``). With vector actors and `actor_bench` the result
   gains the ``actor_throughput`` block, device-resident with
   `learner_bench` the ``learner_throughput`` block, Anakin with
-  `anakin_bench` the ``anakin_throughput`` block. Returns the loop's
+  `anakin_bench` the ``anakin_throughput`` block. `watchdog` is where the
+  loop's threads beat (default: the process watchdog). Returns the loop's
   result."""
   from tensor2robot_tpu_torch.replay.loop import ReplayTrainLoop
   config = build_config(smoke, seed, **options)
@@ -117,7 +118,7 @@ def run(steps: int, smoke: bool, logdir: str, seed: int,
     model = TinyQCriticModel(
         image_size=config.image_size, action_size=config.action_size,
         optimizer_fn=optimizers.create_adam_optimizer(config.learning_rate))
-  results = ReplayTrainLoop(config, logdir, model=model,
+  results = ReplayTrainLoop(config, logdir, model=model, watchdog=watchdog,
                             device=device).run(steps)
   if config.device_resident and learner_bench:
     # The megastep against the host path at the same batch shape

@@ -17,14 +17,16 @@ host loop runs:
   z-score drift rules on grad norm, TD and Q, a priority-entropy floor
   and a sample-age ceiling;
 - ``HealthMonitor``: evaluates the rules on each step's summary, keeps
-  the breach record, calls ``on_breach``, runs an optional snapshot and,
-  with ``halt_on_breach``, raises ``HealthHalt`` rather than training on
-  garbage. Its drift baselines round-trip through ``state_dict``.
+  the breach record, escalates each breach (the ``health/breaches`` and
+  ``health/breaches/<rule>`` counters of the metric registry, then a
+  rate-limited ``health_breach`` flight-recorder dump carrying the step
+  and any bound correlation ids, then ``on_breach``), runs an optional
+  snapshot and, with ``halt_on_breach``, raises ``HealthHalt`` rather
+  than training on garbage. Its drift baselines round-trip through
+  ``state_dict``.
 
-The JAX monitor also escalates into the process metric registry and a
-flight-recorder dump; those belong to the obs tier (``ROADMAP.md``'s
-flagship item 15), and passing ``registry=`` or ``recorder=`` raises by
-name. The fleet Q-drift report waits with the path that calls it.
+The fleet Q-drift report waits with the path that calls it (the routed
+fleet).
 """
 
 from __future__ import annotations
@@ -36,6 +38,9 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
 
+from tensor2robot_tpu_torch.obs import context as context_lib
+from tensor2robot_tpu_torch.obs import flight_recorder as flight_lib
+from tensor2robot_tpu_torch.obs import registry as registry_lib
 from tensor2robot_tpu_torch.utils.tree import tree_leaves
 
 # The fixed health-summary schema every learn path emits (the megastep
@@ -66,6 +71,11 @@ SCAN_MAX_KEYS = frozenset({
     "health/td_max",
     "health/q_max",
 })
+
+
+# The fields of a health_breach flight-recorder trigger (the watchdog's
+# STALL_FIELDS convention).
+BREACH_FIELDS = ("rule", "metric", "value", "step")
 
 
 class HealthHalt(RuntimeError):
@@ -228,23 +238,24 @@ class _DriftState:
 class HealthMonitor:
   """Evaluates HealthRules over per-step summaries; escalates breaches.
 
-  Each breach is recorded (``breaches``, ``breach_count``), then passed
-  to ``on_breach`` (a failing callback never stops the loop); a step with
-  breaches runs ``snapshot_fn`` once; with ``halt_on_breach``, a breach
-  of a ``halt`` rule then raises ``HealthHalt``. ``observe`` runs on one
-  loop thread; the lock guards ``snapshot`` readers.
+  Each breach is recorded (``breaches``, ``breach_count``), then
+  escalated: the registry's counters (default: the process registry), a
+  rate-limited ``health_breach`` dump (default: the process recorder),
+  ``on_breach``; each hop is isolated, so a failing one never stops the
+  loop. A step with breaches runs ``snapshot_fn`` once; with
+  ``halt_on_breach``, a breach of a ``halt`` rule then raises
+  ``HealthHalt``. ``observe`` runs on one loop thread; the lock guards
+  ``snapshot`` readers.
   """
 
   def __init__(self, rules: Optional[Sequence[HealthRule]] = None,
-               registry=None, recorder=None,
+               registry: Optional[registry_lib.MetricRegistry] = None,
+               recorder: Optional[flight_lib.FlightRecorder] = None,
                on_breach: Optional[Callable[[dict], None]] = None,
                halt_on_breach: bool = False,
                max_breach_history: int = 256):
-    if registry is not None or recorder is not None:
-      raise NotImplementedError(
-          "HealthMonitor(registry=, recorder=) escalates into the metric "
-          "registry and the flight recorder, which wait for ROADMAP.md's "
-          "flagship item 15 (the obs tier).")
+    self._registry = registry
+    self._recorder = recorder
     self.rules = tuple(default_rules() if rules is None else rules)
     names = [rule.name for rule in self.rules]
     if len(set(names)) != len(names):
@@ -327,12 +338,8 @@ class HealthMonitor:
       self.breaches.extend(breaches)
       if len(self.breaches) > self._max_breaches:
         del self.breaches[:len(self.breaches) - self._max_breaches]
-    if self._on_breach is not None:
-      for breach in breaches:
-        try:
-          self._on_breach(breach)
-        except Exception:  # noqa: BLE001 — a diagnostic never stops the loop
-          pass
+    for breach in breaches:
+      self._escalate(breach)
     if breaches and snapshot_fn is not None:
       try:
         snapshot_fn()
@@ -343,6 +350,36 @@ class HealthMonitor:
       if halting:
         raise HealthHalt(step, halting)
     return breaches
+
+  def _escalate(self, breach: dict) -> None:
+    """counters -> rate-limited dump (the step and any bound correlation
+    ids) -> callback; each hop isolated."""
+    try:
+      registry = self._registry or registry_lib.get_registry()
+      registry.counter("health/breaches").inc()
+      # Under health/breaches/, not the JAX monitor's health/<rule>: the
+      # nonfinite rules share their names with the summary's keys, which
+      # the loops set as gauges of that name (one name, one type).
+      registry.counter(f"health/breaches/{breach['rule']}").inc()
+    except Exception:  # noqa: BLE001 — a diagnostic never stops the loop
+      pass
+    try:
+      recorder = self._recorder or flight_lib.get_recorder()
+      fields = {key: breach[key] for key in BREACH_FIELDS}
+      fields.update({key: breach[key] for key in ("z", "threshold")
+                     if key in breach})
+      attrs = context_lib.context_attrs()
+      fields.update({key: attrs[key]
+                     for key in ("request_id", "request_ids", "step_id")
+                     if key in attrs})
+      recorder.trigger("health_breach", **fields)
+    except Exception:  # noqa: BLE001
+      pass
+    if self._on_breach is not None:
+      try:
+        self._on_breach(breach)
+      except Exception:  # noqa: BLE001
+        pass
 
   def state_dict(self) -> dict:
     """The drift baselines and per-rule seen counts (JSON-able), whose

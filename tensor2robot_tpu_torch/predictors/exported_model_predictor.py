@@ -2,7 +2,8 @@
 
 Counterpart of ``tensor2robot_tpu/predictors/exported_model_predictor.py``:
 poll an export root for the newest version, block-with-timeout until the
-first export exists, predict on numpy dicts, hot-reload newer versions.
+first export exists, predict on numpy dicts, hot-reload newer versions,
+and hot-swap variables in place (``set_variables``).
 
 A native export's ``serving_fn.bin`` is StableHLO, which only JAX runs.
 This predictor instead rebuilds the network from the model's Python code,
@@ -33,6 +34,7 @@ from tensor2robot_tpu_torch.export import export_utils, variables_io
 from tensor2robot_tpu_torch.models.abstract_model import AbstractT2RModel
 from tensor2robot_tpu_torch.predictors.abstract_predictor import (
     AbstractPredictor,
+    checked_swap,
 )
 from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
 
@@ -104,6 +106,14 @@ class ExportedModelPredictor(AbstractPredictor):
     self._variables = self._model.init_variables(
         torch.Generator().manual_seed(0), device=self._device)
     self._version = 0
+
+  def set_variables(self, variables, version=None, cast: bool = False
+                    ) -> None:
+    """Hot-swaps the served variables (``checked_swap``); `version` is
+    the candidate's export version."""
+    self.assert_is_loaded()
+    self._variables = checked_swap(self._variables, variables, cast)
+    self._version = self._next_swap_version(version)
 
   # --- serving -------------------------------------------------------------
 

@@ -24,8 +24,11 @@ static-scene transitions (next_image is the scene; truncation bootstraps
 with done 0), so the numpy draws and scenes are the JAX actor's bit for
 bit.
 
-The constructors' ``flight_recorder=`` and ``watchdog=`` wait for
-``ROADMAP.md``'s flagship item 15 (the obs tier) and raise when given.
+Each actor thread beats an ``act/vector_actor`` heartbeat once a control
+step (unregistered when the thread ends), wraps its policy call in an
+``act/cem_policy`` span, and triggers the flight recorder when it dies.
+``flight_recorder=`` and ``watchdog=`` default to the process singletons;
+the replay loop passes its own.
 """
 
 from __future__ import annotations
@@ -36,17 +39,13 @@ from typing import List
 
 import numpy as np
 
+from tensor2robot_tpu_torch.obs import flight_recorder as flight_lib
+from tensor2robot_tpu_torch.obs import trace as trace_lib
+from tensor2robot_tpu_torch.obs import watchdog as watchdog_lib
 from tensor2robot_tpu_torch.replay.ingest import TransitionQueue
 from tensor2robot_tpu_torch.research.qtopt.synthetic_grasping import (
     VectorGraspEnv,
 )
-
-
-def _refuse_obs_hooks(owner: str, flight_recorder, watchdog) -> None:
-  if flight_recorder is not None or watchdog is not None:
-    raise NotImplementedError(
-        f"{owner}'s flight_recorder= and watchdog= hooks wait for "
-        "ROADMAP.md's flagship item 15 (the obs tier).")
 
 
 class VectorActor:
@@ -60,9 +59,10 @@ class VectorActor:
                exploration_epsilon: float = 0.2,
                scripted_fraction: float = 0.25,
                flight_recorder=None, watchdog=None):
-    _refuse_obs_hooks("VectorActor", flight_recorder, watchdog)
     self._policy = policy
     self._queue = queue
+    self._recorder = flight_recorder or flight_lib.get_recorder()
+    self._watchdog = watchdog or watchdog_lib.get_watchdog()
     # The scalar collectors' exploration mix, draw order and stream.
     self._epsilon = exploration_epsilon
     self._scripted = scripted_fraction
@@ -123,11 +123,19 @@ class VectorActor:
     return seed
 
   def _run(self) -> None:
+    # One beat a control step; unregistered on exit, so a finished actor
+    # never reads as a stalled one.
+    heartbeat = self._watchdog.register("act/vector_actor")
     try:
       while not self._stop.is_set():
         self.step_once()
+        heartbeat.beat()
     except Exception as e:  # noqa: BLE001 — surfaced through stop()
       self.errors.append(e)
+      self._recorder.trigger(
+          "actor_thread_exception", error=f"{type(e).__name__}: {e}")
+    finally:
+      self._watchdog.unregister(heartbeat)
 
   def step_once(self) -> None:
     """One batched control step: act, step, enqueue, fleet-wide.
@@ -140,7 +148,8 @@ class VectorActor:
     n = env.num_envs
     scenes = env.images.copy()
     targets = env.targets.copy()
-    actions = np.asarray(self._policy(scenes))
+    with trace_lib.span("act/cem_policy", envs=n):
+      actions = np.asarray(self._policy(scenes))
     draw = self._explore_rng.random(n)
     uniform = self._explore_rng.uniform(
         -1.0, 1.0, actions.shape).astype(np.float32)
@@ -176,7 +185,6 @@ class ActorFleet:
                scripted_fraction: float = 0.25,
                num_actors: int = 1,
                flight_recorder=None, watchdog=None):
-    _refuse_obs_hooks("ActorFleet", flight_recorder, watchdog)
     if num_actors < 1 or total_envs % num_actors:
       raise ValueError(
           f"total_envs {total_envs} must split evenly over "
@@ -187,7 +195,8 @@ class ActorFleet:
                     max_attempts=max_attempts, seed=seed + i,
                     grasp_radius=grasp_radius,
                     exploration_epsilon=exploration_epsilon,
-                    scripted_fraction=scripted_fraction)
+                    scripted_fraction=scripted_fraction,
+                    flight_recorder=flight_recorder, watchdog=watchdog)
         for i in range(num_actors)
     ]
 

@@ -77,6 +77,7 @@ import numpy as np
 import torch
 
 from tensor2robot_tpu_torch.obs import health as health_lib
+from tensor2robot_tpu_torch.obs import trace as trace_lib
 from tensor2robot_tpu_torch.ops import graph_launches
 from tensor2robot_tpu_torch.replay.bellman import (
     TargetNetwork,
@@ -524,7 +525,9 @@ class AnakinLoop(TargetNetwork):
     slot = self._outer % 2
     self._stage_draws(slot, draws)
     start = time.perf_counter()
-    self._dispatch(train_state, gates)
+    with trace_lib.span("learn/anakin_step", inner=self.inner_steps,
+                        fused="act,step,extend,learn"):
+      self._dispatch(train_state, gates)
     # While the card works: the next dispatch's draws.
     self._fill(1 - slot, self._outer + 1, min(capacity, size + n * k))
     with torch.no_grad():

@@ -58,6 +58,7 @@ import torch
 
 from tensor2robot_tpu_torch import Device, resolve_device
 from tensor2robot_tpu_torch.obs import health as health_lib
+from tensor2robot_tpu_torch.obs import trace as trace_lib
 from tensor2robot_tpu_torch.ops import graph_launches
 from tensor2robot_tpu_torch.replay.bellman import (
     TargetNetwork,
@@ -440,7 +441,8 @@ class DeviceReplayBuffer:
     self._write_chunk_locked(stacked)
 
   def _write_chunk_locked(self, chunk) -> None:
-    with torch.no_grad():
+    with trace_lib.span("extend/device_chunk", chunk=self.ingest_chunk), \
+        torch.no_grad():
       self._fn("device_extend", self.extend_fn)(self._state, chunk)
     self._next = (self._next + self.ingest_chunk) % self.capacity
     self._size = min(self._size + self.ingest_chunk, self.capacity)
@@ -913,8 +915,9 @@ class MegastepLearner(TargetNetwork):
     if self._target_variables is None:
       raise ValueError("call refresh(variables, step=0) before step()")
     slot = self._outer % 2
-    self._stage_draws(slot)
-    vector = self._dispatch(state)
+    with trace_lib.span("learn/megastep", k=self.inner_steps):
+      self._stage_draws(slot)
+      vector = self._dispatch(state)
     k, batch = self.inner_steps, self._buffer.sample_batch_size
     self._outer += 1
     self._label_seed = (self._label_seed + k * batch) % (2 ** 32)

@@ -17,9 +17,10 @@ experience overfits the first few episodes and poisons the priority
 distribution; `ReplayFeeder.ready()` gates the first train step on a
 configured fill.
 
-The JAX queue also counts sheds into the process metric registry and dumps
-the flight recorder on sustained overflow; those hooks wait for
-``ROADMAP.md``'s flagship item 15 (the obs tier), and passing them raises.
+Every shed row is also counted into the metric registry
+(``replay/transition_queue_dropped``), and sustained overflow (every one of
+``overflow_dump_threshold`` consecutive puts shed rows: the consumer is
+wedged, not momentarily slow) is a flight-recorder trigger.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from typing import Deque, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
+from tensor2robot_tpu_torch.obs import flight_recorder as flight_lib
+from tensor2robot_tpu_torch.obs import registry as registry_lib
 from tensor2robot_tpu_torch.replay.ring_buffer import ReplayBuffer
 
 # The loop's canonical transition keys (single-step Bellman form).
@@ -101,13 +104,10 @@ class TransitionQueue:
   spans chunks from both worlds.
   """
 
-  def __init__(self, capacity: int, *, registry=None,
-               flight_recorder=None):
-    if registry is not None or flight_recorder is not None:
-      raise NotImplementedError(
-          "TransitionQueue's registry= and flight_recorder= hooks wait for "
-          "ROADMAP.md's flagship item 15 (the obs tier): the shed count is "
-          "the in-object `dropped` counter until then.")
+  def __init__(self, capacity: int, *,
+               registry: Optional[registry_lib.MetricRegistry] = None,
+               flight_recorder: Optional[flight_lib.FlightRecorder] = None,
+               overflow_dump_threshold: int = 8):
     if capacity < 1:
       raise ValueError(f"capacity must be >= 1, got {capacity}")
     self.capacity = capacity
@@ -117,6 +117,13 @@ class TransitionQueue:
     self.enqueued = 0
     self.dropped = 0
     self.dequeued = 0
+    # The process singletons unless the owner passes its own.
+    self._registry = registry or registry_lib.get_registry()
+    self._dropped_counter = self._registry.counter(
+        "replay/transition_queue_dropped")
+    self._recorder = flight_recorder or flight_lib.get_recorder()
+    self._overflow_dump_threshold = overflow_dump_threshold
+    self._overflow_streak = 0
 
   def put_episode(self, episode: Mapping[str, np.ndarray],
                   provenance: str = "synthetic") -> int:
@@ -163,6 +170,7 @@ class TransitionQueue:
     n = sizes.pop()
     if n == 0:
       return 0
+    shed = 0
     with self._lock:
       self.enqueued += n
       if n >= self.capacity:
@@ -180,7 +188,25 @@ class TransitionQueue:
           self.dropped += shed
         self._items.append((chunk, provenance))
         self._rows += n
+    # Outside the lock: the sustained-overflow trigger writes a file, and
+    # producers must never wait behind a dump.
+    self._note_shedding(shed)
     return n
+
+  def _note_shedding(self, shed: int) -> None:
+    if shed <= 0:
+      self._overflow_streak = 0
+      return
+    self._dropped_counter.inc(shed)
+    self._overflow_streak += 1
+    if self._overflow_streak >= self._overflow_dump_threshold:
+      self._recorder.trigger(
+          "transition_queue_sustained_overflow",
+          consecutive_overflow_puts=self._overflow_streak,
+          dropped_total=self.dropped,
+          pending=self._rows,
+          capacity=self.capacity)
+      self._overflow_streak = 0
 
   def _pop_rows_locked(self, limit: int):
     """Pops up to `limit` rows of chunks off the head (sliced when the

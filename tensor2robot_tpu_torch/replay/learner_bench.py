@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from tensor2robot_tpu_torch import Device, resolve_device
+from tensor2robot_tpu_torch.obs import trace as trace_lib
 from tensor2robot_tpu_torch.replay.bellman import BellmanUpdater
 from tensor2robot_tpu_torch.replay.ingest import ReplayFeeder, TransitionQueue
 from tensor2robot_tpu_torch.replay.loop import (
@@ -150,8 +151,9 @@ def host_learner_step(trainer: Trainer, updater: BellmanUpdater, buffer,
         "image": torch.from_numpy(np.asarray(batch["image"])).to(device),
         "action": torch.from_numpy(np.asarray(batch["action"])).to(device)}
     labels = {"target_q": torch.from_numpy(targets).to(device)}
-    state, metrics = trainer.train_step(state, features, labels,
-                                        with_health=with_health)
+    with trace_lib.span("learn/train_step"):
+      state, metrics = trainer.train_step(state, features, labels,
+                                          with_health=with_health)
   with clock("td"):
     td = updater.td_errors(state.variables(use_ema=True), batch, targets)
   with clock("priority_write"):

@@ -23,13 +23,26 @@ a snapshot of the EMA variables:
   learner (``device_buffer.MegastepLearner``: K steps a dispatch as CUDA
   graphs on the card), or, with ``anakin``, the fused loop
   (``anakin.AnakinLoop``: the env, acting, the extend and the learner all
-  on the card, no collector threads), and returns the JAX result's keys,
-  less the obs tier's ``obs`` block.
+  on the card, no collector threads), and returns the JAX result's keys;
+  its ``obs`` block carries the spans' ``trace_stage_counts`` (the JAX
+  block's executable attribution waits for item 15's ledger).
   With ``vector_actors`` one ``actor.VectorActor`` steps every env through
   one bucket pinned to the fleet; with ``checkpoint_every`` it saves the
   train state with a sidecar (target net, ring, counters, eval history,
   health baselines) and with ``resume`` continues from the newest valid
   one at its exact step; ``profile_window`` traces a range of steps.
+
+**The obs spine.** Each loop owns a flight recorder dumping into its
+logdir (attached to the process tracer for the run) and takes the process
+metric registry and watchdog unless given its own: the learner and feeder
+beat heartbeats (``replay/learner``, ``replay/feeder``), each collector
+beats ``act/collector``, metric records go through registry gauges and the
+one ``flush_to`` bridge (the JSONL records keep their schema), and the
+stages open spans (``act/cem_policy``, ``extend/drain``,
+``learn/train_step``, ``learn/megastep``, ``learn/anakin_step``,
+``replay/eval``, ``replay/checkpoint``, ``replay/fused_checkpoint``) that
+show as ``record_function`` ranges in a ``profile_window``'s trace. A
+thread's or the loop's exception is a flight-recorder trigger.
 
 **Threads and the card.** The collectors and the learner share one
 device and its default stream, so work is ordered as it is submitted:
@@ -39,9 +52,7 @@ copy-out. The collectors' bucket is captured before their threads start,
 so no capture ever runs beside another thread's launches.
 
 Not ported, and named where asked for: the mesh and the checkpoints'
-mesh stamp (item 15), and
-the metric registry, trace spans, flight recorder, watchdog and fault
-seam (the obs tier, item 15).
+mesh stamp, and the fault seam (``fault_plan=``; all item 15).
 """
 
 from __future__ import annotations
@@ -58,9 +69,14 @@ import numpy as np
 import torch
 
 from tensor2robot_tpu_torch import Device, modes
+from tensor2robot_tpu_torch.obs import flight_recorder as flight_lib
 from tensor2robot_tpu_torch.obs import health as health_lib
+from tensor2robot_tpu_torch.obs import registry as registry_lib
+from tensor2robot_tpu_torch.obs import trace as trace_lib
+from tensor2robot_tpu_torch.obs import watchdog as watchdog_lib
 from tensor2robot_tpu_torch.predictors.abstract_predictor import (
     AbstractPredictor,
+    checked_swap,
 )
 from tensor2robot_tpu_torch.replay.bellman import BellmanUpdater
 from tensor2robot_tpu_torch.replay.ingest import ReplayFeeder, TransitionQueue
@@ -103,7 +119,10 @@ class CollectorWorker:
   (``policy(images) -> (num_envs, A)``); an env that finishes its episode
   flushes it to the queue and resets at once, keeping the batch shape
   constant. ``step_once`` steps the fleet on the caller's thread;
-  ``start`` runs it on a thread of its own until ``stop``.
+  ``start`` runs it on a thread of its own until ``stop``, beating an
+  ``act/collector`` heartbeat once a control step; its death triggers the
+  flight recorder. ``flight_recorder=`` and ``watchdog=`` default to the
+  process singletons; the replay loop passes its own.
   """
 
   def __init__(self, policy, queue: TransitionQueue, image_size: int,
@@ -112,12 +131,10 @@ class CollectorWorker:
                exploration_epsilon: float = 0.2,
                scripted_fraction: float = 0.25,
                flight_recorder=None, watchdog=None):
-    if flight_recorder is not None or watchdog is not None:
-      raise NotImplementedError(
-          "CollectorWorker's flight_recorder= and watchdog= hooks wait for "
-          "ROADMAP.md's flagship item 15 (the obs tier).")
     self._policy = policy
     self._queue = queue
+    self._recorder = flight_recorder or flight_lib.get_recorder()
+    self._watchdog = watchdog or watchdog_lib.get_watchdog()
     # Exploration mix, QT-Opt parity: the logs are seeded by SCRIPTED
     # grasps plus noisy on-policy actions. A cold random Q cannot be the
     # only success source: with rare positives the critic fits the base
@@ -176,16 +193,25 @@ class CollectorWorker:
     return seed
 
   def _run(self) -> None:
+    # One beat a control step; unregistered on exit, so a stopped
+    # collector never reads as stalled.
+    heartbeat = self._watchdog.register("act/collector")
     try:
       while not self._stop.is_set():
         self.step_once()
+        heartbeat.beat()
     except Exception as e:  # noqa: BLE001 — surfaced through stop()
       self.errors.append(e)
+      self._recorder.trigger("collector_thread_exception",
+                             error=f"{type(e).__name__}: {e}")
+    finally:
+      self._watchdog.unregister(heartbeat)
 
   def step_once(self) -> None:
     """One lockstep control step across the whole env fleet."""
     images = [env.image for env in self._envs]
-    actions = np.asarray(self._policy(images))
+    with trace_lib.span("act/cem_policy", envs=len(self._envs)):
+      actions = np.asarray(self._policy(images))
     draw = self._explore_rng.random(len(self._envs))
     uniform = self._explore_rng.uniform(
         -1.0, 1.0, actions.shape).astype(np.float32)
@@ -393,15 +419,11 @@ class _HotReloadPredictor(AbstractPredictor):
   def set_variables(self, variables, version: Optional[int] = None,
                     cast: bool = False) -> None:
     """``update()`` carrying the candidate's export version, so
-    ``model_version`` names the promoted learner step. ``cast=True``,
-    the JAX predictors' seam for variables already cast on disk, waits
-    for ROADMAP.md's flagship item 13 and raises."""
-    if cast:
-      raise NotImplementedError(
-          "set_variables(cast=True) installs variables cast on disk onto "
-          "the served dtypes, which waits for ROADMAP.md's flagship item "
-          "13 (the predictors' set_variables).")
-    self._served = (self._place(variables),
+    ``model_version`` names the promoted learner step, through the
+    predictors' guard (``checked_swap``): the served keys, shapes and
+    dtypes, a floating dtype drift cast onto the served dtypes only with
+    ``cast=True``."""
+    self._served = (checked_swap(self._served[0], variables, cast),
                     self._served[1] + 1 if version is None else int(version))
 
   def restore(self, timeout_s: float = 0.0,
@@ -440,28 +462,38 @@ class ReplayTrainLoop:
       ``config.image_size`` / ``action_size``). Default: the flagship
       QTOptGraspingModel on the uint8 wire, the production loop. The smoke
       passes ``replay/smoke.TinyQCriticModel``.
-    flight_recorder / watchdog / fault_plan: the JAX loop's obs hooks;
-      they wait for ``ROADMAP.md``'s flagship item 15 and raise when
-      given.
+    flight_recorder: the loop's recorder (default: one of its own,
+      dumping into `logdir`).
+    watchdog: where the loop's threads beat (default: the process
+      watchdog, whose monitor runs only once its owner starts it).
+    fault_plan: the fault seam; it waits for ``ROADMAP.md``'s flagship
+      item 15 and raises when given.
     device: where the learner and the policy run; the GPU unless 'cpu'
       is asked for.
   """
 
   def __init__(self, config: ReplayLoopConfig, logdir: str, model=None,
-               flight_recorder=None, watchdog=None, fault_plan=None,
-               device: Device = None):
-    if (flight_recorder is not None or watchdog is not None
-        or fault_plan is not None):
+               flight_recorder: Optional[flight_lib.FlightRecorder] = None,
+               watchdog: Optional[watchdog_lib.Watchdog] = None,
+               fault_plan=None, device: Device = None):
+    if fault_plan is not None:
       raise NotImplementedError(
-          "ReplayTrainLoop(flight_recorder=, watchdog=, fault_plan=) wait "
-          "for ROADMAP.md's flagship item 15 (the obs tier).")
+          "ReplayTrainLoop(fault_plan=) injects faults through "
+          "obs/faults.py, which waits for ROADMAP.md's flagship item 15 "
+          "(the obs tier).")
     self.config = config
     self.logdir = logdir
     self.model = model if model is not None else self._default_model()
+    self.registry = registry_lib.get_registry()
+    self.recorder = flight_recorder or flight_lib.FlightRecorder(
+        dump_dir=logdir)
+    self.watchdog = watchdog or watchdog_lib.get_watchdog()
+    self._learner_hb = self._feeder_hb = None
     self.health_monitor = None
     if config.health:
       self.health_monitor = health_lib.HealthMonitor(
           rules=health_lib.default_rules(capacity=config.capacity),
+          registry=self.registry, recorder=self.recorder,
           halt_on_breach=config.health_halt)
     self.trainer = Trainer(self.model, seed=config.seed, device=device)
     self.writer = MetricWriter(logdir)
@@ -497,7 +529,9 @@ class ReplayTrainLoop:
       self.buffer = ReplayBuffer(
           spec, config.capacity, config.batch_size, seed=config.seed,
           prioritized=config.prioritized)
-    self.queue = TransitionQueue(config.queue_capacity)
+    self.queue = TransitionQueue(config.queue_capacity,
+                                 registry=self.registry,
+                                 flight_recorder=self.recorder)
     self.feeder = ReplayFeeder(self.queue, self.buffer, config.min_fill)
     # name -> builds of the loop's own programs; each stays 1.
     self.compile_counts: Dict[str, int] = {}
@@ -585,7 +619,8 @@ class ReplayTrainLoop:
           total_envs=self._acting_batch(), max_attempts=c.max_attempts,
           seed=c.seed, grasp_radius=c.grasp_radius,
           exploration_epsilon=c.exploration_epsilon,
-          scripted_fraction=c.scripted_fraction)
+          scripted_fraction=c.scripted_fraction,
+          flight_recorder=self.recorder, watchdog=self.watchdog)
       self._collectors = fleet.actors
       fleet.start()
       return
@@ -595,7 +630,9 @@ class ReplayTrainLoop:
                         max_attempts=c.max_attempts,
                         seed=c.seed + i, grasp_radius=c.grasp_radius,
                         exploration_epsilon=c.exploration_epsilon,
-                        scripted_fraction=c.scripted_fraction)
+                        scripted_fraction=c.scripted_fraction,
+                        flight_recorder=self.recorder,
+                        watchdog=self.watchdog)
         for i in range(c.num_collectors)
     ]
     for collector in self._collectors:
@@ -641,9 +678,11 @@ class ReplayTrainLoop:
     return ledger
 
   def _emit(self, step: int, scalars: Dict[str, float]) -> None:
-    """One metric record (the JAX loop's keys, straight to the writer;
-    the registry bridge waits for item 15)."""
-    self.writer.write_scalars(step, scalars)
+    """One metric record through the registry: the block's gauges are
+    set, then the bridge flushes exactly that block, so the JSONL records
+    keep the JAX loop's keys while the registry holds the same series."""
+    self.registry.set_gauges(scalars)
+    self.registry.flush_to(self.writer, step, names=scalars.keys())
 
   def _profile_hook(self) -> Optional[ProfilerHook]:
     """The ``profile_window`` capture: ProfilerHook's window over the
@@ -683,6 +722,7 @@ class ReplayTrainLoop:
 
     def ready():
       self.feeder.drain()
+      self._feeder_hb.beat()
       for collector in self._collectors:
         if collector.errors:
           raise RuntimeError("collector died during warm-up") from (
@@ -703,13 +743,16 @@ class ReplayTrainLoop:
 
   def _assemble_result(self, steps: int, initial_eval, eval_history,
                        ledger, param_refreshes: int, **extra) -> Dict:
-    """The JAX loop's result schema, less the obs tier's ``obs``; both
-    paths share it."""
+    """The JAX loop's result schema, every path's; its ``obs`` block
+    carries the spans' stage counts (the JAX block's executable
+    attribution waits for item 15's ledger)."""
     final_eval = eval_history[-1]
     reduction = 1.0 - (final_eval["eval_td_error"]
                        / max(initial_eval["eval_td_error"], 1e-9))
     episodes = sum(c_.episodes for c_ in self._collectors)
     return {
+        "obs": {"trace_stage_counts":
+                    trace_lib.get_tracer().stage_counts()},
         "health": (self.health_monitor.snapshot()
                    if self.health_monitor is not None else None),
         "steps": steps,
@@ -764,30 +807,34 @@ class ReplayTrainLoop:
     step (the state has not moved since): its state stays, and the sidecar
     is written again with the eval history as it stands now. A step left
     by an earlier run past the point this one resumed from is replaced."""
-    if step != self._saved_step:
-      stale = os.path.join(self.checkpoint_root, str(step))
-      if os.path.isdir(stale):
-        shutil.rmtree(stale)
-      self._ckpt_manager.save(step, state)
-      self._saved_step = step
-    meta = {
-        "fingerprint": self._checkpoint_fingerprint(),
-        "path": self._path(),
-        **path_meta,
-        "queue_counters": {key: value
-                           for key, value in self.queue.stats().items()
-                           if key != "pending"},
-        "initial_eval": initial_eval,
-        "eval_history": eval_history,
-    }
-    # The drift baselines ride the sidecar: without them a resumed loop
-    # would re-warm its EWMA state, blind to drift right after a restart.
-    if self.health_monitor is not None:
-      meta["health"] = self.health_monitor.state_dict()
-    checkpoints_lib.save_sidecar(self.checkpoint_root, step, trees=trees,
-                                 flats=flats, meta=meta)
-    checkpoints_lib.prune_sidecars(self.checkpoint_root,
-                                   self._ckpt_manager.all_steps())
+    fused = {} if self._path() == "host" else {"fused": True}
+    with trace_lib.span("replay/fused_checkpoint" if fused
+                        else "replay/checkpoint", step=step):
+      if step != self._saved_step:
+        stale = os.path.join(self.checkpoint_root, str(step))
+        if os.path.isdir(stale):
+          shutil.rmtree(stale)
+        self._ckpt_manager.save(step, state)
+        self._saved_step = step
+      meta = {
+          "fingerprint": self._checkpoint_fingerprint(),
+          "path": self._path(),
+          **path_meta,
+          "queue_counters": {key: value
+                             for key, value in self.queue.stats().items()
+                             if key != "pending"},
+          "initial_eval": initial_eval,
+          "eval_history": eval_history,
+      }
+      # The drift baselines ride the sidecar: without them a resumed loop
+      # would re-warm its EWMA state, blind to drift right after a restart.
+      if self.health_monitor is not None:
+        meta["health"] = self.health_monitor.state_dict()
+      checkpoints_lib.save_sidecar(self.checkpoint_root, step, trees=trees,
+                                   flats=flats, meta=meta)
+      checkpoints_lib.prune_sidecars(self.checkpoint_root,
+                                     self._ckpt_manager.all_steps())
+    self.recorder.record("event", "loop_checkpoint", step=step, **fused)
 
   def _read_checkpoint(self, state):
     """Restores the newest valid checkpoint of this loop's path into
@@ -795,7 +842,8 @@ class ReplayTrainLoop:
     step, trees, flats, meta) for the path to restore what it carries, or
     None when none is valid (then the loop starts fresh). Newer steps it
     rejects are logged by ``latest_resumable_step``."""
-    step = checkpoints_lib.latest_resumable_step(self.checkpoint_root)
+    step = checkpoints_lib.latest_resumable_step(self.checkpoint_root,
+                                                 recorder=self.recorder)
     if step is None:
       return None
     trees, flats, meta = checkpoints_lib.load_sidecar(
@@ -825,6 +873,8 @@ class ReplayTrainLoop:
       self.queue.restore_counters(**counters)
     _log.info("replay loop resumed at step %d from %s", step,
               self.checkpoint_root)
+    self.recorder.record("event", "loop_resumed", step=int(step),
+                         **({} if self._path() == "host" else {"fused": True}))
     return state, int(step), trees, flats, meta
 
   def _save_checkpoint(self, step: int, state, updater,
@@ -889,12 +939,31 @@ class ReplayTrainLoop:
   # --- the loop ------------------------------------------------------------
 
   def run(self, num_steps: int) -> Dict:
-    """Runs the closed loop for `num_steps` optimizer steps."""
-    if self.config.anakin:
-      return self._run_anakin(num_steps)
-    if self.config.device_resident:
-      return self._run_device_resident(num_steps)
-    return self._run_host(num_steps)
+    """Runs the closed loop for `num_steps` optimizer steps.
+
+    For the run, the loop's recorder rides the process tracer, and the
+    learner and the feeder beat heartbeats (once an optimizer step on the
+    host path, once a dispatch on the fused paths); all are taken off on
+    the way out, so a finished loop never reads as stalled. An exception
+    triggers the recorder, then propagates."""
+    tracer = trace_lib.get_tracer()
+    self.recorder.attach(tracer)
+    self._learner_hb = self.watchdog.register("replay/learner")
+    self._feeder_hb = self.watchdog.register("replay/feeder")
+    try:
+      if self.config.anakin:
+        return self._run_anakin(num_steps)
+      if self.config.device_resident:
+        return self._run_device_resident(num_steps)
+      return self._run_host(num_steps)
+    except Exception as e:
+      self.recorder.trigger("replay_loop_exception",
+                            error=f"{type(e).__name__}: {e}")
+      raise
+    finally:
+      self.watchdog.unregister(self._learner_hb)
+      self.watchdog.unregister(self._feeder_hb)
+      self.recorder.detach(tracer)
 
   def _run_host(self, num_steps: int) -> Dict:
     """Threaded collectors and the learner's host step."""
@@ -947,10 +1016,13 @@ class ReplayTrainLoop:
           updater, state, eval_batches, eval_q_stars, resume_meta)
       with_health = self.health_monitor is not None
       for step in range(start_step + 1, num_steps + 1):
-        self.feeder.drain()
+        with trace_lib.span("extend/drain"):
+          self.feeder.drain()
+        self._feeder_hb.beat()
         state, metrics, td, targets, q_next, info = host_learner_step(
             self.trainer, updater, self.buffer, state,
             with_health=with_health)
+        self._learner_hb.beat()
         if step == start_step + 1:
           self._built("train_step")
         self._profile_step(profile_hook, step)
@@ -1000,8 +1072,9 @@ class ReplayTrainLoop:
             # Its own record: the replay/ records keep their schema.
             self._emit(step, dict(self.health_monitor.last_summary))
         if step % c.eval_every == 0 or step == num_steps:
-          evals = self._eval(updater, state.variables(use_ema=True),
-                             eval_batches, eval_q_stars)
+          with trace_lib.span("replay/eval"):
+            evals = self._eval(updater, state.variables(use_ema=True),
+                               eval_batches, eval_q_stars)
           eval_history.append(dict(step=step, **evals))
           self._emit(step, {"replay/" + k: v for k, v in evals.items()})
         if checkpointing and step % c.checkpoint_every == 0:
@@ -1083,8 +1156,11 @@ class ReplayTrainLoop:
           updater, state, eval_batches, eval_q_stars, resume_meta)
       prev_step = resume_step
       for outer in range(resume_step // k + 1, num_outer + 1):
-        self.feeder.drain()
+        with trace_lib.span("extend/drain"):
+          self.feeder.drain()
+        self._feeder_hb.beat()
         state, metrics = learner.step(state)
+        self._learner_hb.beat()
         step = outer * k
         self._profile_step(profile_hook, step)
         if self.health_monitor is not None:
@@ -1115,8 +1191,9 @@ class ReplayTrainLoop:
           if self.health_monitor is not None:
             self._emit(step, dict(self.health_monitor.last_summary))
         if crossed(c.eval_every) or outer == num_outer:
-          evals = self._eval(updater, state.variables(use_ema=True),
-                             eval_batches, eval_q_stars)
+          with trace_lib.span("replay/eval"):
+            evals = self._eval(updater, state.variables(use_ema=True),
+                               eval_batches, eval_q_stars)
           eval_history.append(dict(step=step, **evals))
           self._emit(step, {"replay/" + k_: v for k_, v in evals.items()})
         if checkpointing and crossed(c.checkpoint_every):
@@ -1212,6 +1289,7 @@ class ReplayTrainLoop:
               f"after {dispatches} dispatches (min_fill={c.min_fill}, "
               f"buffer size={self.buffer.size})")
         state, metrics = loop.step(state)
+        self._learner_hb.beat()
         dispatches += 1
         step = loop.trained_steps
         self._profile_step(profile_hook, step)
@@ -1241,8 +1319,9 @@ class ReplayTrainLoop:
           if self.health_monitor is not None:
             self._emit(step, dict(self.health_monitor.last_summary))
         if crossed(c.eval_every) or done:
-          evals = self._eval(updater, state.variables(use_ema=True),
-                             eval_batches, eval_q_stars)
+          with trace_lib.span("replay/eval"):
+            evals = self._eval(updater, state.variables(use_ema=True),
+                               eval_batches, eval_q_stars)
           eval_history.append(dict(step=step, **evals))
           self._emit(step, {"replay/" + k_: v for k_, v in evals.items()})
         if checkpointing and crossed(c.checkpoint_every):

@@ -9,7 +9,10 @@ and returns False, so the capture path that lost the race skips its window
 instead of stopping the program. The profiler records CPU activity always
 and CUDA activity when the device is CUDA; ``stop_trace`` writes the
 window as one Chrome trace (``trace-<pid>-<n>.json``) into its
-``log_dir``, viewable in Perfetto or ``chrome://tracing``.
+``log_dir``, viewable in Perfetto or ``chrome://tracing``. While a window
+is open, every ``obs.trace`` span also opens a
+``torch.profiler.record_function`` range of its name, so the loop's spans
+show in the trace beside the card's kernels.
 
 A CUDA window needs CUPTI. Where PyTorch cannot trace the card,
 ``start_trace`` raises rather than record a CPU-only trace, and
@@ -34,6 +37,7 @@ from typing import Optional
 import torch
 
 from tensor2robot_tpu_torch import Device, resolve_device
+from tensor2robot_tpu_torch.obs import trace as obs_trace
 
 _log = logging.getLogger(__name__)
 
@@ -52,6 +56,16 @@ def trace_active() -> bool:
   """True while a guarded trace window is open."""
   with _TRACE_LOCK:
     return _TRACE_DIR is not None
+
+
+def _all_threads_config():
+  """The profiler option that records every thread's ops, so the spans of
+  collector and actor threads show too (by default PyTorch's profiler
+  records the thread that started it); None on a PyTorch without it."""
+  try:
+    return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+  except TypeError:
+    return None
 
 
 def start_trace(log_dir: str, device: Device = None) -> bool:
@@ -78,9 +92,13 @@ def start_trace(log_dir: str, device: Device = None) -> bool:
           "start_trace into %s", _TRACE_DIR, log_dir)
       return False
     os.makedirs(log_dir, exist_ok=True)
-    profiler = torch.profiler.profile(activities=activities)
+    profiler = torch.profiler.profile(
+        activities=activities, experimental_config=_all_threads_config())
     profiler.start()
     _TRACE_DIR, _PROFILER, _CUDA = log_dir, profiler, cuda
+    # Inside the lock: the spans' record_function flag never disagrees
+    # with the window's state under a racing start and stop.
+    obs_trace.set_device_annotations(True)
   return True
 
 
@@ -101,6 +119,7 @@ def stop_trace() -> Optional[str]:
       return None
     log_dir, profiler, cuda = _TRACE_DIR, _PROFILER, _CUDA
     _TRACE_DIR = _PROFILER = None
+    obs_trace.set_device_annotations(False)
     profiler.stop()
     _WINDOWS += 1
     path = os.path.join(log_dir,

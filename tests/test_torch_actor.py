@@ -32,7 +32,12 @@ except ImportError:
   jax = None
 
 from tensor2robot_tpu_torch.bin import run_qtopt_replay  # noqa: E402
+from tensor2robot_tpu_torch.obs.flight_recorder import (  # noqa: E402
+    FlightRecorder,
+)
+from tensor2robot_tpu_torch.obs.watchdog import Watchdog  # noqa: E402
 from tensor2robot_tpu_torch.replay import actor, ingest, loop  # noqa: E402
+from tensor2robot_tpu_torch.replay import learner_bench  # noqa: E402
 from tensor2robot_tpu_torch.replay import smoke  # noqa: E402
 from tensor2robot_tpu_torch.serving import BucketLadder  # noqa: E402
 from tensor2robot_tpu_torch.serving import CEMFleetPolicy  # noqa: E402
@@ -163,14 +168,43 @@ class TestVectorActor:
 
   @pytest.mark.parametrize("owner", ["VectorActor", "ActorFleet"])
   @pytest.mark.parametrize("hook", ["flight_recorder", "watchdog"])
-  def test_obs_hooks_refuse_by_name(self, owner, hook):
-    with pytest.raises(NotImplementedError, match="item 15"):
-      if owner == "VectorActor":
-        actor.VectorActor(None, ingest.TransitionQueue(4), IMG,
-                          **{hook: object()})
-      else:
-        actor.ActorFleet(None, ingest.TransitionQueue(4), IMG, total_envs=4,
-                         **{hook: object()})
+  def test_obs_hooks_refuse_by_name(self, owner, hook, tmp_path):
+    """The actors' obs hooks (they refused until the obs spine was
+    ported), passed through the fleet to its actors: a live actor beats
+    an act/vector_actor heartbeat, unregistered when it stops; a dying
+    one dumps the recorder."""
+    def broken(images):
+      raise ValueError("policy broke")
+
+    watchdog = Watchdog()
+    recorder = FlightRecorder(dump_dir=str(tmp_path))
+    hooks = {"flight_recorder": recorder, "watchdog": watchdog}
+    policy = learner_bench.uniform_policy(4, 0) if hook == "watchdog" \
+        else broken
+    if owner == "VectorActor":
+      worker = actor.VectorActor(policy, ingest.TransitionQueue(10_000),
+                                 IMG, num_envs=4, **{hook: hooks[hook]})
+    else:
+      worker = actor.ActorFleet(policy, ingest.TransitionQueue(10_000), IMG,
+                                total_envs=4, **{hook: hooks[hook]})
+    worker.start()
+    if hook == "watchdog":
+      deadline = time.monotonic() + 60
+      while (not watchdog.snapshot()["components"].get(
+          "act/vector_actor", {}).get("beats")) and time.monotonic() < deadline:
+        time.sleep(0.01)
+      assert watchdog.snapshot()["components"]["act/vector_actor"][
+          "beats"] > 0
+      worker.stop()
+      assert watchdog.snapshot()["components"] == {}
+      return
+    with pytest.raises(RuntimeError, match="actor"):
+      worker.stop()
+    (dump,) = os.listdir(tmp_path)
+    with open(tmp_path / dump) as f:
+      payload = json.load(f)
+    assert payload["reason"] == "actor_thread_exception"
+    assert payload["trigger"]["error"] == "ValueError: policy broke"
 
   def test_one_bucket_across_three_hot_reloads(self):
     model = smoke.TinyQCriticModel(image_size=IMG)

@@ -41,6 +41,12 @@ except ImportError:
 
 from tensor2robot_tpu_torch.bin import run_qtopt_replay  # noqa: E402
 from tensor2robot_tpu_torch.obs import health  # noqa: E402
+from tensor2robot_tpu_torch.obs.context import bind  # noqa: E402
+from tensor2robot_tpu_torch.obs.flight_recorder import (  # noqa: E402
+    FlightRecorder,
+)
+from tensor2robot_tpu_torch.obs.registry import MetricRegistry  # noqa: E402
+from tensor2robot_tpu_torch.obs.watchdog import Watchdog  # noqa: E402
 from tensor2robot_tpu_torch.replay import ingest, loop  # noqa: E402
 from tensor2robot_tpu_torch.replay import ring_buffer, smoke  # noqa: E402
 from tensor2robot_tpu_torch.train.trainer import Trainer  # noqa: E402
@@ -157,11 +163,30 @@ class TestHealthMonitor:
         2, summary, snapshot_fn=lambda: 1 / 0)[0]["rule"] == (
             "nonfinite_targets")
 
-  def test_refusals_and_validation(self):
-    with pytest.raises(NotImplementedError, match="item 15"):
-      health.HealthMonitor(registry=object())
-    with pytest.raises(NotImplementedError, match="item 15"):
-      health.HealthMonitor(recorder=object())
+  def test_refusals_and_validation(self, tmp_path):
+    # The registry and recorder hooks (they refused until the obs spine
+    # was ported): a breach counts into health/breaches and
+    # health/breaches/<rule> and dumps a health_breach carrying the bound
+    # step id; the loop's summary gauges of the same names still set.
+    registry = MetricRegistry()
+    recorder = FlightRecorder(dump_dir=str(tmp_path))
+    monitor = health.HealthMonitor(registry=registry, recorder=recorder)
+    summary = dict(_scripted_stream()[0][1], **{
+        "health/nonfinite_targets": 2.0})
+    with bind(step_id=7):
+      (breach,) = monitor.observe(7, summary)
+    assert registry.snapshot() == {
+        "health/breaches": 1, "health/breaches/nonfinite_targets": 1}
+    registry.set_gauges(monitor.last_summary)
+    assert registry.snapshot()["health/nonfinite_targets"] == 2.0
+    (dump,) = os.listdir(tmp_path)
+    with open(tmp_path / dump) as f:
+      payload = json.load(f)
+    assert payload["reason"] == "health_breach"
+    assert payload["trigger"] == {
+        "rule": "nonfinite_targets", "metric": "health/nonfinite_targets",
+        "value": 2.0, "step": 7, "threshold": breach["threshold"],
+        "step_id": 7}
     with pytest.raises(ValueError, match="unknown rule kind"):
       health.HealthRule("r", "m", kind="median")
     with pytest.raises(ValueError, match="duplicate rule names"):
@@ -342,7 +367,12 @@ class TestClosedLoopSmoke:
     evals = {"eval_td_error": 1.0, "eval_q_loss": 1.0}
     want = set(jax_loop.ReplayTrainLoop._assemble_result(
         fake, 1, evals, [dict(step=1, **evals)], {}, 0))
-    assert set(results) == want - {"obs"} | {"mode", "metric"}
+    # Since the obs spine was ported the result carries the JAX "obs"
+    # block's trace_stage_counts; its attribution waits for the ledger.
+    assert set(results) == want | {"mode", "metric"}
+    assert set(results["obs"]) == {"trace_stage_counts"}
+    assert {"act", "extend", "learn", "replay"} <= set(
+        results["obs"]["trace_stage_counts"])
     json.dumps(results)
 
 
@@ -406,8 +436,22 @@ class TestLoopPieces:
         c._thread.is_alive() for c in replay._collectors)
 
   def test_loop_hooks_refuse_by_name(self, tmp_path):
-    for hook in ("flight_recorder", "watchdog", "fault_plan"):
-      with pytest.raises(NotImplementedError, match="item 15"):
-        loop.ReplayTrainLoop(loop.ReplayLoopConfig(), str(tmp_path),
-                             **{hook: object()})
+    # fault_plan waits for item 15; the recorder and the watchdog reach
+    # the loop's queue, health monitor and threads (their effects are
+    # held by the obs tests' loop run).
+    with pytest.raises(NotImplementedError, match="item 15"):
+      loop.ReplayTrainLoop(loop.ReplayLoopConfig(), str(tmp_path),
+                           model=smoke.TinyQCriticModel(), device="cpu",
+                           fault_plan=object())
+    recorder, watchdog = FlightRecorder(), Watchdog()
+    replay = loop.ReplayTrainLoop(
+        loop.ReplayLoopConfig(), str(tmp_path), model=smoke.TinyQCriticModel(),
+        device="cpu", flight_recorder=recorder, watchdog=watchdog)
+    assert replay.recorder is recorder and replay.watchdog is watchdog
+    assert replay.queue._recorder is recorder
+    assert replay.health_monitor._recorder is recorder
+    assert loop.ReplayTrainLoop(
+        loop.ReplayLoopConfig(), str(tmp_path / "own"),
+        model=smoke.TinyQCriticModel(),
+        device="cpu").recorder.dump_dir == str(tmp_path / "own")
     assert loop.ReplayLoopConfig(health_halt=True).health_halt

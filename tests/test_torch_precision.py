@@ -622,12 +622,47 @@ class TestBenches:
       (precision_bench._measure_rollout, "item 9"),
       (tpquant_bench._measure_tp_ladder, "item 15"),
       (tpquant_bench._measure_rollout_int8, "item 9"),
-      (lambda: _policy("f32")[1].set_variables({}, cast=True), "item 13"),
+      (None, None),
   ], ids=["tier_ledger", "rollout", "tp_ladder", "int8_rollout",
           "cast_seam"])
   def test_refusals_that_stay(self, call, item):
+    if call is None:
+      self._cast_seam_installs_at_the_live_dtype()
+      return
     with pytest.raises(NotImplementedError, match=item):
       call()
+
+  @staticmethod
+  def _cast_seam_installs_at_the_live_dtype():
+    """The hot-reload predictor's cast seam (it refused until the
+    predictors' set_variables was ported): a bf16 candidate without
+    cast=True raises ValueError; with it, its values land at the served
+    float32 dtype and the policy serves them with no rebuild."""
+    model, predictor, policy = _policy("f32")
+    images = list(np.random.default_rng(9).integers(
+        0, 256, (4, 16, 16, 3), np.uint8))
+    seeds = np.arange(4, dtype=np.uint32)
+    policy(images, seeds)
+    fresh = model.init_variables(torch.Generator().manual_seed(5),
+                                 device="cpu")
+    drifted = {k: v.bfloat16() if v.is_floating_point() else v
+               for k, v in fresh.items()}
+    with pytest.raises(ValueError, match="cast=True"):
+      predictor.set_variables(drifted)
+    with pytest.raises(ValueError, match="keys"):
+      predictor.set_variables({}, cast=True)
+    predictor.set_variables(drifted, version=9, cast=True)
+    served = predictor.device_fn()[1]
+    assert predictor.model_version == 9
+    for key, value in served.items():
+      assert value.dtype == fresh[key].dtype
+      assert torch.equal(value, drifted[key].to(fresh[key].dtype))
+    ledger = dict(policy.compile_counts)
+    predictor.update(served)  # the same values through update()
+    want = policy(images, seeds)
+    predictor.set_variables(drifted, cast=True)
+    np.testing.assert_array_equal(policy(images, seeds), want)
+    assert policy.compile_counts == ledger
 
 
 @pytest.fixture

@@ -14,6 +14,8 @@ retry env's Q* down 30%) holds at seed 0 on the CPU.
 """
 
 import dataclasses
+import json
+import os
 import threading
 import time
 import types
@@ -44,6 +46,11 @@ except ImportError:
   jax = None
 
 from tensor2robot_tpu_torch import bridge  # noqa: E402
+from tensor2robot_tpu_torch.obs.flight_recorder import (  # noqa: E402
+    FlightRecorder,
+)
+from tensor2robot_tpu_torch.obs.registry import MetricRegistry  # noqa: E402
+from tensor2robot_tpu_torch.obs.watchdog import Watchdog  # noqa: E402
 from tensor2robot_tpu_torch.replay import (  # noqa: E402
     bellman,
     ingest,
@@ -551,9 +558,32 @@ class TestIngest:
                           _buffer(capacity=4, batch=4), min_fill=5)
 
   @pytest.mark.parametrize("hook", ["registry", "flight_recorder"])
-  def test_obs_hooks_refuse_by_name(self, hook):
-    with pytest.raises(NotImplementedError, match="item 15"):
-      ingest.TransitionQueue(capacity=4, **{hook: object()})
+  def test_obs_hooks_refuse_by_name(self, hook, tmp_path):
+    """The queue's obs hooks (they refused until the obs spine was
+    ported): every shed row counts into the registry's
+    replay/transition_queue_dropped, and 8 consecutive overflowing puts
+    dump the recorder once (the streak then restarts)."""
+    registry = MetricRegistry()
+    recorder = FlightRecorder(dump_dir=str(tmp_path),
+                              min_dump_interval_s=0.0)
+    hooks = {"registry": registry, "flight_recorder": recorder}
+    queue = ingest.TransitionQueue(capacity=4, **{hook: hooks[hook]})
+    for i in range(4):
+      queue.put(_transition(i))
+    for i in range(4, 12):  # each put sheds the oldest row
+      queue.put(_transition(i))
+    assert queue.dropped == 8
+    dumps = sorted(os.listdir(tmp_path))
+    if hook == "registry":
+      assert registry.counter(
+          "replay/transition_queue_dropped").value == 8
+      assert dumps == []  # the trigger went to the process recorder
+    else:
+      assert len(dumps) == 1 and "sustained_overflow" in dumps[0]
+      with open(tmp_path / dumps[0]) as f:
+        trigger = json.load(f)["trigger"]
+      assert trigger == {"consecutive_overflow_puts": 8,
+                         "dropped_total": 8, "pending": 4, "capacity": 4}
 
   def test_queue_and_feeder_bit_identical_to_jax(self, needs_jax):
     """Episodes, scalar and batched puts with drop-oldest slicing and
@@ -630,10 +660,40 @@ class TestCollector:
       worker.stop()
 
   @pytest.mark.parametrize("hook", ["flight_recorder", "watchdog"])
-  def test_obs_hooks_refuse_by_name(self, hook):
-    with pytest.raises(NotImplementedError, match="item 15"):
-      loop.CollectorWorker(None, ingest.TransitionQueue(4), 16,
-                           **{hook: object()})
+  def test_obs_hooks_refuse_by_name(self, hook, tmp_path):
+    """The collector's obs hooks (they refused until the obs spine was
+    ported): its thread beats an act/collector heartbeat, unregistered
+    when it stops, and its death dumps the recorder."""
+    if hook == "watchdog":
+      watchdog = Watchdog()
+      worker = loop.CollectorWorker(learner_bench.uniform_policy(4, 0),
+                                    ingest.TransitionQueue(10_000), 16,
+                                    watchdog=watchdog)
+      worker.start()
+      deadline = time.monotonic() + 60
+      while (not watchdog.snapshot()["components"].get(
+          "act/collector", {}).get("beats")) and time.monotonic() < deadline:
+        time.sleep(0.01)
+      assert watchdog.snapshot()["components"]["act/collector"]["beats"] > 0
+      worker.stop()
+      assert watchdog.snapshot()["components"] == {}
+      return
+
+    def broken(images):
+      raise RuntimeError("policy down")
+
+    recorder = FlightRecorder(dump_dir=str(tmp_path))
+    worker = loop.CollectorWorker(broken, ingest.TransitionQueue(8), 16,
+                                  flight_recorder=recorder)
+    worker.start()
+    assert worker.join(30.0)
+    with pytest.raises(RuntimeError, match="collector died"):
+      worker.stop()
+    (dump,) = os.listdir(tmp_path)
+    with open(tmp_path / dump) as f:
+      payload = json.load(f)
+    assert payload["reason"] == "collector_thread_exception"
+    assert payload["trigger"]["error"] == "RuntimeError: policy down"
 
   def test_config_is_the_jax_config_field_for_field(self, needs_jax):
     def fields(cls):

@@ -80,14 +80,14 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   train -> reprioritize iterations a dispatch as CUDA graphs, held against
   its eager iterations bit for bit (TinyQ, and the 64x64 critic at K=50
   with CEM 64/6/3); ``run_qtopt_replay --smoke --device-resident`` to the
-  JAX bar at seeds 0 and 1 with the learner bench; the production loop
+  JAX bar at seed 0 with the learner bench; the production loop
   beside one vector actor and alone; and fused resume parity.
 - slice 12 runs the fused Anakin loop (``qtopt_anakin``): the device grasp
   env and its rasterizer against the numpy oracle bit for bit, the
   period's CUDA graph (``train_every`` control steps of act -> env step ->
   extend and one learn) against eager periods bit for bit (TinyQ, and the
   64x64 critic with CEM 64/6/3) across a dispatch that crosses min_fill,
-  ``run_qtopt_replay --smoke --anakin`` to the JAX bar at seeds 0 and 1
+  ``run_qtopt_replay --smoke --anakin`` to the JAX bar at seed 0
   with the Anakin bench, the production ``--anakin`` run at full width,
   and its fused resume.
 - slice 13 runs the bf16 and int8 scoring tiers (``qtopt_precision``):
@@ -95,7 +95,7 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   hot reloads, the precision bench's bf16 agreement and the int8 bench's
   agreement and served bytes, the megastep and the Anakin loop at bf16
   against eager, ``run_qtopt_replay --smoke --anakin --precision bf16``
-  beside f32 at seeds 0 and 1, and each tier's fleet replays at 472x472,
+  beside f32 at seed 0, and each tier's fleet replays at 472x472,
   megastep device time and production ``--anakin`` rates beside f32.
 - slice 14 runs the obs spine and one serving replica: ``obs_loop`` runs
   ``run_qtopt_replay --smoke`` with a ``--profile`` window on the host path
@@ -107,6 +107,18 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   ``CheckpointPredictor`` restored from a ``model_dir`` at 472x472: 16
   client threads, a held flush of 16 bit for bit against the policy called
   directly, and a hot reload mid-serve that captures nothing.
+- slice 15 runs the routed fleet (``serve_router``): ``bench_fleet --ci
+  --devices 2`` on the card (three SLO classes under open-loop Poisson
+  load, the overload burst shedding the lowest class first, one promote
+  and one injected-regression rollback, one capture a bucket a replica),
+  the bf16 and int8 tier rollouts (the breach rolled back, then the tier
+  promoted, tier-suffixed ledger rows once each), and ``FleetRouter``
+  over two replicas of the 472x472 critic from a ``model_dir``: held
+  requests bit for bit against one policy with separate graph pools, 16
+  closed-loop clients (images/s, p50/p99, flushes a replica, each
+  replica's memory), a profiled window's kernel overlap, a params
+  rollout of a second checkpoint step promoted and a jittered candidate
+  rolled back, with no capture.
 
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
@@ -126,6 +138,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -285,11 +298,12 @@ LABEL_FACTORED_ATOL = 1e-5
 # 472x472 at every rung, its
 # graph against its eager control bit for bit (cuDNN deterministic), and
 # at 64x64 float32 against the CPU.
-LOOP_SEEDS = (0, 1)
+LOOP_SEEDS = (0,)
 # The host-path and vector-actor smokes (~47 s each at 300 steps) run one
 # seed each since slice 14's phases joined (both at seeds 0 and 1 before),
-# to keep the script inside its time limit; the fused paths' cheap smokes
-# keep both seeds.
+# and the fused paths' smokes (device-resident, Anakin, the tiers' fused
+# loop) one seed since slice 15's joined, to keep the script inside its
+# time limit.
 HOST_SMOKE_SEEDS = (0,)
 VECTOR_SMOKE_SEEDS = (1,)
 LOOP_BAR = 0.30
@@ -2651,7 +2665,7 @@ def run_qtopt_vector(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
 # dispatches. TinyQ at K=4 and the production 64x64 critic at K=50, CEM
 # 64/6/3, each one graph of the K iterations, with the capture's seconds
 # and memory and a dispatch's device time. (b) run_qtopt_replay
-# --smoke --device-resident at two seeds: the 0.30 bar, `megastep` and
+# --smoke --device-resident at LOOP_SEEDS: the 0.30 bar, `megastep` and
 # `device_extend` built once, no `train_step`; seed 0 carries the learner
 # bench. (c) The production device-resident loop (the JAX CLI's non-smoke
 # config: 64x64, batch 32, ring 50,000, K 50, ingest chunk 256) beside one
@@ -3328,7 +3342,7 @@ def run_anakin_production(torch, dev, seed: int, root: str,
 def run_qtopt_anakin(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
   """Slice 12's phase: (a) the env and the rasterizer on the card against
   the oracle; (b) the period's graph against eager periods, TinyQ and the
-  64x64 critic; (c) ``--smoke --anakin`` at seeds 0 and 1 with the
+  64x64 critic; (c) ``--smoke --anakin`` at LOOP_SEEDS with the
   Anakin bench; (d) the production ``--anakin`` run; (e) fused resume.
   Raises when a check or the smoke's bar fails; the bench's bars are
   reported either way."""
@@ -3436,7 +3450,7 @@ def run_qtopt_anakin(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
 # 3 hot reloads; (b) the precision bench's agreement phase (bf16 >= 0.95)
 # and the int8 bench's (>= 0.99) at q_tol 0.05 on a trained TinyQ; (c) the
 # megastep and the Anakin loop at bf16, graphs against eager bit for bit;
-# (d) run_qtopt_replay --smoke --anakin at f32 and bf16 at seeds 0 and 1,
+# (d) run_qtopt_replay --smoke --anakin at f32 and bf16 at LOOP_SEEDS,
 # the bf16 reduction >= 0.30 and its converged-phase mean within 0.05 of
 # f32's; (e) the flagship's int8 served bytes >= 3x smaller; (f) each
 # tier's 472x472 fleet replays by rung, the megastep's device ms a step at
@@ -3646,7 +3660,7 @@ def run_qtopt_precision(torch, dev, seed: int, root: str, smi: str,
   result["int8_agreement"] = quant["int8_agreement"]["overall_rate"]
   result["int8_bytes_reduction"] = quant["int8_bytes_reduction"]
 
-  # (d) The Anakin smoke at f32 and bf16, at two seeds.
+  # (d) The Anakin smoke at f32 and bf16, at each of LOOP_SEEDS.
   result["fused_loop"] = {}
   for s in LOOP_SEEDS:
     start = time.perf_counter()
@@ -4037,6 +4051,374 @@ def run_serve_fleet(torch, dev, seed: int, root: str, smi: str) -> dict:
   return result
 
 
+ROUTER_REPLICAS = 2  # replicas on the one card
+ROUTER_COMPARE = 16  # held requests routed, then replayed by one policy
+ROUTER_PROFILED_FRAMES = 2
+ROUTER_CONFIG = dict(mirror_fraction=1.0, canary_fraction=0.5,
+                     min_shadow_samples=8, min_canary_samples=4)
+ROUTER_JITTER = 5.0  # the jittered candidate: weights + 5.0 * N(0, 1)
+ROUTER_CYCLE_S = 300.0  # bounds a stuck rollout cycle only
+ROUTER_HEALTHY_THEN_REGRESSED = ["shadow_start", "canary_start", "promote",
+                                 "shadow_start", "auto_rollback"]
+ROUTER_TIER_EVENTS = ["shadow_start", "auto_rollback", "shadow_start",
+                      "canary_start", "promote"]
+
+
+def kernel_overlap(path: str) -> dict:
+  """Device time of a chrome trace's kernels summed over every stream,
+  against the union of their intervals (the card busy with at least one
+  kernel): a ratio above 1 means kernels of different streams ran at the
+  same time."""
+  with open(path) as f:
+    kernels = [e for e in json.load(f)["traceEvents"]
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+  spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+                 for e in kernels)
+  busy, end = 0.0, None
+  for start, stop in spans:
+    if end is None or start > end:
+      busy += stop - start
+      end = stop
+    elif stop > end:
+      busy += stop - end
+      end = stop
+  summed = sum(stop - start for start, stop in spans)
+  streams = {}
+  for e in kernels:
+    stream = str(e.get("args", {}).get("stream", e.get("tid")))
+    streams[stream] = streams.get(stream, 0.0) + float(e.get("dur", 0.0))
+  window = (spans[-1][1] - spans[0][0]) if spans else 0.0
+  return {"kernels": len(kernels), "kernel_ms_summed": summed / 1e3,
+          "device_busy_ms": busy / 1e3, "kernel_window_ms": window / 1e3,
+          "overlap_factor": summed / busy if busy else None,
+          "streams_ms": {k: v / 1e3 for k, v in sorted(streams.items())}}
+
+
+def drive_clients(act, images, clients: int, frames=None, until=None,
+                  bound_s: float = ROUTER_CYCLE_S) -> dict:
+  """`clients` closed-loop threads calling act(image): `frames` each, or
+  until `until()` holds (checked after every answer); the wall seconds,
+  the answers and the errors."""
+  answers = [[] for _ in range(clients)]
+  errors = []
+  stop_at = time.perf_counter() + bound_s
+
+  def client(i):
+    try:
+      while time.perf_counter() < stop_at:
+        if frames is not None and len(answers[i]) >= frames:
+          return
+        if until is not None and until():
+          return
+        answers[i].append(act(images[i % len(images)]))
+    except Exception as e:  # noqa: BLE001 — raised by the caller
+      errors.append(e)
+
+  threads = [threading.Thread(target=client, args=(i,))
+             for i in range(clients)]
+  start = time.perf_counter()
+  for thread in threads:
+    thread.start()
+  for thread in threads:
+    thread.join()
+  return {"seconds": time.perf_counter() - start, "answers": answers,
+          "errors": errors}
+
+
+def run_serve_router(torch, dev, seed: int, root: str, smi: str) -> dict:
+  """Slice 15: the routed fleet, several replicas on the one card."""
+  import contextlib
+
+  from tensor2robot_tpu_torch.obs.ledger import check_compile_ledger
+  from tensor2robot_tpu_torch.predictors.checkpoint_predictor import (
+      CheckpointPredictor,
+  )
+  from tensor2robot_tpu_torch.replay import precision_bench, tpquant_bench
+  from tensor2robot_tpu_torch.research.qtopt import synthetic_grasping as sg
+  from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+      QTOptGraspingModel,
+  )
+  from tensor2robot_tpu_torch.serving import CEMFleetPolicy, fleet_bench
+  from tensor2robot_tpu_torch.serving.rollout import (
+      RolloutConfig,
+      RolloutController,
+  )
+  from tensor2robot_tpu_torch.serving.router import FleetRouter
+  from tensor2robot_tpu_torch.serving.stats import ServingStats
+  from tensor2robot_tpu_torch.train.checkpoints import CheckpointManager
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  result = {"card": smi}
+  kind = torch.cuda.get_device_name(0)
+
+  # (a) The TinyQ fleet at the JAX CI scale: bench_fleet --ci --devices 2.
+  start = time.perf_counter()
+  fleet = fleet_bench.measure_fleet(**fleet_bench.CI_SCALE,
+                                    n_devices=ROUTER_REPLICAS, seed=seed,
+                                    device=dev)
+  point = fleet["sweep"][-1]
+  tiny = {"seconds": time.perf_counter() - start,
+          "device_kind": fleet["device_kind"],
+          "virtual_mesh": fleet["virtual_mesh"],
+          "devices": fleet["devices"],
+          "warmup_compile_s": fleet["warmup_compile_s"],
+          "compile_ledger": fleet["compile_ledger"],
+          "ledger_ok": fleet["ledger_ok"],
+          "per_class": point["per_class"],
+          "achieved_total_hz": point["achieved_total_hz"],
+          "offered_total_hz": point["offered_total_hz"],
+          "all_budgets_met": point["all_budgets_met"],
+          "batch_occupancy": point["batch_occupancy"],
+          "overload_burst": fleet["overload_burst"],
+          "promotion_timeline": fleet["promotion_timeline"],
+          "served_model_version": fleet["rollout"]["served_model_version"],
+          "fleet_p99_headroom": fleet["fleet_p99_headroom"]}
+  emit("serve_router_fleet", card=smi, **tiny)
+  burst = fleet["overload_burst"]["per_class"]
+  if not (fleet["ledger_ok"] and fleet["device_kind"] == kind
+          and not fleet["virtual_mesh"]
+          and len(check_compile_ledger(fleet["compile_ledger"]))
+          == ROUTER_REPLICAS * 3
+          and len(point["per_class"]) == 3
+          and all(e["latency_p99_ms"] >= e["latency_p50_ms"] > 0
+                  for e in point["per_class"].values())
+          and fleet["overload_burst"]["shed_total"] > 0
+          and fleet["overload_burst"]["priority_ordering_ok"]
+          and burst["batch"]["shed_rate"] >= burst["interactive"]["shed_rate"]
+          and [e["event"] for e in fleet["promotion_timeline"]]
+          == ROUTER_HEALTHY_THEN_REGRESSED
+          and fleet["rollout"]["served_model_version"] == 1):
+    raise AssertionError(f"serve_router fleet: {tiny}")
+  result["tinyq"] = {k: tiny[k] for k in (
+      "achieved_total_hz", "batch_occupancy", "warmup_compile_s")}
+  result["tinyq"]["p99_ms"] = {k: v["latency_p99_ms"]
+                               for k, v in point["per_class"].items()}
+  result["tinyq"]["burst_shed_rate"] = {k: v["shed_rate"]
+                                        for k, v in burst.items()}
+
+  # The tier rollouts: bf16 and int8 through the promotion gate.
+  result["tiers"] = {}
+  for tier, measure in (("bf16", precision_bench._measure_rollout),
+                        ("int8", tpquant_bench._measure_rollout_int8)):
+    start = time.perf_counter()
+    tier_run = measure(device=dev, seed=seed)
+    tier_run["seconds"] = time.perf_counter() - start
+    emit("serve_router_tier", card=smi, tier=tier, **tier_run)
+    suffixed = [f"cem_bucket_{b}_{tier}@{dev}#{i}" for b in (1, 2, 4)
+                for i in range(ROUTER_REPLICAS)]
+    if not (tier_run["events"] == ROUTER_TIER_EVENTS
+            and tier_run["breach_rolled_back"] and tier_run["cycle_ok"]
+            and tier_run["precision_served"] == tier
+            and tier_run["post_promote_action_ok"]
+            and len(check_compile_ledger(tier_run["compile_ledger"],
+                                         require=suffixed))
+            == ROUTER_REPLICAS * 2 * 3):
+      raise AssertionError(f"serve_router {tier} rollout: {tier_run}")
+    result["tiers"][tier] = {k: tier_run[k] for k in (
+        "events", "precision_served", "requests", "seconds")}
+
+  # (b) The 472x472 critic from a model_dir behind two replicas.
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  model = QTOptGraspingModel(image_size=SERVE_IMAGE_SIZE, uint8_images=True)
+  model_dir = os.path.join(root, "model_dir")
+  manager = CheckpointManager(os.path.join(model_dir, "checkpoints"))
+  state = Trainer(model, seed=seed, device=dev).create_train_state()
+  manager.save(1, state)
+  predictor = CheckpointPredictor(model, model_dir, device=dev)
+  if not (predictor.restore() and predictor.model_version == 1):
+    raise AssertionError("CheckpointPredictor did not restore step 1")
+  scenes, _ = sg.sample_scenes(SERVE_CLIENTS, SERVE_IMAGE_SIZE, seed + 7)
+  images = list(scenes)
+  router = FleetRouter(predictor, devices=[dev] * ROUTER_REPLICAS,
+                       action_size=4, seed=seed, deadline_ms=5.0,
+                       **CEM_SERVING)
+  memory = {}
+  start = time.perf_counter()
+  for replica in router.replicas:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved = torch.cuda.memory_reserved()
+    replica.warmup(lambda i: images[i % len(images)])
+    torch.cuda.synchronize()
+    memory[replica.label] = {
+        "warm_peak_allocated_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "reserved_mib": (torch.cuda.memory_reserved() - reserved) / 2**20}
+  warm_s = time.perf_counter() - start
+  ledger_before = dict(router.ledger.compile_counts)
+  check_compile_ledger(router.compile_ledger())
+  flushes = {replica.label: [] for replica in router.replicas}
+  for replica in router.replicas:
+    def recorded(items, _label=replica.label, _flush=replica._flush):
+      out = _flush(items)
+      flushes[_label].append([int(item[1]) for item in items])
+      return out
+    replica.batcher._batch_fn = recorded
+
+  with router:
+    # Held requests with pinned seeds: each replica's flush is replayed
+    # below by one policy with separate pools, at the same rung.
+    seeds = [100_000 + i for i in range(ROUTER_COMPARE)]
+    with contextlib.ExitStack() as stack:
+      for replica in router.replicas:
+        stack.enter_context(replica.batcher.hold_flushes())
+      futures = [router.submit(images[i % len(images)], seed=s)
+                 for i, s in enumerate(seeds)]
+    routed = {s: f.result(timeout=300) for s, f in zip(seeds, futures)}
+    compare_groups = [group for per in flushes.values() for group in per]
+    for per in flushes.values():
+      per.clear()
+
+    # Closed-loop clients: 16 x 4 frames.
+    stats = ServingStats()
+    router.use_stats(stats)
+    dispatched = {row["name"]: row["seconds_total"]
+                  for row in router.ledger.attribution()["executables"]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = drive_clients(lambda image: router.act(image, timeout=300),
+                        images, SERVE_CLIENTS, frames=SERVE_FRAMES)
+    served = stats.snapshot()
+    serving_peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    serving_reserved_mib = torch.cuda.memory_reserved() / 2**20
+    replica_flushes = {label: len(per) for label, per in flushes.items()}
+    replica_images = {label: sum(len(g) for g in per)
+                      for label, per in flushes.items()}
+    dispatch_s = {row["name"]: row["seconds_total"] - dispatched[row["name"]]
+                  for row in router.ledger.attribution()["executables"]
+                  if row["seconds_total"] > dispatched[row["name"]]}
+
+    # One profiled window: do the two replicas' replays overlap?
+    trace_path = os.path.join(root, "router_trace.json")
+    profiled_start = time.perf_counter()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+      profiled = drive_clients(lambda image: router.act(image, timeout=300),
+                               images, SERVE_CLIENTS,
+                               frames=ROUTER_PROFILED_FRAMES)
+      torch.cuda.synchronize()
+    profiled_wall_ms = (time.perf_counter() - profiled_start) * 1e3
+    prof.export_chrome_trace(trace_path)
+    overlap = kernel_overlap(trace_path)
+    overlap["profiled_wall_ms"] = profiled_wall_ms
+
+    # The params rollout: a second checkpoint step (the same weights),
+    # then a jittered candidate, under 16 closed-loop clients.
+    manager.save(2, state)
+    reader = CheckpointPredictor(model, model_dir, device=dev)
+    if not (reader.restore() and reader.model_version == 2):
+      raise AssertionError("the second step did not restore")
+    healthy = reader.device_fn()[1]
+    generator = torch.Generator(device=dev).manual_seed(seed + 11)
+    jittered = {k: (v + ROUTER_JITTER * torch.randn(
+        v.shape, generator=generator, device=dev, dtype=v.dtype)
+                    if v.is_floating_point() and v.dim() >= 2 else v)
+                for k, v in healthy.items()}
+    controller = RolloutController(
+        router, predictor,
+        RolloutConfig(seed=seed, **ROUTER_CONFIG))
+    cycles = []
+    with controller:
+      for version, candidate in ((2, healthy), (3, jittered)):
+        if not controller.offer_candidate(version, candidate):
+          raise AssertionError("rollout busy")
+        cycle = drive_clients(
+            lambda image: controller.act(image, timeout=300), images,
+            SERVE_CLIENTS, until=lambda: controller.state == "serving")
+        cycles.append({"seconds": cycle["seconds"],
+                       "requests": sum(len(a) for a in cycle["answers"]),
+                       "errors": [repr(e) for e in cycle["errors"][:2]]})
+    timeline = controller.timeline()
+    health = router.health_snapshot()
+  del state, reader, healthy, jittered, controller
+  ledger_after = dict(router.ledger.compile_counts)
+
+  # One policy, separate graph pools: the memory before, and the held
+  # flushes replayed at their rungs against the routed answers.
+  router_reserved_mib = torch.cuda.memory_reserved() / 2**20
+  del router
+  gc.collect()  # the batchers and replicas hold each other
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  single = CEMFleetPolicy(predictor, action_size=4, seed=seed,
+                          **CEM_SERVING)
+  single.share_graph_pool = False
+  torch.cuda.reset_peak_memory_stats()
+  reserved = torch.cuda.memory_reserved()
+  single.warm(lambda i: images[i % len(images)])
+  torch.cuda.synchronize()
+  separate = {
+      "warm_peak_allocated_mib": torch.cuda.max_memory_allocated() / 2**20,
+      "reserved_mib": (torch.cuda.memory_reserved() - reserved) / 2**20}
+  by_seed = {s: images[i % len(images)] for i, s in enumerate(seeds)}
+  mismatched = 0
+  for group in compare_groups:
+    want = single([by_seed[s] for s in group],
+                  np.asarray(group, np.uint32))
+    mismatched += sum(not np.array_equal(routed[s], w)
+                      for s, w in zip(group, want))
+  del single
+  torch.cuda.empty_cache()
+  torch.backends.cudnn.deterministic = deterministic
+
+  actions = np.stack([a for per in run["answers"] for a in per])
+  full = {
+      "model": f"QTOptGraspingModel(uint8_images=True), "
+               f"{SERVE_IMAGE_SIZE}x{SERVE_IMAGE_SIZE}, random weights saved "
+               "as model_dir steps 1 and 2",
+      "cem": CEM_SERVING, "replicas": ROUTER_REPLICAS,
+      "clients": SERVE_CLIENTS, "frames_per_client": SERVE_FRAMES,
+      "warm_s": warm_s, "compile_ledger": ledger_before,
+      "images_per_s": SERVE_CLIENTS * SERVE_FRAMES / run["seconds"],
+      "latency_p50_ms": served["latency_p50_ms"],
+      "latency_p99_ms": served["latency_p99_ms"],
+      "batch_occupancy": served["batch_occupancy"],
+      "mean_batch_size": served["mean_batch_size"],
+      "flushes": served["flushes"], "replica_flushes": replica_flushes,
+      "replica_images": replica_images,
+      "dispatch_seconds": dispatch_s,
+      "dispatch_seconds_over_wall": sum(dispatch_s.values())
+                                    / run["seconds"],
+      "overlap": overlap,
+      "replica_memory": memory,
+      "separate_pools_memory": separate,
+      "serving_peak_allocated_mib": serving_peak_mib,
+      "serving_reserved_mib": serving_reserved_mib,
+      "router_reserved_mib": router_reserved_mib,
+      "compare_groups": [len(g) for g in compare_groups],
+      "routed_equals_single": mismatched == 0,
+      "timeline": timeline, "cycles": cycles,
+      "model_version": predictor.model_version,
+      "captures_in_rollouts": sum(ledger_after.values())
+                              - sum(ledger_before.values()),
+      "health": health["health"],
+  }
+  emit("serve_router_flagship", card=smi, **full)
+  if not (not run["errors"] and not profiled["errors"]
+          and all(len(a) == SERVE_FRAMES for a in run["answers"])
+          and np.isfinite(actions).all() and np.abs(actions).max() <= 1.0
+          and all(n > 0 for n in replica_flushes.values())
+          and len(compare_groups) == ROUTER_REPLICAS
+          and full["routed_equals_single"]
+          and ledger_before == ledger_after
+          and len(check_compile_ledger(ledger_before))
+          == ROUTER_REPLICAS * len(FLEET_RUNGS)
+          and [e["event"] for e in timeline] == ROUTER_HEALTHY_THEN_REGRESSED
+          and timeline[-1]["stage"] == "shadow"
+          and predictor.model_version == 2
+          and not any(c["errors"] for c in cycles)
+          and served["latency_p99_ms"] >= served["latency_p50_ms"] > 0):
+    raise AssertionError(f"serve_router flagship: {full} "
+                         f"{(run['errors'] + profiled['errors'])[:1]}")
+  result["flagship"] = {k: full[k] for k in (
+      "images_per_s", "latency_p50_ms", "latency_p99_ms", "batch_occupancy",
+      "replica_flushes", "replica_memory", "separate_pools_memory")}
+  result["flagship"]["overlap_factor"] = overlap["overlap_factor"]
+  del predictor
+  torch.cuda.empty_cache()
+  return result
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -4257,6 +4639,15 @@ def main(argv=None) -> int:
     serve_result = run_serve_fleet(torch, dev, args.seed, tmp, smi)
     emit("serve_fleet", seconds=time.perf_counter() - start,
          **serve_result)
+
+  # Slice 15's main paths: the routed fleet, two replicas on the one card
+  # behind the router, the rollout controller and the tier rollouts; no
+  # TPU kernel runs on them.
+  with tempfile.TemporaryDirectory() as tmp:
+    start = time.perf_counter()
+    router_result = run_serve_router(torch, dev, args.seed, tmp, smi)
+    emit("serve_router", seconds=time.perf_counter() - start,
+         **router_result)
 
   timing = time_spatial_softmax(torch, ss, feature_map)
   emit("kernel_timing", spatial_softmax=timing)

@@ -36,8 +36,9 @@ from tensor2robot_tpu_torch.export.variables_io import to_tensor
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS_BACK = {v: k for k, v in _STATS.items()}
-# Top-level parameters that keep their flax name and layout.
-_VERBATIM = ("stem_s2d_kernel", "stem_s2d_bias")
+# Top-level parameters that keep their flax name and layout (the
+# flagship's space-to-depth stem; the serving smokes' TinyQ ``w``).
+_VERBATIM = ("stem_s2d_kernel", "stem_s2d_bias", "w")
 
 
 def _leaves(tree: Mapping[str, Any], prefix=()):

@@ -13,10 +13,12 @@ Counterpart of ``tensor2robot_tpu/obs``'s host spine:
 - ``watchdog``: heartbeats for every loop thread, stall escalation and
   straggler detection;
 - ``health``: the training-health sentinel, escalating through the
-  registry and the recorder.
+  registry and the recorder, and the fleet's Q-drift report;
+- ``ledger``: the executable ledger (build counts, dispatches and their
+  time a program) and the shared exactly-once assertion.
 
-The executable ledger, fault injection, the fleet aggregator and the
-benches wait for ``ROADMAP.md``'s flagship item 15.
+Fault injection, the fleet aggregator, the ledger's attribution through
+the loops and the benches wait for ``ROADMAP.md``'s flagship item 15.
 """
 
 from tensor2robot_tpu_torch.obs.context import (
@@ -27,6 +29,11 @@ from tensor2robot_tpu_torch.obs.context import (
 from tensor2robot_tpu_torch.obs.flight_recorder import (
     FlightRecorder,
     get_recorder,
+)
+from tensor2robot_tpu_torch.obs.health import q_drift_report
+from tensor2robot_tpu_torch.obs.ledger import (
+    ExecutableLedger,
+    check_compile_ledger,
 )
 from tensor2robot_tpu_torch.obs.registry import MetricRegistry, get_registry
 from tensor2robot_tpu_torch.obs.trace import (
@@ -42,11 +49,13 @@ from tensor2robot_tpu_torch.obs.watchdog import (
 )
 
 __all__ = [
+    "ExecutableLedger",
     "FlightRecorder",
     "MetricRegistry",
     "Tracer",
     "Watchdog",
     "bind",
+    "check_compile_ledger",
     "current_request_id",
     "find_stragglers",
     "get_recorder",
@@ -54,6 +63,7 @@ __all__ = [
     "get_tracer",
     "get_watchdog",
     "new_request_id",
+    "q_drift_report",
     "set_device_annotations",
     "span",
 ]

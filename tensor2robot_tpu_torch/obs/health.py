@@ -25,14 +25,15 @@ host loop runs:
   than training on garbage. Its drift baselines round-trip through
   ``state_dict``.
 
-The fleet Q-drift report waits with the path that calls it (the routed
-fleet).
+- ``q_drift_report``: the routed fleet's Q-drift guard, each replica's
+  served-Q mean against the rest of the fleet's (leave-one-out).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import statistics
 import threading
 from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
@@ -426,3 +427,86 @@ class HealthMonitor:
           "breaches": [dict(breach) for breach in self.breaches],
           "last_summary": dict(self.last_summary),
       }
+
+
+# -- fleet Q-drift guard ----------------------------------------------------
+
+
+def q_drift_report(replica_summaries: Mapping[str, Mapping],
+                   z_threshold: float = 8.0,
+                   min_samples: int = 16,
+                   min_scale: float = 1e-4) -> dict:
+  """Cross-replica served-Q divergence vs the fleet (leave-one-out).
+
+  ``replica_summaries`` maps a replica label to its served-Q sketch
+  summary ({"count", "mean", "p50", "p90", ...} — ServingStats'
+  ``q_sketch_summaries`` shape, or the aggregator's per-process form).
+  Every replica serves the same request distribution through the same
+  params, so their served-Q MEANS must agree up to sampling noise; one
+  that doesn't is serving a different function (a corrupted replica,
+  a botched ``set_variables`` that still returns finite numbers).
+
+  The check is scale-free — Q heads range from ~1e-3 logits (the CI
+  critics) to order-1 values, so no absolute threshold can be a
+  default. For each qualifying replica (>= ``min_samples`` served
+  values): the FLEET CENTER is the median of the OTHER replicas'
+  means (leave-one-out, so the candidate cannot pull its own
+  yardstick), and the SCALE is the larger of (a) the other replicas'
+  median absolute deviation around that center and (b) half their
+  median within-replica p90-p50 spread — MAD is zero at fleet size 2,
+  where the within-replica dispersion is the honest noise floor —
+  floored at ``min_scale``. A replica whose |mean - center| exceeds
+  ``z_threshold`` x scale is DIVERGENT. (At fleet size 2 the guard
+  cannot name the culprit — both sides of a wide gap flag — but the
+  alarm still fires; >= 3 replicas isolate the corrupted one.)
+
+  Verdicts: "ok", "divergent" (names in ``divergent``), or
+  "insufficient" (< 2 qualifying replicas: no fleet to diverge from).
+  """
+  qualifying = {
+      name: summary for name, summary in replica_summaries.items()
+      if summary.get("count", 0) >= min_samples
+      and summary.get("mean") is not None}
+  report = {
+      "z_threshold": z_threshold,
+      "min_samples": min_samples,
+      "min_scale": min_scale,
+      "replicas": {},
+      "divergent": [],
+      "fleet_median": None,
+  }
+  for name, summary in sorted(replica_summaries.items()):
+    report["replicas"][name] = {
+        "count": int(summary.get("count", 0)),
+        "mean": summary.get("mean"),
+        "median": summary.get("p50"),
+        "qualifying": name in qualifying,
+    }
+  if len(qualifying) < 2:
+    report["verdict"] = "insufficient"
+    return report
+  means = {name: float(summary["mean"])
+           for name, summary in qualifying.items()}
+  spreads = {
+      name: max(float(summary.get("p90") or 0.0)
+                - float(summary.get("p50") or 0.0), 0.0)
+      for name, summary in qualifying.items()}
+  report["fleet_median"] = round(statistics.median(means.values()), 6)
+  for name in qualifying:
+    others = [means[other] for other in qualifying if other != name]
+    center = statistics.median(others)
+    mad = statistics.median(
+        abs(value - center) for value in others)
+    spread_floor = 0.5 * statistics.median(
+        spreads[other] for other in qualifying if other != name)
+    scale = max(mad, spread_floor, min_scale)
+    z = abs(means[name] - center) / scale
+    entry = report["replicas"][name]
+    entry["delta"] = round(abs(means[name] - center), 6)
+    entry["z"] = round(z, 3)
+    if z > z_threshold:
+      entry["divergent"] = True
+      report["divergent"].append(name)
+  report["divergent"].sort()
+  report["verdict"] = "divergent" if report["divergent"] else "ok"
+  return report

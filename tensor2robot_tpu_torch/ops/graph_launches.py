@@ -86,10 +86,12 @@ def _collector_paused() -> Iterator[None]:
 
 @contextlib.contextmanager
 def capture(graph: "torch.cuda.CUDAGraph",
-            stream: "torch.cuda.Stream") -> Iterator[Tally]:
+            stream: "torch.cuda.Stream", pool=None) -> Iterator[Tally]:
   """Captures the block's work on `stream` into `graph`; yields the tally
-  of its kernel launches (see the module's docstring)."""
+  of its kernel launches (see the module's docstring). `pool` (a
+  ``torch.cuda.graph_pool_handle()``) shares one memory pool among graphs
+  that never replay at the same time."""
   with _collector_paused(), recording() as tally:
-    with torch.cuda.graph(graph, stream=stream,
+    with torch.cuda.graph(graph, pool=pool, stream=stream,
                           capture_error_mode="thread_local"):
       yield tally

@@ -201,8 +201,9 @@ class AnakinLoop(TargetNetwork):
   ):
     if ledger is not None:
       raise NotImplementedError(
-          "AnakinLoop(ledger=) records into the obs tier's executable "
-          "ledger, which waits for ROADMAP.md's flagship item 15.")
+          "AnakinLoop(ledger=) attributes the Anakin period's time in the "
+          "executable ledger (obs/ledger.py); the ledger's attribution "
+          "through the loops waits for ROADMAP.md's flagship item 15.")
     if inner_steps < 1 or train_every < 1 or inner_steps % train_every:
       raise ValueError(
           f"inner_steps {inner_steps} must be a positive multiple of "

@@ -236,8 +236,9 @@ class BellmanUpdater(TargetNetwork):
                precision: str = "f32", device: Device = None):
     if ledger is not None:
       raise NotImplementedError(
-          "BellmanUpdater(ledger=) records into the obs tier's executable "
-          "ledger, which waits for ROADMAP.md's flagship item 15.")
+          "BellmanUpdater(ledger=) attributes the label programs' time in "
+          "the executable ledger (obs/ledger.py); the ledger's attribution "
+          "through the loops waits for ROADMAP.md's flagship item 15.")
     super().__init__(variables, polyak_tau=polyak_tau, device=device)
     self.precision = cem.validate_precision(precision)
     self._model = model

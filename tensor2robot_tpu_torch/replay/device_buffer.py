@@ -217,8 +217,10 @@ class DeviceReplayBuffer:
     if mesh is not None or data_axis != "data" or ledger is not None:
       raise NotImplementedError(
           "DeviceReplayBuffer(mesh=, data_axis=, ledger=) shards the ring "
-          "over a mesh and records into the executable ledger, which wait "
-          "for ROADMAP.md's flagship item 15 (the parallel and obs tiers).")
+          "over a mesh and attributes its programs' time in the executable "
+          "ledger (obs/ledger.py) through the loops, which wait for "
+          "ROADMAP.md's flagship item 15 (the parallel tier and the "
+          "ledger's attribution through the loops).")
     if capacity < 1:
       raise ValueError(f"capacity must be >= 1, got {capacity}")
     if sample_batch_size < 1:
@@ -727,8 +729,9 @@ class MegastepLearner(TargetNetwork):
   ):
     if ledger is not None:
       raise NotImplementedError(
-          "MegastepLearner(ledger=) records into the obs tier's executable "
-          "ledger, which waits for ROADMAP.md's flagship item 15.")
+          "MegastepLearner(ledger=) attributes the megastep's time in the "
+          "executable ledger (obs/ledger.py); the ledger's attribution "
+          "through the loops waits for ROADMAP.md's flagship item 15.")
     if inner_steps < 1:
       raise ValueError(f"inner_steps must be >= 1, got {inner_steps}")
     if trainer.device != buffer.device:

@@ -21,11 +21,17 @@ Its phases:
    (the converged phase), and the bf16 one must land within 0.05 of the
    f32 one.
 
-The JAX bench's third phase (the per-tier executable ledger and its tier
-shares) waits for ``ROADMAP.md``'s flagship item 15, and its fourth (a
-tier walked through shadow, canary and promote) for item 9: asking for
-them raises by name. ``measure_precision(skip_waiting=True)``, the
-default, runs phases 1 and 2.
+3. **The live-traffic rollout** (``_measure_rollout``, run on its own):
+   on a ``FleetRouter`` of replicas with TinyQ, a jittered tree scored
+   through the candidate tier must roll back in shadow with the fleet
+   left on f32, then the healthy tier walks shadow -> canary -> promote
+   and the fleet serves it, with one build a bucket a replica a tier in
+   the router's ledger. ``tpquant_bench`` runs the same cycle at int8.
+
+The JAX bench's per-tier ledger phase (its attribution of time by tier
+through the loops) waits for ``ROADMAP.md``'s flagship item 15: asking
+for it (``measure_precision(skip_waiting=False)``) raises by name. The
+default runs phases 1 and 2.
 """
 
 from __future__ import annotations
@@ -194,7 +200,7 @@ def _paired_agreement(model, variables, candidate: str,
       "pairs": pairs_total,
       "overall_rate": agree_total / max(pairs_total, 1),
       # Each tier's bucket built once: the per-tier exactly-once count
-      # (the JAX ledger's keys; the ledger itself waits for item 15).
+      # (the JAX ledger's keys).
       "builds": builds,
   }
   if geo_tolerance is not None:
@@ -281,16 +287,97 @@ def _measure_fused_loop(steps: int, seed: int, device: Device = None,
 
 def _measure_tier_ledger(*_args, **_kwargs):
   raise NotImplementedError(
-      "the precision bench's per-tier executable ledger and its tier "
-      "shares wait for ROADMAP.md's flagship item 15 (the obs tier's "
-      "ledger).")
+      "the precision bench's per-tier ledger phase (the executable "
+      "ledger's attribution of time by tier through the megastep and the "
+      "Anakin loop) waits for ROADMAP.md's flagship item 15.")
 
 
-def _measure_rollout(*_args, **_kwargs):
-  raise NotImplementedError(
-      "the precision bench's live-traffic rollout of a tier (shadow, "
-      "canary, promote) waits for ROADMAP.md's flagship item 9 (the "
-      "serving fleet tier).")
+def _measure_tier_rollout(tier: str, n_devices: int = 2,
+                          cem_num_samples: int = 16,
+                          cem_num_elites: int = 4, cem_iterations: int = 2,
+                          min_shadow: int = 6, min_canary: int = 3,
+                          cycle_bound_s: float = 60.0, seed: int = 0,
+                          device: Device = None) -> Dict:
+  """The live-traffic gate of a scoring tier: the breach first (a
+  jittered tree scored through the `tier` candidate must auto-roll back,
+  the fleet left on f32), then the healthy tier through
+  shadow -> canary -> promote, the fleet then serving it. One ledger
+  across warm-up, both cycles and the traffic after the promote: one
+  build a bucket a replica a tier. Each cycle's traffic stops when the
+  controller is back to serving (`cycle_bound_s` bounds a stuck one)."""
+  from tensor2robot_tpu_torch.serving.rollout import (
+      RolloutConfig,
+      RolloutController,
+  )
+  from tensor2robot_tpu_torch.serving.router import FleetRouter
+  from tensor2robot_tpu_torch.serving.smoke import TinyQPredictor
+
+  device = resolve_device(device)
+  predictor = TinyQPredictor(seed=seed, device=device)
+  router = FleetRouter(
+      predictor, devices=[device] * n_devices,
+      num_samples=cem_num_samples, num_elites=cem_num_elites,
+      iterations=cem_iterations, ladder_sizes=(1, 2, 4), max_queue=32,
+      seed=seed)
+  router.warmup(predictor.make_image)
+  controller = RolloutController(
+      router, predictor,
+      RolloutConfig(mirror_fraction=1.0, canary_fraction=0.5,
+                    min_shadow_samples=min_shadow,
+                    min_canary_samples=min_canary, seed=seed))
+  frames = [predictor.make_image(seed + i) for i in range(16)]
+
+  def drive_until_serving(i0: int) -> int:
+    stop_at = time.monotonic() + cycle_bound_s
+    i = i0
+    while controller.state != "serving" and time.monotonic() < stop_at:
+      controller.submit(frames[i % len(frames)]).result(30.0)
+      i += 1
+    return i
+
+  with router, controller:
+    breach = predictor.make_candidate_variables(jitter=5.0, seed=seed + 7)
+    # Raises, not asserts: an offer starts the cycle.
+    if not controller.offer_precision_candidate(tier, variables=breach):
+      raise RuntimeError("breach candidate not accepted (rollout busy)")
+    i = drive_until_serving(0)
+    precision_after_breach = router.precision
+    breach_events = [e["event"] for e in controller.timeline()]
+    if not controller.offer_precision_candidate(tier):
+      raise RuntimeError("tier candidate not accepted (rollout busy)")
+    i = drive_until_serving(i)
+    timeline = controller.timeline()
+    precision_served = router.precision
+    post_promote_action = np.asarray(controller.act(frames[0],
+                                                    timeout=30.0))
+    requests = i
+
+  events = [entry["event"] for entry in timeline]
+  return {
+      "devices": len(router.replicas),
+      "timeline": timeline,
+      "events": events,
+      "requests": requests,
+      "promotions": events.count("promote"),
+      "auto_rollbacks": events.count("auto_rollback"),
+      "breach_rolled_back": ("auto_rollback" in breach_events
+                             and precision_after_breach == "f32"),
+      "precision_served": precision_served,
+      "post_promote_action_ok": bool(
+          np.all(np.isfinite(post_promote_action))),
+      "cycle_ok": ("promote" in events and "auto_rollback" in events
+                   and precision_served == tier),
+      "compile_ledger": router.ledger.compile_counts,
+      "tier_shares": {
+          name: share["executables"]
+          for name, share in router.ledger.attribution()
+          ["tier_shares"].items()},
+  }
+
+
+def _measure_rollout(**kwargs) -> Dict:
+  """Phase 3 at bf16 (the JAX bench's rollout phase)."""
+  return _measure_tier_rollout("bf16", **kwargs)
 
 
 def measure_precision(
@@ -314,11 +401,11 @@ def measure_precision(
 ) -> Dict:
   """The precision protocol's ported phases; returns the JAX artifact's
   fields and raises if a bar of the phases run fails.
-  ``skip_waiting=False`` asks for the ledger and rollout phases, which
-  raise by name; ``fused_loop=False`` skips phase 2."""
+  ``skip_waiting=False`` asks for the per-tier ledger phase, which
+  raises by name; ``fused_loop=False`` skips phase 2; phase 3 runs on
+  its own (``_measure_rollout``)."""
   if not skip_waiting:
     _measure_tier_ledger()
-    _measure_rollout()
   device = resolve_device(device)
   model, variables, pretrain_loss = _pretrain_critic(
       image_size, action_size, gamma, grasp_radius, pretrain_steps,
@@ -343,7 +430,7 @@ def measure_precision(
       "fused_loop": fused,
       "td_delta_bar": R14_TD_DELTA_BAR,
       "cem_bf16_action_agreement": agreement["overall_rate"],
-      "waiting": {"tier_ledger": "item 15", "rollout": "item 9"},
+      "waiting": {"tier_ledger": "item 15"},
   }
   failures = []
   if agreement["overall_rate"] < R14_AGREEMENT_BAR:

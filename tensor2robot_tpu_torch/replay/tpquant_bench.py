@@ -17,10 +17,13 @@ selection). Two claims:
   the bytes the policy holds, not the traffic of a score: the graph
   expands every int8 weight to a bf16 copy on each replay.
 
+- **Rollout.** ``_measure_rollout_int8``, run on its own: the int8 tier
+  through the routed fleet's promotion gate (``precision_bench.
+  _measure_tier_rollout``): a jittered tree scored at int8 rolled back in
+  shadow, then int8 promoted, one build a bucket a replica a tier.
+
 The JAX bench's tensor-parallel ladder waits for ``ROADMAP.md``'s flagship
-item 15 (the parallel tier) and its rollout of the int8 tier for item 9
-(the serving fleet tier): ``_measure_tp_ladder`` and
-``_measure_rollout_int8`` raise by name.
+item 15 (the parallel tier): ``_measure_tp_ladder`` raises by name.
 """
 
 from __future__ import annotations
@@ -88,10 +91,9 @@ def _measure_tp_ladder(*_args, **_kwargs):
       "item 15 (the parallel tier).")
 
 
-def _measure_rollout_int8(*_args, **_kwargs):
-  raise NotImplementedError(
-      "tpquant's rollout of the int8 tier (shadow, canary, promote) waits "
-      "for ROADMAP.md's flagship item 9 (the serving fleet tier).")
+def _measure_rollout_int8(**kwargs) -> Dict:
+  """The promotion gate with int8 in the candidate seat."""
+  return precision_bench._measure_tier_rollout("int8", **kwargs)
 
 
 def measure_tpquant(
@@ -131,7 +133,7 @@ def measure_tpquant(
       "int8_bytes_reduction_bar": R17_INT8_BYTES_REDUCTION_BAR,
       "int8_q_agreement": agreement["overall_rate"],
       "int8_param_bytes_reduction": bytes_reduction["flagship"],
-      "waiting": {"tp_ladder": "item 15", "rollout": "item 9"},
+      "waiting": {"tp_ladder": "item 15"},
   }
   failures = []
   if agreement["overall_rate"] < R17_INT8_AGREEMENT_BAR:

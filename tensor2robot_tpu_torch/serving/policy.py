@@ -35,15 +35,33 @@ quantized when the variables are placed; a hot reload quantizes into
 those tensors, and each replay dequantizes them. The host path, which
 scores through ``predict``, serves "f32" only and refuses another tier.
 
-Waiting for later ``ROADMAP.md`` items, and refused by name: ``device=``
-(a replica pinned to a device or a mesh) and ``param_specs=`` (item 15),
-``ledger=`` (item 15) and the per-call ``variables=`` override (item 9's
-rollout tier).
+**Placement.** ``device=`` pins the served copy, the graphs and the
+staging to one ``torch.device``; ``label=`` names the replica in ledger
+keys (the fleet router runs several replicas on one card, so a device
+alone does not name one). On the GPU every call runs on the policy's own
+stream, so two replicas' replays may overlap on the card, and the rungs
+of one policy share one graph memory pool (``share_graph_pool``): one
+lock serialises their replays, so a rung's intermediates may reuse
+another's memory, and each graph's outputs stay held. ``warm`` captures
+the largest rung first, so the smaller ones fit in what it freed.
+
+**The candidate override.** ``policy(..., variables=cand)`` scores a
+rollout candidate through the same graphs, with no new capture: the
+candidate is placed once on the device (a cache keyed on the tree's
+identity; quantized under int8), and under the policy's lock copied into
+the served copy, replayed, and the live variables copied back. A
+``ledger`` (``obs/ledger.py``) gets one registration a build, keyed
+``cem_bucket_<b>[_<tier>]@<label>``, and one dispatch a call.
+
+Waiting for a later ``ROADMAP.md`` item, and refused by name:
+``param_specs=`` (a tensor-parallel replica group, item 15).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -103,16 +121,12 @@ class CEMFleetPolicy:
                iterations: int = 3, seed: int = 0,
                ladder: Optional[BucketLadder] = None,
                device=None, ledger=None, precision: str = "f32",
-               param_specs=None):
-    if device is not None or param_specs is not None:
+               param_specs=None, label: Optional[str] = None):
+    if param_specs is not None:
       raise NotImplementedError(
-          "CEMFleetPolicy(device=, param_specs=) pins a replica to a device "
-          "or a tensor-parallel mesh, which waits for ROADMAP.md's flagship "
-          "item 15 (the parallel tier).")
-    if ledger is not None:
-      raise NotImplementedError(
-          "CEMFleetPolicy(ledger=) records into the obs tier's executable "
-          "ledger, which waits for ROADMAP.md's flagship item 15.")
+          "CEMFleetPolicy(param_specs=) shards the served critic over a "
+          "tensor-parallel replica group, which waits for ROADMAP.md's "
+          "flagship item 15 (the parallel tier).")
     self.precision = cem.validate_precision(precision)
     self._predictor = predictor
     self._action_size = action_size
@@ -121,6 +135,10 @@ class CEMFleetPolicy:
     self._iterations = iterations
     self._seed = seed
     self.ladder = ladder or BucketLadder()
+    self.device = None if device is None else torch.device(device)
+    self.label = (label if label is not None
+                  else None if device is None else str(self.device))
+    self._ledger = ledger
     # (bucket, image shape, image dtype) -> its _Graph on the GPU, None
     # on the CPU.
     self._buckets: Dict[Tuple, Optional[_Graph]] = {}
@@ -128,10 +146,20 @@ class CEMFleetPolicy:
     self.compile_counts: Dict[int, int] = {}
     self._served = None  # the policy's own copy of the served variables
     self._served_version = None
-    # One lock over builds, hot-reload copies and every call's copy-in,
-    # replay and copy-out; request seeds have their own, so clients
-    # assigning seeds never wait behind a capture.
-    self._lock = threading.Lock()
+    # id(tree) -> (tree, version, placed): the live variables and at most
+    # a rollout candidate and their priors, placed once each.
+    self._placements: Dict[int, tuple] = {}
+    # The rungs share one graph pool unless this is set False before the
+    # first capture.
+    self.share_graph_pool = True
+    self._pool = None
+    self._stream = None
+    # One re-entrant lock over builds, hot-reload copies, overrides and
+    # every call's copy-in, replay and copy-out (re-entrant so that a
+    # router holding every policy's lock can still warm one); request
+    # seeds have their own, so clients assigning seeds never wait behind
+    # a capture.
+    self.lock = threading.RLock()
     self._seed_lock = threading.Lock()
     self._next_seed = 0
 
@@ -147,10 +175,11 @@ class CEMFleetPolicy:
     return np.arange(start, start + n, dtype=np.uint32)
 
   def warm(self, make_image, sizes: Optional[Sequence[int]] = None) -> None:
-    """Builds the ladder's buckets (`sizes`, default every rung) by
-    serving `make_image(i)` frames at each (answers discarded, request
-    seeds untouched). Built buckets make this a no-op walk."""
-    for bucket in self.ladder.sizes if sizes is None else sizes:
+    """Builds the ladder's buckets (`sizes`, default every rung), largest
+    first, by serving `make_image(i)` frames at each (answers discarded,
+    request seeds untouched). Built buckets make this a no-op walk."""
+    for bucket in sorted(self.ladder.sizes if sizes is None else sizes,
+                         reverse=True):
       self([make_image(i) for i in range(bucket)],
            np.arange(bucket, dtype=np.uint32))
 
@@ -159,19 +188,22 @@ class CEMFleetPolicy:
     return cem.seeded_noise(self._seed, seeds, self._iterations,
                             self._num_samples, self._action_size)
 
+  def ledger_key(self, bucket: int) -> str:
+    """The bucket's row in the executable ledger (the JAX key form)."""
+    tier = f"_{self.precision}" if self.precision != "f32" else ""
+    suffix = f"@{self.label}" if self.label is not None else ""
+    return f"cem_bucket_{bucket}{tier}{suffix}"
+
   def __call__(self, images: Sequence[np.ndarray],
                seeds: Optional[Sequence[int]] = None, *,
                variables=None, return_scores: bool = False,
                noise: Optional[np.ndarray] = None):
     """The control step for `images`: (n, A) actions, and with
     ``return_scores`` ``(actions, scores)``, the selected actions' Q
-    scores (the host path has none: ``(actions, None)``). `noise`
-    (n, iterations, N, A) replaces the seeds' draws."""
-    if variables is not None:
-      raise NotImplementedError(
-          "CEMFleetPolicy(variables=) scores a rollout candidate through "
-          "the live buckets, which waits for the rollout tier of "
-          "ROADMAP.md's flagship item 9.")
+    scores (the host path has none: ``(actions, None)``). `variables`
+    scores those variables in place of the predictor's live ones through
+    the same graphs; `noise` (n, iterations, N, A) replaces the seeds'
+    draws."""
     batch = np.stack([np.asarray(image) for image in images])
     n = batch.shape[0]
     seeds = (self.assign_seeds(n) if seeds is None
@@ -189,38 +221,104 @@ class CEMFleetPolicy:
     try:
       fn, live = self._predictor.device_fn()
     except NotImplementedError:
+      if variables is not None:
+        raise ValueError(
+            "variables override requires the predictor's device path "
+            "(the host fallback scores through predictor.predict, whose "
+            "params cannot be swapped per call).") from None
       actions = self._host_call(padded, padded_noise)[:n]
       return (actions, None) if return_scores else actions
-    with self._lock:
-      self._serve(live, version)
-      actions, scores = self._run(bucket, fn, padded, padded_noise)
+    device = self._device_for(live)
+    start = time.perf_counter()
+    with self.lock, self._on_stream(device):
+      self._serve(live, version, device)
+      if variables is None:
+        actions, scores = self._run(bucket, fn, padded, padded_noise)
+      else:
+        self._install(self._placed(variables, None, device))
+        try:
+          actions, scores = self._run(bucket, fn, padded, padded_noise)
+        finally:
+          self._install(self._placed(live, version, device))
+          if device.type == "cuda":
+            # The copy back reads tensors that other streams own: done
+            # before the lock is released.
+            torch.cuda.current_stream(device).synchronize()
+    if self._ledger is not None:
+      self._ledger.record_dispatch(self.ledger_key(bucket),
+                                   time.perf_counter() - start)
     return (actions[:n], scores[:n]) if return_scores else actions[:n]
 
   # -- the device path -------------------------------------------------------
 
-  def _placed(self, live):
-    """The served form of `live`: its int8 quantization under the int8
-    tier, else the variables themselves."""
-    if self.precision == "int8":
-      return cem.quantize_scoring_variables(live)
-    return live
+  def _device_for(self, live) -> torch.device:
+    """The pinned device, else the live variables' own."""
+    if self.device is not None:
+      return self.device
+    first = next(iter(live.values()))
+    return torch.as_tensor(first).device
 
-  def _serve(self, live, version) -> None:
+  @contextlib.contextmanager
+  def _on_stream(self, device: torch.device):
+    """On the GPU, the policy's own stream, ordered after the caller's
+    work (a hot reload's copies); nothing on the CPU."""
+    if device.type != "cuda":
+      yield
+      return
+    if self._stream is None:
+      self._stream = torch.cuda.Stream(device)
+    self._stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(self._stream):
+      yield
+
+  def _placed(self, variables, version, device: torch.device):
+    """The served form of `variables` on the policy's device (tensors from
+    any array; quantized under the int8 tier), placed once per tree and
+    version: the live variables after each reload, a rollout candidate
+    once. A candidate changed in place is not seen: pass a new tree."""
+    key = id(variables)
+    entry = self._placements.get(key)
+    if entry is not None and entry[0] is variables and entry[1] == version:
+      return entry[2]
+    placed = {k: torch.as_tensor(v).to(device) for k, v in variables.items()}
+    if self.precision == "int8":
+      placed = cem.quantize_scoring_variables(placed)
+    if len(self._placements) >= 4:  # live + candidate + their priors
+      self._placements.clear()
+    self._placements[key] = (variables, version, placed)
+    return placed
+
+  def _serve(self, live, version, device: torch.device) -> None:
     """Copies the predictor's variables into the policy's own copy when
     its version moved (under the lock): a hot reload, no rebuild. Under
     int8 the copy holds the quantized weights, and a reload quantizes
     into them."""
     if self._served is None:
-      self._served = {k: _clone(v) for k, v in self._placed(live).items()}
+      self._served = {k: _clone(v) for k, v in
+                      self._placed(live, version, device).items()}
     elif version != self._served_version:
-      if live.keys() != self._served.keys():
-        raise ValueError(
-            f"served variables changed keys: {sorted(live)} against "
-            f"{sorted(self._served)}")
-      with torch.no_grad():
-        for key, value in self._placed(live).items():
-          _copy_into(self._served[key], value)
+      self._install(self._placed(live, version, device))
     self._served_version = version
+
+  def _install(self, placed) -> None:
+    """Copies placed variables into the served copy the graphs read: the
+    same keys, shapes and dtypes, or ValueError before any copy."""
+    if placed.keys() != self._served.keys():
+      raise ValueError(
+          f"served variables changed keys: {sorted(placed)} against "
+          f"{sorted(self._served)}")
+    for key, target in self._served.items():
+      pairs = (target.items() if isinstance(target, dict)
+               else [(None, target)])
+      for part, tensor in pairs:
+        value = placed[key] if part is None else placed[key][part]
+        if value.shape != tensor.shape or value.dtype != tensor.dtype:
+          raise ValueError(
+              f"variables[{key!r}] is {tuple(value.shape)} {value.dtype}; "
+              f"the graphs read {tuple(tensor.shape)} {tensor.dtype}")
+    with torch.no_grad():
+      for key, value in placed.items():
+        _copy_into(self._served[key], value)
 
   def _control(self, fn, images: torch.Tensor, noise: torch.Tensor):
     """The fleet control step over the served copy: ((B, A) actions,
@@ -234,20 +332,23 @@ class CEMFleetPolicy:
 
   def _capture(self, fn, padded: torch.Tensor,
                padded_noise: torch.Tensor) -> _Graph:
-    """The bucket's graph: two eager warm-up steps on a side stream
-    (cuDNN's and cuBLAS's choices, the allocator), then the capture."""
-    device = padded.device
+    """The bucket's graph: two eager warm-up steps (cuDNN's and cuBLAS's
+    choices, the allocator), then the capture, into the policy's shared
+    pool unless ``share_graph_pool`` is off. Both run on the policy's own
+    stream: the caching allocator hands a freed block only to work on the
+    stream that freed it, so rungs captured on one stream reuse each
+    other's pool blocks, and rungs captured on fresh streams could not."""
     entry = _Graph(padded.clone(), padded_noise.clone())
-    stream = torch.cuda.Stream(device)
-    stream.wait_stream(torch.cuda.current_stream(device))
+    if self.share_graph_pool and self._pool is None:
+      self._pool = torch.cuda.graph_pool_handle()
+    pool = self._pool if self.share_graph_pool else None
     with torch.inference_mode():
-      with torch.cuda.stream(stream):
-        for _ in range(2):
-          self._control(fn, entry.images, entry.noise)
-      with graph_launches.capture(entry.graph, stream) as entry.tally:
+      for _ in range(2):
+        self._control(fn, entry.images, entry.noise)
+      with graph_launches.capture(entry.graph, self._stream,
+                                  pool=pool) as entry.tally:
         entry.best, entry.scores = self._control(fn, entry.images,
                                                  entry.noise)
-    torch.cuda.current_stream(device).wait_stream(stream)
     entry.host_actions = torch.empty_like(entry.best, device="cpu",
                                           pin_memory=True)
     entry.host_scores = torch.empty_like(entry.scores, device="cpu",
@@ -267,6 +368,12 @@ class CEMFleetPolicy:
     noise = torch.from_numpy(padded_noise)
     if key not in self._buckets:
       self.compile_counts[bucket] = self.compile_counts.get(bucket, 0) + 1
+      if self._ledger is not None:
+        self._ledger.register(
+            self.ledger_key(bucket), device=self.label,
+            dtype=self.precision,
+            shapes={"bucket": bucket, "num_samples": self._num_samples,
+                    "iterations": self._iterations})
       self._buckets[key] = (self._capture(fn, images.to(device),
                                           noise.to(device))
                             if device.type == "cuda" else None)

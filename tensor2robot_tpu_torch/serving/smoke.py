@@ -44,7 +44,9 @@ class TinyQPredictor(AbstractPredictor):
   def _fn(variables, features):
     image = features["image"].float()
     flat = image.reshape(image.shape[0], -1)
-    target = torch.tanh(flat @ variables["w"])
+    # A scoring tier's bf16 weight meets the float32 image at float32, as
+    # JAX promotes the pair.
+    target = torch.tanh(flat @ variables["w"].float())
     action = features["action"].float()
     return {"q_predicted": -((action - target) ** 2).sum(-1)}
 

@@ -619,12 +619,9 @@ class TestBenches:
   @pytest.mark.parametrize("call, item", [
       (lambda: precision_bench.measure_precision(skip_waiting=False),
        "item 15"),
-      (precision_bench._measure_rollout, "item 9"),
       (tpquant_bench._measure_tp_ladder, "item 15"),
-      (tpquant_bench._measure_rollout_int8, "item 9"),
       (None, None),
-  ], ids=["tier_ledger", "rollout", "tp_ladder", "int8_rollout",
-          "cast_seam"])
+  ], ids=["tier_ledger", "tp_ladder", "cast_seam"])
   def test_refusals_that_stay(self, call, item):
     if call is None:
       self._cast_seam_installs_at_the_live_dtype()

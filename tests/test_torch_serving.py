@@ -284,8 +284,7 @@ class TestPolicy:
       policy(images, noise=np.zeros((2, 1, 16, 4), np.float32))
 
   @pytest.mark.parametrize("kwargs, item", [
-      (dict(device="cuda:1"), "item 15"), (dict(param_specs={}), "item 15"),
-      (dict(ledger=object()), "item 15")])
+      (dict(param_specs={}), "item 15")])
   def test_refusals_name_their_items(self, kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
       _policy(**kwargs)
@@ -297,11 +296,6 @@ class TestPolicy:
     assert policy.precision == tier and policy.compile_counts == {2: 1}
     assert actions.shape == (2, 4) and scores.dtype == np.float32
     assert np.isfinite(scores).all() and np.abs(actions).max() <= 1.0
-
-  def test_variables_override_names_its_item(self):
-    predictor, policy = _policy()
-    with pytest.raises(NotImplementedError, match="item 9"):
-      policy(_images(1), variables=predictor.device_fn()[1])
 
 
 @pytest.fixture

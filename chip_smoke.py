@@ -119,6 +119,22 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   replica's memory), a profiled window's kernel overlap, a params
   rollout of a second checkpoint step promoted and a jittered candidate
   rolled back, with no capture.
+- slice 16 runs MAML through K1 and the training harness: ``maml_graph``
+  holds check_maml's model (the pose_env MAML regressor at 64x64,
+  GroupNorm, float32, 8 tasks of 4 + 4 scenes, 3 inner steps) as a
+  ``train_steps`` CUDA graph against eager meta-steps bit for bit at
+  second order (``autograd.grad(create_graph=True)`` inside the capture),
+  first order and with learned inner rates, and the MAML-wrapped mock with
+  dropout from generators registered with the graph; ``maml_check`` runs
+  the port's ``check_maml`` at the fast scale (800 meta-steps, 64 fresh
+  tasks) to the JAX bars (0.75 at half the object radius, a margin of
+  0.5 over the unadapted model) with K1's launches counted a meta-step
+  and an eval; ``maml_serve`` restores a MAML export on the card and
+  serves requests with condition data (adapt, then predict) equal to
+  ``inference_network_fn``'s; ``maml_harness`` trains
+  ``pose_env_maml_train.cfg`` through ``run_t2r_trainer`` with an async
+  export hook and a best exporter, then ``--mode continuous_eval`` over
+  its checkpoints, and restores the best export on the card.
 
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
@@ -1593,15 +1609,16 @@ def stacked(torch, batches, dev):
 
 
 def graph_vs_eager(torch, ss, gl, model, dev, seed: int, warm, stack,
-                   out_dir: str, name: str) -> dict:
+                   out_dir: str, name: str, profiled: bool = True) -> dict:
   """One K-stack trained as one ``train_steps`` CUDA graph and as K eager
   ``train_step`` calls from the same state (after the same warm-up
   steps, which the graphed trainer runs eagerly on its side stream): the
   two states and the last step's metrics must agree bit for bit (cuDNN
   deterministic). Then times both: host clock per step, device time per
-  step (CUDA events around a replay; the profiler over 10 eager steps),
-  kernels per step, idle share, peak memory, and the profiler's view of
-  one replay; and counts K1's launches through the replays."""
+  step (CUDA events around a replay; with `profiled`, the profiler over
+  10 eager steps), kernels per step, idle share, peak memory, and the
+  profiler's view of one replay; and counts K1's launches through the
+  replays."""
   from tensor2robot_tpu_torch.train.trainer import Trainer, _index
   deterministic = torch.backends.cudnn.deterministic
   torch.backends.cudnn.deterministic = True
@@ -1650,22 +1667,6 @@ def graph_vs_eager(torch, ss, gl, model, dev, seed: int, warm, stack,
       torch.cuda.synchronize()
       g_ms.append((time.perf_counter() - begin) * 1e3 / steps)
       device_ms_step.append(start_event.elapsed_time(end_event) / steps)
-  # One replay under the profiler: the graph's kernels, as the trace
-  # shows them (no host gaps inside a replay).
-  with replays, torch.profiler.profile(activities=[
-      torch.profiler.ProfilerActivity.CPU,
-      torch.profiler.ProfilerActivity.CUDA]) as prof:
-    torch.cuda.synchronize()
-    begin = time.perf_counter()
-    g_state, _ = graphed.train_steps(g_state, *stack)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - begin) * 1e3
-  trace = os.path.join(out_dir, f"{name}_graphed.json")
-  prof.export_chrome_trace(trace)
-  graphed_profile = trace_summary(trace, steps, wall_ms)
-  batches = [_index(stack, i) for i in range(PROFILED_STEPS + 3)]
-  e_state, profile = profile_steps(torch, eager, e_state, batches, out_dir,
-                                   f"{name}_eager")
   host_graph = float(np.median(g_ms))
   device_graph = float(np.median(device_ms_step))
   result = {
@@ -1682,6 +1683,31 @@ def graph_vs_eager(torch, ss, gl, model, dev, seed: int, warm, stack,
       "graphed_step_ms_median": host_graph,
       "graphed_device_ms_per_step": device_graph,
       "graphed_device_idle_share": 1.0 - device_graph / host_graph,
+      "peak_mib_graphed": peak / 2 ** 20,
+      "loss": float(e_metrics["loss"]),
+  }
+  if not result["bitwise_equal"]:
+    raise AssertionError(f"{name}: {steps} graphed steps differ from "
+                         f"{steps} eager ones: {diff}")
+  if not profiled:
+    return result
+  # One replay under the profiler: the graph's kernels, as the trace
+  # shows them (no host gaps inside a replay).
+  with replays, torch.profiler.profile(activities=[
+      torch.profiler.ProfilerActivity.CPU,
+      torch.profiler.ProfilerActivity.CUDA]) as prof:
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    g_state, _ = graphed.train_steps(g_state, *stack)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - begin) * 1e3
+  trace = os.path.join(out_dir, f"{name}_graphed.json")
+  prof.export_chrome_trace(trace)
+  graphed_profile = trace_summary(trace, steps, wall_ms)
+  batches = [_index(stack, i) for i in range(PROFILED_STEPS + 3)]
+  e_state, profile = profile_steps(torch, eager, e_state, batches, out_dir,
+                                   f"{name}_eager")
+  result.update({
       "graphed_profiled": {key: graphed_profile[key] for key in (
           "device_ms_per_step", "kernels_per_step", "device_idle_share")},
       "eager_device_ms_per_step": profile["device_ms_per_step"],
@@ -1689,12 +1715,7 @@ def graph_vs_eager(torch, ss, gl, model, dev, seed: int, warm, stack,
       "eager_device_idle_share_of_step": 1.0 - profile[
           "device_ms_per_step"] / float(np.median(e_ms)),
       "top_device_ms_per_step": profile["top_device_ms_per_step"],
-      "peak_mib_graphed": peak / 2 ** 20,
-      "loss": float(e_metrics["loss"]),
-  }
-  if not result["bitwise_equal"]:
-    raise AssertionError(f"{name}: {steps} graphed steps differ from "
-                         f"{steps} eager ones: {diff}")
+  })
   return result
 
 
@@ -4419,6 +4440,377 @@ def run_serve_router(torch, dev, seed: int, root: str, smi: str) -> dict:
   return result
 
 
+MAML_TASKS = 8  # check_maml's meta-batch
+MAML_INNER_STEPS = 3
+MAML_K1_PER_META_STEP = MAML_TASKS * (MAML_INNER_STEPS + 1)
+MAML_EVAL_TASKS = 64
+MAML_GRAPH_STEPS = 4  # a graphed stack
+MAML_WARM_STEPS = 2
+MAML_TIMED_STEPS = 5
+MAML_GRAPH_CASES = ("second_order", "first_order", "learned_rates",
+                    "mock_dropout")
+MAML_HARNESS_STEPS = 20
+MAML_HARNESS_SAVE = 10
+MAML_REQUEST_TASKS = (1, 8)
+
+
+def maml_model(variant: str = "second_order"):
+  """check_maml's model (the pose_env MAML regressor at 64x64, GroupNorm,
+  float32), or the MAML-wrapped mock with dropout and BatchNorm."""
+  from tensor2robot_tpu_torch.meta_learning import MAMLModel
+  from tensor2robot_tpu_torch.research.pose_env.pose_env_maml_models import (
+      pose_env_maml_model,
+  )
+  from tensor2robot_tpu_torch.utils.mocks import MockT2RModel
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+  if variant == "mock_dropout":
+    return MAMLModel(MockT2RModel(use_batch_norm=True), num_inner_steps=2,
+                     num_condition_samples=4, num_inference_samples=4)
+  return pose_env_maml_model(
+      num_inner_steps=MAML_INNER_STEPS, inner_lr=0.05,
+      num_condition_samples=4, num_inference_samples=4, image_size=64,
+      optimizer_fn=create_adam_optimizer(1e-3),
+      first_order=variant == "first_order",
+      learn_inner_lr=variant == "learned_rates")
+
+
+def maml_batches(torch, variant: str, seeds, dev):
+  """(K-stacked meta features, None) for the seeds: check_maml's
+  two-object tasks, or spec-conformant random ones for the mock."""
+  from tensor2robot_tpu_torch.research.pose_env import meta_reaching as mr
+  from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+  if variant == "mock_dropout":
+    spec = maml_model(variant).get_feature_specification("train")
+    metas = [ts.make_random_batch(spec, MAML_TASKS,
+                                  rng=np.random.default_rng(seed))
+             for seed in seeds]
+  else:
+    metas = [mr.sample_meta_batch(MAML_TASKS, 4, 4, seed=seed,
+                                  condition_label_noise=0.22)[0]
+             for seed in seeds]
+  return (ts.TensorSpecStruct(
+      (key, torch.from_numpy(np.stack([m[key] for m in metas])).to(dev))
+      for key in metas[0]), None)
+
+
+def time_maml_map(torch, ss, dev, seed: int) -> dict:
+  """K1 against its plain version on the map check_maml's tower hands it:
+  one task's 4 condition scenes at 64x64, float32, in the tower's
+  layout."""
+  from tensor2robot_tpu_torch.research.pose_env import meta_reaching as mr
+  model = maml_model()
+  variables = model.init_variables(torch.Generator().manual_seed(seed),
+                                   device=dev)
+  meta, _ = mr.sample_meta_batch(1, 4, 4, seed=seed)
+  images = torch.from_numpy(meta["condition/features/image"][0]).to(dev)
+  tower = {key.split(".", 1)[1]: value for key, value in variables.items()
+           if key.startswith("tower.")}
+  with torch.no_grad():
+    x = torch.func.functional_call(model.module.tower, tower, (images,))
+  got, want = ss.spatial_softmax(x), ss.spatial_softmax_reference(x)
+  bytes_ms = ((x.numel() + x.shape[0] * 2 * x.shape[3]) * x.element_size()
+              / _HBM_BYTES_PER_S * 1e3)
+  ops_ms = x.numel() * _SPATIAL_SOFTMAX_OPS_PER_ELEMENT / _F32_FLOPS * 1e3
+  return {"shape": list(x.shape), "strides": list(x.stride()),
+          "dtype": str(x.dtype)[6:],
+          "kernel": ss._kernel_for(x.shape, x.stride()),
+          "max_abs_err": float((got - want).abs().max()),
+          "ms": device_ms(torch, lambda: ss.spatial_softmax(x)),
+          "plain_ms": device_ms(torch,
+                                lambda: ss.spatial_softmax_reference(x)),
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def run_maml_check(torch, ss, gl, dev, seed: int, root: str, smi: str,
+                   step_times: dict) -> dict:
+  """Slice 16's path 1: the port's check_maml at the fast scale (800
+  meta-steps of 8 two-object tasks, 3 inner steps, as CUDA graph replays
+  of MAML_ITERATIONS_PER_LOOP meta-steps; 64 fresh tasks scored adapted
+  and unadapted): the JAX bars must hold, and K1 must launch 8 x (3 + 1)
+  times a meta-step and 4 (adapted) or 1 (unadapted) times a task in
+  eval. `step_times`: the same meta-step's eager and graphed times from
+  ``run_maml_graph``'s second-order case; then K1 on its map."""
+  from tensor2robot_tpu_torch.bin import run_capability_checks as checks
+  start = time.perf_counter()
+  reset_spatial_softmax_counts(ss)
+  with CountReplays(gl) as replays:
+    result = checks.check_maml("fast", root, dev.type)
+  launches = dict(ss.spatial_softmax.launches_by_kernel)
+  steps = checks._SCALES["maml"]["fast"]["steps"]
+  bar = checks._EXPECT[("maml", "fast")]
+  result.update({
+      "scale": checks._SCALES["maml"]["fast"], "bar": bar,
+      "margin_bar": 0.5, "margin": result["success_rate_at_object_radius"]
+      - result["unadapted_success_rate"],
+      "k1_launches": launches, "graph_replays": replays.replays,
+      "k1_launches_from_replays": replays.launches,
+      "k1_launches_per_meta_step": result["k1_launches_train"] / steps,
+      "k1_launches_per_eval_task_adapted":
+          result["k1_launches_eval_adapted"] / MAML_EVAL_TASKS,
+      "k1_launches_per_eval_task_unadapted":
+          result["k1_launches_eval_unadapted"] / MAML_EVAL_TASKS,
+      "check_seconds": time.perf_counter() - start})
+  result.update({
+      "eager_meta_step_ms_median": step_times["eager_step_ms_median"],
+      "graphed_meta_step_ms_median": step_times["graphed_step_ms_median"],
+      "graphed_device_ms_per_meta_step":
+          step_times["graphed_device_ms_per_step"]})
+  result["k1_timing"] = time_maml_map(torch, ss, dev, seed)
+  result["seconds"] = time.perf_counter() - start
+  emit("maml_check", card=smi, **result)
+  want = {"train": steps * MAML_K1_PER_META_STEP,
+          "eval_adapted": MAML_EVAL_TASKS * (MAML_INNER_STEPS + 1),
+          "eval_unadapted": MAML_EVAL_TASKS}
+  got = {key: result[f"k1_launches_{key}"] for key in want}
+  if got != want or sum(launches.values()) != sum(want.values()):
+    raise AssertionError(f"maml_check K1 launches {got} {launches}; "
+                         f"want {want}")
+  if not (result["success_rate_at_half_radius"] >= bar
+          and result["adapted_vs_unadapted_margin_ok"]
+          and result["margin"] >= 0.5):
+    raise AssertionError(f"maml_check missed the JAX bars: {result}")
+  return result
+
+
+def run_maml_graph(torch, ss, gl, dev, seed: int, root: str,
+                   smi: str) -> dict:
+  """MAML's meta-steps as one train_steps CUDA graph against the same
+  steps eagerly, bit for bit with cuDNN deterministic: check_maml's model
+  at second order (the outer gradient through autograd.grad(create_graph)
+  inside the capture), first order and with learned inner rates, then the
+  MAML-wrapped mock with dropout (its masks from the generators the graph
+  registers). K1 launches 32 times a pose_env meta-step through the
+  replay; its plain version runs only in the second-order backward (24
+  times an eager meta-step), never in the forward."""
+  result = {}
+  for variant in MAML_GRAPH_CASES:
+    start = time.perf_counter()
+    model = maml_model(variant)
+    warm = maml_batches(torch, variant,
+                        range(seed, seed + MAML_WARM_STEPS), dev)
+    stack = maml_batches(torch, variant, range(
+        seed + MAML_WARM_STEPS,
+        seed + MAML_WARM_STEPS + MAML_GRAPH_STEPS), dev)
+    reset_spatial_softmax_counts(ss)
+    with CountPlainSpatialSoftmax(ss) as plain:
+      case = graph_vs_eager(torch, ss, gl, model, dev, seed, warm, stack,
+                            root, f"maml_graph_{variant}", profiled=False)
+    case["plain_cuda_calls"] = plain.cuda_calls
+    case["k1_launches_phase"] = dict(ss.spatial_softmax.launches_by_kernel)
+    case["seconds"] = time.perf_counter() - start
+    emit("maml_graph_case", card=smi, variant=variant, **case)
+    per_step = 0 if variant == "mock_dropout" else MAML_K1_PER_META_STEP
+    # The plain version runs in the second-order backward of each eager or
+    # captured meta-step's inner steps: both trainers' warm-ups, the
+    # capture and the eager stack.
+    python_steps = 2 * MAML_WARM_STEPS + 2 * MAML_GRAPH_STEPS
+    plain_want = (MAML_TASKS * MAML_INNER_STEPS * python_steps
+                  if variant in ("second_order", "learned_rates") else 0)
+    if (case["k1_launches_graphed"] != MAML_GRAPH_STEPS * per_step
+        or case["k1_launches_eager"] != MAML_GRAPH_STEPS * per_step
+        or case["plain_cuda_calls"] != plain_want):
+      raise AssertionError(f"maml_graph {variant}: K1 launches or plain "
+                           f"calls (want {plain_want}) {case}")
+    result[variant] = {key: case[key] for key in (
+        "bitwise_equal", "eager_step_ms_median", "graphed_step_ms_median",
+        "graphed_device_ms_per_step", "capture_and_first_replay_ms",
+        "k1_launches_graphed", "k1_launches_phase", "plain_cuda_calls",
+        "seconds")}
+  return result
+
+
+def maml_request(tasks: int, seed: int) -> dict:
+  from tensor2robot_tpu_torch.research.pose_env import meta_reaching as mr
+  meta, _ = mr.sample_meta_batch(tasks, 4, 4, seed=seed,
+                                 condition_label_noise=0.22)
+  return dict(meta.items())
+
+
+def run_maml_serve(torch, ss, dev, seed: int, root: str, smi: str) -> dict:
+  """Slice 16's path 3: check_maml's model exported by
+  NativeExportGenerator and restored by ExportedModelPredictor on cuda;
+  a request carries condition data and adapts before the forward. Its
+  outputs equal inference_network_fn's on the same variables (cuDNN
+  deterministic), new condition labels change them, and requests of 1
+  and 8 tasks are timed."""
+  from tensor2robot_tpu_torch import modes
+  from tensor2robot_tpu_torch.export import export_utils
+  from tensor2robot_tpu_torch.export.native_export_generator import (
+      NativeExportGenerator,
+  )
+  from tensor2robot_tpu_torch.predictors.exported_model_predictor import (
+      ExportedModelPredictor,
+  )
+  from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+  start = time.perf_counter()
+  model = maml_model()
+  variables = model.init_variables(torch.Generator().manual_seed(seed),
+                                   device="cpu")
+  generator = NativeExportGenerator(export_root=os.path.join(root, "maml"))
+  generator.set_specification_from_model(model)
+  export_utils.export_and_gc(generator, variables, keep=1)
+  predictor = ExportedModelPredictor(model, generator.export_root)
+  if not predictor.restore() or predictor.device.type != "cuda":
+    raise AssertionError("the MAML export did not restore on cuda")
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  request = maml_request(1, seed + 21)
+  reset_spatial_softmax_counts(ss)
+  served = predictor.predict(request)
+  launches = dict(ss.spatial_softmax.launches_by_kernel)
+  fn, served_vars = predictor.device_fn()
+  with torch.no_grad():
+    direct, _ = model.inference_network_fn(
+        served_vars, ts.TensorSpecStruct(
+            (k, torch.from_numpy(v).to(dev)) for k, v in request.items()),
+        modes.PREDICT)
+  direct_err = float(np.abs(served["inference_output"] - direct[
+      "inference_output"].float().cpu().numpy()).max())
+  moved = dict(request)
+  moved["condition/labels/target_pose"] = -request[
+      "condition/labels/target_pose"]
+  moved_delta = float(np.abs(predictor.predict(moved)["inference_output"]
+                             - served["inference_output"]).max())
+  torch.backends.cudnn.deterministic = deterministic
+  timings = {}
+  for tasks in MAML_REQUEST_TASKS:
+    batch = maml_request(tasks, seed + 22)
+    timings[f"request_ms_{tasks}_tasks"] = host_ms(
+        torch, lambda: predictor.predict(batch), reps=16)
+  result = {"request_tasks": 1, "k1_launches_request": launches,
+            "k1_launches_phase": dict(
+                ss.spatial_softmax.launches_by_kernel),
+            "served_vs_inference_network_fn_max_abs": direct_err,
+            "moved_condition_labels_max_delta": moved_delta,
+            "outputs_shape": list(served["inference_output"].shape),
+            "condition_loss": served["condition_loss"].tolist(),
+            **timings, "seconds": time.perf_counter() - start}
+  emit("maml_serve", card=smi, **result)
+  if not (sum(launches.values()) == MAML_INNER_STEPS + 1
+          and direct_err == 0.0 and moved_delta > 1e-4
+          and np.isfinite(served["inference_output"]).all()
+          and result["outputs_shape"] == [1, 4, 2]):
+    raise AssertionError(f"maml_serve: {result}")
+  return result
+
+
+def _best_exporter_only(model):
+  from tensor2robot_tpu_torch.export.exporters import BestExporter
+  from tensor2robot_tpu_torch.export.native_export_generator import (
+      NativeExportGenerator,
+  )
+  del model
+  return [BestExporter(NativeExportGenerator(), metric_key="loss")]
+
+
+def run_maml_harness(torch, ss, dev, seed: int, root: str, smi: str) -> dict:
+  """Slice 16's path 2: pose_env_maml_train.cfg through run_t2r_trainer on
+  cuda (20 meta-steps, checkpoints every 10) with an AsyncExportHook
+  publishing each checkpoint under export/latest while training runs and
+  a BestExporter after each eval under export/best; then --mode
+  continuous_eval over the same model_dir evaluates each checkpoint once
+  and stops, and the best export restores on cuda."""
+  from tensor2robot_tpu_torch import config
+  from tensor2robot_tpu_torch.bin import run_t2r_trainer
+  from tensor2robot_tpu_torch.export import export_utils
+  from tensor2robot_tpu_torch.predictors.exported_model_predictor import (
+      ExportedModelPredictor,
+  )
+  from tensor2robot_tpu_torch.research.pose_env.pose_env_maml_models import (
+      pose_env_maml_model,
+  )
+  start = time.perf_counter()
+  cfg = os.path.join("tensor2robot_tpu_torch", "research", "pose_env",
+                     "configs", "pose_env_maml_train.cfg")
+  model_dir = os.path.join(root, "maml_run")
+  common = ["--config", os.path.join(_ROOT, cfg), "--import_module",
+            "tensor2robot_tpu_torch.research.pose_env.pose_env_maml_models",
+            "--model_dir", model_dir]
+  config.clear_config()
+  config.configurable(_best_exporter_only, name="chip_smoke_best_exporter")
+  reset_spatial_softmax_counts(ss)
+  train_start = time.perf_counter()
+  rc = run_t2r_trainer.main(common + [
+      "--binding", f"train_eval_model.max_train_steps = {MAML_HARNESS_STEPS}",
+      "--binding",
+      f"train_eval_model.save_checkpoints_steps = {MAML_HARNESS_SAVE}",
+      "--binding", "train_eval_model.log_every_steps = 5",
+      "--binding", "train_eval_model.hook_builders = "
+                   "[@AsyncExportHookBuilder()]",
+      "--binding", "AsyncExportHookBuilder.export_generator = "
+                   "@NativeExportGenerator()",
+      "--binding", "train_eval_model.input_generator_eval = "
+                   "@DefaultRandomInputGenerator()",
+      "--binding", "train_eval_model.eval_steps = 2",
+      "--binding",
+      f"train_eval_model.eval_interval_steps = {MAML_HARNESS_SAVE}",
+      "--binding", "train_eval_model.create_exporters_fn = "
+                   "@chip_smoke_best_exporter"])
+  train_s = time.perf_counter() - train_start
+  train_launches = dict(ss.spatial_softmax.launches_by_kernel)
+  latest = export_utils.list_export_versions(
+      os.path.join(model_dir, "export", "latest"))
+  best = export_utils.list_export_versions(
+      os.path.join(model_dir, "export", "best"))
+  checkpoints = sorted(int(d) for d in os.listdir(
+      os.path.join(model_dir, "checkpoints")) if d.isdigit())
+  config.clear_config()
+  eval_start = time.perf_counter()
+  eval_rc = run_t2r_trainer.main(common + [
+      "--mode", "continuous_eval",
+      "--binding", "continuous_eval_model.model = @pose_env_maml_model()",
+      "--binding", "continuous_eval_model.input_generator_eval = "
+                   "@DefaultRandomInputGenerator()",
+      "--binding", "continuous_eval_model.eval_steps = 2",
+      "--binding", "continuous_eval_model.poll_interval_s = 0.2",
+      "--binding", "continuous_eval_model.timeout_s = 5.0",
+      "--binding", f"continuous_eval_model.stop_after_step = "
+                   f"{MAML_HARNESS_STEPS}"])
+  eval_s = time.perf_counter() - eval_start
+  config.clear_config()
+  with open(os.path.join(model_dir, "eval", "metrics.jsonl")) as f:
+    evaluated = [json.loads(line) for line in f]
+  model = pose_env_maml_model()
+  predictor = ExportedModelPredictor(
+      model, os.path.join(model_dir, "export", "best"))
+  restored = predictor.restore() and predictor.device.type == "cuda"
+  out = predictor.predict(maml_request(2, seed + 23))
+  result = {"k1_launches_phase": dict(ss.spatial_softmax.launches_by_kernel),
+"train_rc": rc, "continuous_eval_rc": eval_rc,
+            "checkpoints": checkpoints, "async_exports": latest,
+            "best_exports": best,
+            "continuous_eval_steps": [r["step"] for r in evaluated],
+            "continuous_eval_loss": [r.get("eval/loss") for r in evaluated],
+            "best_restored_on_cuda": bool(restored),
+            "best_export_version": predictor.model_version,
+            "k1_launches_train_and_eval": train_launches,
+            "train_s": train_s, "continuous_eval_s": eval_s,
+            "seconds": time.perf_counter() - start}
+  emit("maml_harness", card=smi, **result)
+  if not (rc == 0 and eval_rc == 0
+          and checkpoints == [MAML_HARNESS_SAVE, MAML_HARNESS_STEPS]
+          and len(latest) == 2 and best
+          and result["continuous_eval_steps"] == checkpoints
+          and result["best_restored_on_cuda"]
+          and np.isfinite(out["inference_output"]).all()):
+    raise AssertionError(f"maml_harness: {result}")
+  return result
+
+
+def run_maml(torch, ss, gl, dev, seed: int, root: str, smi: str) -> dict:
+  """Slice 16's main paths, each with the launch counts set to 0 just
+  before it."""
+  graph = run_maml_graph(torch, ss, gl, dev, seed, root, smi)
+  return {
+      "graph": graph,
+      "check": run_maml_check(torch, ss, gl, dev, seed, root, smi,
+                              graph["second_order"]),
+      "serve": run_maml_serve(torch, ss, dev, seed, root, smi),
+      "harness": run_maml_harness(torch, ss, dev, seed, root, smi),
+  }
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=0)
@@ -4649,6 +5041,26 @@ def main(argv=None) -> int:
     emit("serve_router", seconds=time.perf_counter() - start,
          **router_result)
 
+  # Slice 16's main paths: MAML through K1's forward and its second-order
+  # outer gradient (the check, the graphs, meta-serving), and the training
+  # harness it runs through.
+  with tempfile.TemporaryDirectory() as tmp:
+    start = time.perf_counter()
+    maml = run_maml(torch, ss, gl, dev, args.seed, tmp, smi)
+    maml_launches = {
+        "maml_check": maml["check"]["k1_launches"],
+        **{f"maml_graph_{variant}": case["k1_launches_phase"]
+           for variant, case in maml["graph"].items()},
+        "maml_serve": maml["serve"]["k1_launches_phase"],
+        "maml_harness": maml["harness"]["k1_launches_phase"]}
+    emit("maml", seconds=time.perf_counter() - start,
+         success_rate_at_half_radius=maml["check"][
+             "success_rate_at_half_radius"],
+         margin=maml["check"]["margin"],
+         graphs_bitwise_equal={k: v["bitwise_equal"]
+                               for k, v in maml["graph"].items()},
+         k1_launches=maml_launches)
+
   timing = time_spatial_softmax(torch, ss, feature_map)
   emit("kernel_timing", spatial_softmax=timing)
   # K1 on the map the train step hands it, where its layout differs.
@@ -4675,18 +5087,27 @@ def main(argv=None) -> int:
       "launches": (launches + POSE_STEPS + REACH_EPISODES + len(
           RECORD_SEEDS) * (POSE_STEPS + REACH_EPISODES + 2)
                    + sum(graphed_pose["k1_launches_phase"].values())
-                   + accum["k1_launches"]),
+                   + accum["k1_launches"]
+                   + sum(sum(v.values()) for v in maml_launches.values())),
       "launches_by_path": {
           "serve_slice": by_kernel, "pose_train": pose["k1_launches_training"],
           "pose_reach": pose["k1_launches_served"],
           **{f"pose_records_{r['seed']}_{part}": r[f"k1_launches_{part}"]
              for r in records[1:] for part in ("training", "served")},
           "pose_graph": graphed_pose["k1_launches_phase"],
-          "grad_accum": {"channels": accum["k1_launches"]}},
+          "grad_accum": {"channels": accum["k1_launches"]},
+          **maml_launches},
+      "maml_k1_launches_per_meta_step": maml["check"][
+          "k1_launches_per_meta_step"],
+      "maml_k1_launches_per_eval": {
+          "adapted": maml["check"]["k1_launches_eval_adapted"],
+          "unadapted": maml["check"]["k1_launches_eval_unadapted"]},
+      "maml_map": maml["check"]["k1_timing"],
       "launches_from_graph_replays": {
           **{f"pose_records_{r['seed']}": r["k1_launches_from_replays"]
              for r in records[1:]},
-          "pose_graph": graphed_pose["k1_launches_from_replays"]},
+          "pose_graph": graphed_pose["k1_launches_from_replays"],
+          "maml_check": maml["check"]["k1_launches_from_replays"]},
       "kernel": main_row["kernel"],
       "max_abs_err": main_row["max_abs_err"],
       "ms": main_row["ms"],

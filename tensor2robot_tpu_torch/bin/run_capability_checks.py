@@ -9,9 +9,12 @@ through ``train_eval_model`` with ``iterations_per_loop=50`` into a
 ``model_dir``, the native export, serving) and prints its measured
 outcome beside its bar, the JAX package's ``_EXPECT``. The exit code is
 non-zero when a check misses its bar. ``--device`` (default ``cuda``;
-``cpu`` on a machine without a GPU) is where everything runs. grasp2vec,
-vrgripper and maml raise NotImplementedError naming the ROADMAP.md item
-they wait for.
+``cpu`` on a machine without a GPU) is where everything runs. maml
+meta-trains the pose_env MAML regressor on two-object reaching tasks
+through ``Trainer.train_steps`` (on the GPU one CUDA graph replay for
+``MAML_ITERATIONS_PER_LOOP`` meta-steps) and scores adapted predictions on
+fresh tasks, as the JAX check does. grasp2vec and vrgripper raise
+NotImplementedError naming the ROADMAP.md item they wait for.
 """
 
 from __future__ import annotations
@@ -48,6 +51,9 @@ _EXPECT = {
     ("maml", "fast"): 0.75, ("maml", "full"): 0.80,
 }
 ITERATIONS_PER_LOOP = 50
+# check_maml's meta-steps a dispatch: a meta-step is ~18,000 kernels, so a
+# shorter stack keeps the eager first stack and the capture short.
+MAML_ITERATIONS_PER_LOOP = 10
 
 
 def _train_and_restore_predictor(model, record_path, steps, run_dir,
@@ -158,6 +164,110 @@ def check_qtopt(scale: str, workdir: str, device: str) -> dict:
           "cem_step_ms_median": float(np.median(control_ms))}
 
 
+def _k1_launches() -> int:
+  """K1's kernel launches so far (graph replays included)."""
+  from tensor2robot_tpu_torch.ops.spatial_softmax import spatial_softmax
+  return spatial_softmax.launches
+
+
+def check_maml(scale: str, workdir: str, device: str) -> dict:
+  import torch
+
+  from tensor2robot_tpu_torch.research.pose_env import meta_reaching as mr
+  from tensor2robot_tpu_torch.research.pose_env.pose_env_maml_models import (
+      pose_env_maml_model,
+  )
+  from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+
+  del workdir
+  knobs = _SCALES["maml"][scale]
+  k_c = k_i = 4
+  tasks = 8
+  # Noisy demonstrations: condition labels jittered by the object radius
+  # at train and eval, so success grades how well the adapted model
+  # integrates K noisy examples (the JAX check's regime and seeds).
+  noise = 0.22
+
+  def build(num_inner_steps):
+    return pose_env_maml_model(
+        num_inner_steps=num_inner_steps, inner_lr=0.05,
+        num_condition_samples=k_c, num_inference_samples=k_i,
+        image_size=knobs["image"],
+        optimizer_fn=create_adam_optimizer(1e-3))
+
+  def to_device(array):
+    tensor = torch.from_numpy(array)
+    if device == "cpu":
+      return tensor
+    # Pinned and asynchronous: the host draws the next stack while the
+    # card replays this one.
+    return tensor.pin_memory().to(device, non_blocking=True)
+
+  def meta_batches(seeds):
+    metas = [mr.sample_meta_batch(tasks, k_c, k_i, image_size=knobs["image"],
+                                  seed=seed, condition_label_noise=noise)[0]
+             for seed in seeds]
+    return ts.TensorSpecStruct(
+        (key, to_device(np.stack([m[key] for m in metas])))
+        for key in metas[0])
+
+  model = build(3)
+  trainer = Trainer(model, seed=0, device=device)
+  state = trainer.create_train_state()
+  launches = _k1_launches()
+  start = time.perf_counter()
+  for first in range(0, knobs["steps"], MAML_ITERATIONS_PER_LOOP):
+    seeds = range(100_000 + first, 100_000 + min(
+        first + MAML_ITERATIONS_PER_LOOP, knobs["steps"]))
+    state, metrics = trainer.train_steps(state, meta_batches(seeds), None)
+  outer_loss = float(metrics["outer_loss"])  # waits for the last step
+  train_s = time.perf_counter() - start
+  train_launches = _k1_launches() - launches
+
+  meta, info = mr.sample_meta_batch(64, k_c, k_i, image_size=knobs["image"],
+                                    seed=9999, condition_label_noise=noise)
+  features = ts.TensorSpecStruct(
+      (key, torch.from_numpy(value).to(device)) for key, value in meta.items())
+  variables = state.variables()
+  eval_launches = {}
+
+  def predictions(name, m_eval):
+    launches = _k1_launches()
+    with torch.no_grad():  # adaptation enables grad for itself
+      out, _ = m_eval.inference_network_fn(variables, features, "eval")
+    eval_launches[name] = _k1_launches() - launches
+    return out["inference_output"].float().cpu().numpy()
+
+  # The gate: half the object radius under the condition noise; the full
+  # radius from the same predictions, and the adapted-unadapted margin
+  # there, as a second check against a total collapse.
+  tight = mr.OBJECT_RADIUS / 2
+  adapted_preds = predictions("adapted", model)
+  adapted = mr.reach_success(adapted_preds, info, radius=tight)
+  adapted_full = mr.reach_success(adapted_preds, info,
+                                  radius=mr.OBJECT_RADIUS)
+  unadapted = mr.reach_success(predictions("unadapted", build(0)), info,
+                               radius=mr.OBJECT_RADIUS)
+  margin_ok = (adapted_full["success_rate"]
+               >= unadapted["success_rate"] + 0.5)
+  return {"success_rate": (adapted["success_rate"] if margin_ok
+                           else 0.0),
+          "success_rate_at_half_radius": adapted["success_rate"],
+          "success_rate_at_object_radius": adapted_full["success_rate"],
+          "unadapted_success_rate": unadapted["success_rate"],
+          "adapted_vs_unadapted_margin_ok": margin_ok,
+          "final_outer_loss": outer_loss,
+          "train_s": train_s,
+          "steps_per_dispatch": MAML_ITERATIONS_PER_LOOP,
+          "k1_launches_train": train_launches,
+          "k1_launches_eval_adapted": eval_launches["adapted"],
+          "k1_launches_eval_unadapted": eval_launches["unadapted"],
+          "metric": f"query reach within {tight:g} (half object "
+                    "radius), gated on adapted-unadapted margin"}
+
+
 def _waiting(item: str):
   def check(scale: str, workdir: str, device: str) -> dict:
     raise NotImplementedError(f"this check waits for ROADMAP.md {item}.")
@@ -169,7 +279,7 @@ _CHECKS = {
     "qtopt": check_qtopt,
     "grasp2vec": _waiting("the flagship list's item 14, grasp2vec"),
     "vrgripper": _waiting("the flagship list's item 14, vrgripper"),
-    "maml": _waiting("the flagship list's item 12, MAML"),
+    "maml": check_maml,
 }
 
 

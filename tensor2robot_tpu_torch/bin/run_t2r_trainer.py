@@ -7,10 +7,13 @@
         --model_dir /tmp/pose_env/run1
 
 Counterpart of ``tensor2robot_tpu/bin/run_t2r_trainer.py``: the model,
-input generators and export are injected through the config system.
-``--device`` (default ``cuda``; ``cpu`` on a machine without a GPU) goes to
-``train_eval_model`` as a call-site argument, not a binding, so it never
-enters the operative config.
+input generators, export, hooks and exporters are injected through the
+config system. ``--mode continuous_eval`` runs the evaluator job
+(``continuous_eval_model``, configured by ``continuous_eval_model.*``
+bindings) over ``--model_dir``'s checkpoints. ``--device`` (default
+``cuda``; ``cpu`` on a machine without a GPU) goes to the entry point as a
+call-site argument, not a binding, so it never enters the operative
+config.
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ import logging
 import sys
 
 from tensor2robot_tpu_torch import config as t2r_config
-from tensor2robot_tpu_torch.train.train_eval import train_eval_model
+from tensor2robot_tpu_torch.train.train_eval import (
+    continuous_eval_model,
+    train_eval_model,
+)
 
 
 def main(argv=None) -> int:
@@ -40,14 +46,12 @@ def main(argv=None) -> int:
                                          "continuous_eval"),
                       default="train_and_eval",
                       help="train_and_eval runs train_eval_model; "
-                           "continuous_eval waits for ROADMAP.md item 13")
+                           "continuous_eval runs the evaluator job over "
+                           "model_dir's checkpoints (continuous_eval_model."
+                           "* bindings)")
   parser.add_argument("--device", default="cuda",
                       help="cuda (the default) or cpu")
   args = parser.parse_args(argv)
-  if args.mode == "continuous_eval":
-    raise NotImplementedError(
-        "--mode continuous_eval waits for ROADMAP.md item 13, the training "
-        "harness: continuous_eval_model.")
 
   logging.basicConfig(
       level=logging.INFO,
@@ -60,8 +64,16 @@ def main(argv=None) -> int:
 
   t2r_config.parse_config_files_and_bindings(args.config, args.binding)
   if args.model_dir:
-    t2r_config.bind("train_eval_model.model_dir", args.model_dir)
+    target = ("continuous_eval_model.model_dir"
+              if args.mode == "continuous_eval"
+              else "train_eval_model.model_dir")
+    t2r_config.bind(target, args.model_dir)
 
+  if args.mode == "continuous_eval":
+    results = continuous_eval_model(device=args.device)
+    logging.info("Evaluated %d checkpoints: %s", len(results),
+                 sorted(results))
+    return 0
   result = train_eval_model(device=args.device)
   logging.info("Final train metrics: %s", result.train_metrics)
   logging.info("Final eval metrics: %s", result.eval_metrics)

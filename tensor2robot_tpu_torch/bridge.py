@@ -20,6 +20,13 @@ A params-only tree (the EMA copy a JAX ``TrainState`` keeps in
 ``ema_params``) maps with ``params_to_state_dict`` onto the module's
 parameters alone.
 
+A MAML model that learns its inner rates keeps, in JAX,
+``params = {"base": <the base's params>, "inner_lrs": <the same tree, one
+scalar a leaf>}`` (``tensor2robot_tpu/meta_learning/maml_model.py``). The
+base maps as above; the rate at ``params/inner_lrs/<path>`` maps, as it is,
+to ``inner_lrs.<key>``, where ``<key>`` is the state_dict key of the base
+leaf at ``params/base/<path>``.
+
 Both directions raise on any leaf they cannot map, and the flax->torch
 direction also on any key of the module that no leaf fills: nothing is
 skipped.
@@ -35,6 +42,7 @@ from torch import nn
 from tensor2robot_tpu_torch.export.variables_io import to_tensor
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
+INNER_RATES = "inner_lrs"  # MAML's learned inner rates (see the docstring)
 _STATS_BACK = {v: k for k, v in _STATS.items()}
 # Top-level parameters that keep their flax name and layout (the
 # flagship's space-to-depth stem; the serving smokes' TinyQ ``w``).
@@ -108,58 +116,98 @@ def params_to_state_dict(params: Mapping[str, Any],
                    type(module).__name__)
 
 
+def _split_rates(variables: Mapping[str, Any]):
+  """(variables with the base's params, the MAML rates tree or None)."""
+  params = variables.get("params")
+  if isinstance(params, Mapping) and set(params) == {"base", INNER_RATES}:
+    return {**variables, "params": params["base"]}, params[INNER_RATES]
+  return variables, None
+
+
 def _map_onto(variables: Mapping[str, Any],
               expected: Mapping[str, torch.Tensor],
               owner: str) -> Dict[str, torch.Tensor]:
-  out: Dict[str, torch.Tensor] = {}
+  variables, rates = _split_rates(variables)
+  mapped = []  # (flax path with its collection, state_dict key, tensor)
   for collection, tree in variables.items():
     if not isinstance(tree, Mapping):
       raise KeyError(f"Flax collection {collection!r} is not a tree.")
     for path, leaf in _leaves(tree):
-      key, tensor = _to_torch(collection, path, leaf)
-      if key not in expected:
-        raise KeyError(
-            f"Flax leaf {'/'.join((collection,) + path)!r} maps to {key!r}, "
-            f"which {owner} does not have.")
-      if tuple(tensor.shape) != tuple(expected[key].shape):
-        raise ValueError(
-            f"{key!r}: flax gives shape {tuple(tensor.shape)}, the module "
-            f"has {tuple(expected[key].shape)}.")
-      out[key] = tensor.to(expected[key].dtype).contiguous()
+      mapped.append(((collection,) + path,)
+                    + _to_torch(collection, path, leaf))
+  if rates is not None:
+    base_keys = {where[1:]: key for where, key, _ in mapped
+                 if where[0] == "params"}
+    for path, leaf in _leaves(rates):
+      where = ("params", INNER_RATES) + path
+      if path not in base_keys:
+        raise KeyError(f"Flax leaf {'/'.join(where)!r} has no base "
+                       "parameter at its path.")
+      mapped.append((where, f"{INNER_RATES}.{base_keys[path]}", to_tensor(leaf)))
+  out: Dict[str, torch.Tensor] = {}
+  for where, key, tensor in mapped:
+    if key not in expected:
+      raise KeyError(f"Flax leaf {'/'.join(where)!r} maps to {key!r}, which "
+                     f"{owner} does not have.")
+    if tuple(tensor.shape) != tuple(expected[key].shape):
+      raise ValueError(
+          f"{key!r}: flax gives shape {tuple(tensor.shape)}, the module "
+          f"has {tuple(expected[key].shape)}.")
+    out[key] = tensor.to(expected[key].dtype).contiguous()
   missing = sorted(set(expected) - set(out))
   if missing:
     raise KeyError(f"Flax variables leave module keys unfilled: {missing}")
   return {key: out[key] for key in expected}  # in the module's order
 
 
+def _to_flax(key: str, tensor: torch.Tensor) -> tuple:
+  """(collection, flax path, tensor) of one state_dict entry; raises if
+  unmapped."""
+  *scope, name = key.split(".")
+  if not scope and name in _VERBATIM:
+    return "params", (name,), tensor
+  if name == "weight" and tensor.dim() == 4:
+    collection, leaf, tensor = "params", "kernel", tensor.permute(2, 3, 1, 0)
+  elif name == "weight" and tensor.dim() == 3:
+    collection, leaf, tensor = "params", "kernel", tensor.permute(2, 1, 0)
+  elif name == "weight" and tensor.dim() == 2:
+    collection, leaf, tensor = "params", "kernel", tensor.t()
+  elif name == "weight" and tensor.dim() == 1:
+    collection, leaf = "params", "scale"
+  elif name == "bias":
+    collection, leaf = "params", "bias"
+  elif name in _STATS_BACK:
+    collection, leaf = "batch_stats", _STATS_BACK[name]
+  else:
+    raise KeyError(f"state_dict key {key!r} has no flax counterpart.")
+  if not scope:
+    raise KeyError(f"state_dict key {key!r} has no module scope.")
+  return collection, tuple(scope) + (leaf,), tensor
+
+
+def _insert(tree: Dict[str, Any], path, tensor: torch.Tensor) -> None:
+  *scope, leaf = path
+  for part in scope:
+    tree = tree.setdefault(part, {})
+  tree[leaf] = tensor.contiguous()
+
+
 def state_dict_to_variables(
     state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
   """Inverse of `variables_to_state_dict`: nested dicts of CPU tensors."""
   tree: Dict[str, Any] = {}
+  rates: Dict[str, Any] = {}
   for key, tensor in state_dict.items():
-    *scope, name = key.split(".")
     tensor = tensor.detach().cpu()
-    if not scope and name in _VERBATIM:
-      tree.setdefault("params", {})[name] = tensor.contiguous()
+    if key.startswith(INNER_RATES + "."):
+      base_key = key[len(INNER_RATES) + 1:]
+      if base_key not in state_dict:
+        raise KeyError(f"state_dict key {key!r} rates no base parameter.")
+      _, path, _ = _to_flax(base_key, state_dict[base_key])
+      _insert(rates, path, tensor)
       continue
-    if name == "weight" and tensor.dim() == 4:
-      collection, leaf, tensor = "params", "kernel", tensor.permute(2, 3, 1, 0)
-    elif name == "weight" and tensor.dim() == 3:
-      collection, leaf, tensor = "params", "kernel", tensor.permute(2, 1, 0)
-    elif name == "weight" and tensor.dim() == 2:
-      collection, leaf, tensor = "params", "kernel", tensor.t()
-    elif name == "weight" and tensor.dim() == 1:
-      collection, leaf = "params", "scale"
-    elif name == "bias":
-      collection, leaf = "params", "bias"
-    elif name in _STATS_BACK:
-      collection, leaf = "batch_stats", _STATS_BACK[name]
-    else:
-      raise KeyError(f"state_dict key {key!r} has no flax counterpart.")
-    if not scope:
-      raise KeyError(f"state_dict key {key!r} has no module scope.")
-    node = tree.setdefault(collection, {})
-    for part in scope:
-      node = node.setdefault(part, {})
-    node[leaf] = tensor.contiguous()
+    collection, path, tensor = _to_flax(key, tensor)
+    _insert(tree.setdefault(collection, {}), path, tensor)
+  if rates:
+    tree["params"] = {"base": tree.get("params", {}), INNER_RATES: rates}
   return tree

@@ -81,13 +81,13 @@ class Dense(nn.Linear):
 
 
 class BatchNorm(nn.Module):
-  """flax ``nn.BatchNorm`` on (B, C, H, W), statistics in float32.
+  """flax ``nn.BatchNorm`` on (B, C, H, W) or (B, C), statistics in float32.
 
   Evaluation normalises with the running averages. Training normalises
-  with the batch's mean and biased variance over (B, H, W), and moves the
-  running averages in place to 0.99 old + 0.01 batch, the variance the
-  biased one, as flax does (torch's own update keeps 0.9 and the unbiased
-  variance). The model hands training copies of its running averages,
+  with the batch's mean and biased variance over every axis but C, and
+  moves the running averages in place to 0.99 old + 0.01 batch, the
+  variance the biased one, as flax does (torch's own update keeps 0.9 and
+  the unbiased variance). The model hands training copies of its running averages,
   so the caller's variables never change.
   """
 
@@ -109,7 +109,8 @@ class BatchNorm(nn.Module):
         # tenth of their largest (tests/test_torch_train.py).
         x = x.contiguous()
       with torch.no_grad():
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        var, mean = torch.var_mean(
+            x, dim=(0,) + tuple(range(2, x.dim())), correction=0)
         for running, batch in ((self.running_mean, mean),
                                (self.running_var, var)):
           running.mul_(_BATCH_NORM_MOMENTUM).add_(

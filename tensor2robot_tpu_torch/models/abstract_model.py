@@ -15,6 +15,12 @@ The module's buffers are its mutable state, flax's ``batch_stats``
 collection: a TRAIN-mode pass updates copies of them and returns the
 copies as the new model state.
 
+A module whose ``forward`` takes a ``generator`` keyword draws random
+numbers in TRAIN mode (dropout): ``model_train_fn`` and
+``inference_network_fn`` pass it the ``torch.Generator`` they are given,
+the counterpart of flax's ``rngs={"dropout": ...}``. The trainer makes one
+a step from its seed and the step (``train/trainer.py``).
+
 A functional call swaps the module's tensors while it runs, so a module
 is never shared between threads (the replay loop's collectors act while
 its learner trains): each thread fills a template of its own
@@ -24,6 +30,7 @@ its learner trains): each thread fills a template of its own
 from __future__ import annotations
 
 import abc
+import inspect
 import math
 import threading
 from typing import Any, Dict, Iterable, Optional, Tuple
@@ -107,6 +114,7 @@ class AbstractT2RModel(abc.ABC):
     self._module: Optional[nn.Module] = None
     self._thread_modules = threading.local()
     self._preprocessor: Optional[AbstractPreprocessor] = None
+    self._takes_generator: Optional[bool] = None
 
   # --- specs --------------------------------------------------------------
 
@@ -164,13 +172,29 @@ class AbstractT2RModel(abc.ABC):
     device = resolve_device(device)
     return {k: v.detach().to(device) for k, v in module.state_dict().items()}
 
+  def takes_generator(self) -> bool:
+    """Whether the network draws random numbers: its ``forward`` takes a
+    ``generator`` keyword."""
+    if self._takes_generator is None:
+      self._takes_generator = "generator" in inspect.signature(
+          self.thread_module().forward).parameters
+    return self._takes_generator
+
+  def forward_kwargs(self, generator: Optional[torch.Generator]) -> dict:
+    """The keywords a functional call passes the module's ``forward``."""
+    return ({"generator": generator}
+            if generator is not None and self.takes_generator() else {})
+
   def inference_network_fn(self, variables: Variables, features: Any,
-                           mode: str) -> Tuple[Any, Variables]:
+                           mode: str,
+                           generator: Optional[torch.Generator] = None
+                           ) -> Tuple[Any, Variables]:
     """Functional forward pass: (outputs, new_model_state).
 
     In TRAIN mode new_model_state holds the module's buffers (the batch
     statistics) as the pass left them, updated in copies: `variables` is
-    never changed. In the other modes it is empty.
+    never changed. In the other modes it is empty. `generator` feeds the
+    module's random draws (``takes_generator``).
     """
     mode = modes.validate_mode(mode)
     state = {}
@@ -183,7 +207,7 @@ class AbstractT2RModel(abc.ABC):
       state = {key: variables[key].clone() for key in keys}
     outputs = torch.func.functional_call(
         self.thread_module(), {**variables, **state}, (features, mode),
-        strict=True)
+        self.forward_kwargs(generator), strict=True)
     return outputs, state
 
   def mutable_collections(self) -> Tuple[str, ...]:
@@ -198,12 +222,13 @@ class AbstractT2RModel(abc.ABC):
     """Scalar training loss + metrics."""
 
   def model_train_fn(self, variables: Variables, features: Any,
-                     labels: Optional[Any]
+                     labels: Optional[Any],
+                     generator: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, Tuple[Metrics, Variables]]:
     """loss + (metrics, updated model state); the trainer differentiates
-    the loss with respect to the parameters."""
-    outputs, new_state = self.inference_network_fn(variables, features,
-                                                   modes.TRAIN)
+    the loss with respect to the parameters. `generator` feeds dropout."""
+    outputs, new_state = self.inference_network_fn(
+        variables, features, modes.TRAIN, generator=generator)
     loss, metrics = self.loss_fn(outputs, features, labels)
     metrics = dict(metrics)
     metrics.setdefault("loss", loss)
@@ -218,6 +243,15 @@ class AbstractT2RModel(abc.ABC):
     metrics = dict(metrics)
     metrics.setdefault("loss", loss)
     return metrics
+
+  def model_image_summaries_fn(self, variables: Variables,
+                               features: Any) -> Optional[Dict[str, Any]]:
+    """Optional eval image summaries, {tag: (H, W[, C]) uint8 or [0, 1]
+    float image}, rendered from the last eval batch with the (EMA) eval
+    variables and written by ``MetricWriter.write_images``. None: no
+    images."""
+    del variables, features
+    return None
 
   # --- optimizer ----------------------------------------------------------
 

@@ -117,6 +117,14 @@ class ExtendedTensorSpec:
   def from_json_dict(cls, d: Mapping[str, Any]) -> "ExtendedTensorSpec":
     return cls(**dict(d))
 
+  @classmethod
+  def from_spec(cls, spec: "ExtendedTensorSpec",
+                **overrides: Any) -> "ExtendedTensorSpec":
+    """A copy of `spec` with `overrides` applied."""
+    fields = spec.to_json_dict()
+    fields.update(overrides)
+    return cls(**fields)
+
   def __repr__(self) -> str:
     extras = []
     if self.name:

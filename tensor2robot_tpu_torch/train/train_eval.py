@@ -10,11 +10,17 @@ and at the end, and export the final variables. With
 with ``gradient_accumulation_steps`` m > 1, m-stacked microbatches to
 ``Trainer.train_step_accum``. Under ``model_dir`` it
 also checkpoints every ``save_checkpoints_steps`` (and at the end), resumes
-from the latest checkpoint, writes ``metrics.jsonl`` and an event file,
-dumps the operative config, and on SIGTERM or SIGINT leaves the loop
-through the final checkpoint. What the JAX loop also does raises
-``NotImplementedError`` when asked for, naming the ``ROADMAP.md`` item it
-waits for; nothing is skipped quietly.
+from the latest checkpoint, writes ``metrics.jsonl`` and an event file
+(with the model's eval image summaries), dumps the operative config, and
+on SIGTERM or SIGINT leaves the loop through the final checkpoint. Hooks
+(``hooks/``) see the loop where the JAX loop calls them: ``begin``,
+``after_step`` at each log step, ``after_checkpoint`` after each save,
+``end`` after the final export; eval exporters (``export/exporters.py``)
+run after every evaluation. ``continuous_eval_model`` is the separate
+evaluator job: it evaluates each checkpoint of a ``model_dir`` as it
+lands. The JAX loop's parallelism raises ``NotImplementedError`` when
+asked for, naming the ``ROADMAP.md`` item it waits for; nothing is
+skipped quietly.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import os
 import signal
 import threading
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +41,8 @@ from tensor2robot_tpu_torch import Device, modes
 from tensor2robot_tpu_torch.config import configurable, operative_config_str
 from tensor2robot_tpu_torch.data.prefetch import prefetch_to_device
 from tensor2robot_tpu_torch.export import export_utils
+from tensor2robot_tpu_torch.export.exporters import run_exporters
+from tensor2robot_tpu_torch.hooks.hook_builder import Hook, HookBuilder
 from tensor2robot_tpu_torch.train.checkpoints import CheckpointManager
 from tensor2robot_tpu_torch.train.train_state import TrainState
 from tensor2robot_tpu_torch.train.trainer import Trainer
@@ -46,16 +54,51 @@ _log = logging.getLogger(__name__)
 # What the JAX loop does and this one does not yet, by argument: the value
 # that asks for nothing, and the ROADMAP.md item it waits for.
 _WAITING = {
-    "create_exporters_fn": (None, "the flagship list's item 13, the "
-                                  "training harness: eval exporters"),
-    "hook_builders": ((), "the flagship list's item 13, the training "
-                          "harness: hooks"),
     "mesh": (None, "the flagship list's item 15, the parallel tier"),
     "param_specs": (None, "the flagship list's item 15, the parallel tier"),
     "shard_optimizer_state": (False, "the flagship list's item 15, the "
                                      "parallel tier"),
     "fsdp": (False, "the flagship list's item 15, the parallel tier"),
 }
+
+
+def _refuse_waiting(caller: str, **asked) -> None:
+  """Raises NotImplementedError for an argument of `_WAITING` given a value
+  other than its default, naming the ROADMAP.md item it waits for."""
+  for name, value in asked.items():
+    default, item = _WAITING[name]
+    if value != default:
+      raise NotImplementedError(
+          f"{caller}({name}={value!r}) waits for ROADMAP.md {item}.")
+
+
+def _init_exporters(create_exporters_fn, model, model_dir: str):
+  """Builds and binds the eval exporters; two may not share a root."""
+  if create_exporters_fn is None:
+    return []
+  exporters = list(create_exporters_fn(model))
+  roots = set()
+  for exporter in exporters:
+    exporter.begin(model, model_dir)
+    root = os.path.abspath(exporter.export_root)
+    if root in roots:
+      raise ValueError(
+          f"Two exporters publish to the same root {root!r}; give them "
+          "distinct names.")
+    roots.add(root)
+  return exporters
+
+
+def _run_exporters_after_eval(exporters, state: TrainState,
+                              eval_metrics: Dict[str, float]) -> None:
+  """Drives the exporters; the variables are copied to the host at most
+  once, and only if a policy publishes."""
+  if exporters:
+    run_exporters(
+        exporters,
+        lambda: export_utils.fetch_variables_to_host(
+            state.variables(use_ema=True)),
+        state.step, eval_metrics)
 
 
 class _PreemptionGuard:
@@ -127,7 +170,7 @@ def train_eval_model(
     handle_preemption: bool = True,
     device: Device = None,
     create_exporters_fn=None,
-    hook_builders: Sequence = (),
+    hook_builders: Sequence[HookBuilder] = (),
     iterations_per_loop: int = 1,
     gradient_accumulation_steps: int = 1,
     mesh=None,
@@ -163,9 +206,13 @@ def train_eval_model(
     gradient_accumulation_steps: m microbatches a step, their gradients
       averaged; each step consumes m generator batches. The two are
       mutually exclusive.
-    create_exporters_fn, hook_builders, mesh ... fsdp: the JAX loop's
-      exporters, hooks and parallelism; any value but the default raises
-      NotImplementedError naming the ROADMAP.md item it waits for.
+    create_exporters_fn: model -> [export.exporters.Exporter]; each runs
+      after every evaluation (the latest and best export policies).
+    hook_builders: HookBuilders whose hooks observe the loop (an
+      AsyncExportHookBuilder exports each checkpoint while training).
+    mesh, param_specs, shard_optimizer_state, fsdp: the JAX loop's
+      parallelism; any value but the default raises NotImplementedError
+      naming the ROADMAP.md item it waits for.
 
   The loop logs its timing once, at the end of training, as the record's
   ``loop_stats`` (``extra``): the host-clock time of each step from
@@ -174,15 +221,8 @@ def train_eval_model(
   "step" there is the dispatch of one stack (``steps_per_dispatch``). The
   result carries them as ``loop_stats`` too.
   """
-  asked = dict(create_exporters_fn=create_exporters_fn,
-               hook_builders=tuple(hook_builders),
-               mesh=mesh, param_specs=param_specs,
-               shard_optimizer_state=shard_optimizer_state, fsdp=fsdp)
-  for name, value in asked.items():
-    default, item = _WAITING[name]
-    if value != default:
-      raise NotImplementedError(
-          f"train_eval_model({name}={value!r}) waits for ROADMAP.md {item}.")
+  _refuse_waiting("train_eval_model", mesh=mesh, param_specs=param_specs,
+                  shard_optimizer_state=shard_optimizer_state, fsdp=fsdp)
   if iterations_per_loop < 1:
     raise ValueError(f"iterations_per_loop must be >= 1, got "
                      f"{iterations_per_loop}")
@@ -215,6 +255,13 @@ def train_eval_model(
     with open(os.path.join(model_dir, "operative_config.txt"), "w") as f:
       f.write(operative_config_str())
 
+  hooks: List[Hook] = []
+  for builder in hook_builders:
+    hooks.extend(builder.create_hooks(trainer, model_dir or ""))
+  for hook in hooks:
+    hook.begin(trainer, state, model_dir or "")
+  exporters = _init_exporters(create_exporters_fn, model, model_dir or "")
+
   train_metrics: Dict[str, float] = {}
   eval_metrics: Dict[str, float] = {}
   loop_stats: Dict[str, float] = {}
@@ -222,8 +269,13 @@ def train_eval_model(
   def run_eval(state: TrainState) -> Dict[str, float]:
     if input_generator_eval is None:
       return {}
-    return _evaluate(trainer, model, input_generator_eval, state, eval_steps,
-                     prefetch_depth)
+    metrics, images = _evaluate(trainer, model, input_generator_eval, state,
+                                eval_steps, prefetch_depth)
+    if metric_writer and images:
+      metric_writer.write_images(
+          state.step, {f"eval/{k}": v for k, v in images.items()})
+    _run_exporters_after_eval(exporters, state, metrics)
+    return metrics
 
   def crossed(cadence: int, prev: int, now: int) -> bool:
     return cadence > 0 and now // cadence > prev // cadence
@@ -281,10 +333,14 @@ def train_eval_model(
           train_metrics = {k: float(v) for k, v in metrics.items()}
           if metric_writer:
             metric_writer.write_scalars(step, train_metrics)
+          for hook in hooks:
+            hook.after_step(state, train_metrics)
           _log.info("step %d: %s", step, train_metrics)
         if checkpoint_manager and checkpoint_manager.should_save(
             step, last_step=prev_step):
           checkpoint_manager.save(step, state)
+          for hook in hooks:
+            hook.after_checkpoint(step, state)
         if (crossed(eval_interval_steps, prev_step, step)
             and step < max_train_steps):
           eval_metrics = run_eval(state)
@@ -310,6 +366,8 @@ def train_eval_model(
     if checkpoint_manager and (checkpoint_manager.latest_step()
                                != state.step):
       checkpoint_manager.save(state.step, state, force=True)
+      for hook in hooks:
+        hook.after_checkpoint(state.step, state)
 
   final_eval = run_eval(state)
   if final_eval:
@@ -319,12 +377,22 @@ def train_eval_model(
           state.step, {f"eval/{k}": v for k, v in eval_metrics.items()})
   export_dir = None
   if export_generator is not None:
+    if any(os.path.abspath(e.export_root)
+           == os.path.abspath(export_generator.export_root)
+           for e in exporters):
+      raise ValueError(
+          f"export_generator and an eval exporter both publish to "
+          f"{export_generator.export_root!r}; their garbage collection "
+          "would delete each other's versions. Give the exporter another "
+          "name or drop one of the two.")
     export_generator.set_specification_from_model(model)
     export_dir = export_utils.export_and_gc(
         export_generator,
         export_utils.fetch_variables_to_host(state.variables(use_ema=True)),
         keep=export_keep, global_step=state.step)
     _log.info("Exported the final model to %s", export_dir)
+  for hook in hooks:
+    hook.end(state)
   if checkpoint_manager:
     checkpoint_manager.close()
   if metric_writer:
@@ -347,17 +415,91 @@ def _stack_batches(host_iter, stack: int, total: int):
 
 
 def _evaluate(trainer: Trainer, model, input_generator_eval,
-              state: TrainState, eval_steps: int,
-              prefetch_depth: int) -> Dict[str, float]:
-  """Eval metrics averaged over `eval_steps` batches."""
+              state: TrainState, eval_steps: int, prefetch_depth: int):
+  """Eval metrics averaged over `eval_steps` batches, and the model's image
+  summaries of the last batch ({} when it renders none)."""
   input_generator_eval.set_specification_from_model(model, modes.EVAL)
   eval_iter = prefetch_to_device(
       input_generator_eval.create_dataset_fn(modes.EVAL)(),
       device=trainer.device, depth=prefetch_depth)
   sums: Dict[str, float] = {}
   count = 0
+  last_features = None
   for _, (features, labels) in zip(range(eval_steps), eval_iter):
     for key, value in trainer.eval_step(state, features, labels).items():
       sums[key] = sums.get(key, 0.0) + float(value)
     count += 1
-  return {key: value / max(count, 1) for key, value in sums.items()}
+    last_features = features
+  metrics = {key: value / max(count, 1) for key, value in sums.items()}
+  images = {}
+  if last_features is not None:
+    images = dict(model.model_image_summaries_fn(
+        state.variables(use_ema=True), last_features) or {})
+  return metrics, images
+
+
+@configurable
+def continuous_eval_model(
+    model,
+    input_generator_eval,
+    model_dir: str,
+    eval_steps: int = 10,
+    poll_interval_s: float = 10.0,
+    timeout_s: float = 3600.0,
+    stop_after_step: int = 0,
+    max_evaluations: int = 0,
+    create_exporters_fn=None,
+    seed: int = 0,
+    prefetch_depth: int = 2,
+    device: Device = None,
+    mesh=None,
+    param_specs=None,
+    shard_optimizer_state: bool = False,
+) -> Dict[int, Dict[str, float]]:
+  """The evaluator job: evaluates every checkpoint of `model_dir` as it
+  lands, oldest first, and writes ``eval/*`` metrics (and image
+  summaries) under ``<model_dir>/eval``; exporters run after each.
+
+  Stops when no new checkpoint appears within `timeout_s`, when a
+  checkpoint at a step >= `stop_after_step` (if > 0) has been evaluated,
+  or after `max_evaluations` (if > 0) evaluations. `mesh`, `param_specs`
+  and `shard_optimizer_state` wait for ROADMAP.md's item 15 and raise.
+
+  Returns {checkpoint step: eval metrics} for every evaluated step.
+  """
+  _refuse_waiting("continuous_eval_model", mesh=mesh,
+                  param_specs=param_specs,
+                  shard_optimizer_state=shard_optimizer_state)
+  trainer = Trainer(model, seed=seed, device=device)
+  template = trainer.create_train_state()
+  checkpoint_manager = CheckpointManager(
+      os.path.join(model_dir, "checkpoints"))
+  exporters = _init_exporters(create_exporters_fn, model, model_dir)
+  results: Dict[int, Dict[str, float]] = {}
+  last_new_checkpoint = time.monotonic()
+  with MetricWriter(os.path.join(model_dir, "eval")) as metric_writer:
+    while True:
+      pending = [step for step in checkpoint_manager.all_steps()
+                 if step not in results]
+      for step in pending:  # every checkpoint, oldest first
+        last_new_checkpoint = time.monotonic()
+        state = checkpoint_manager.restore(template, step=step)
+        metrics, images = _evaluate(trainer, model, input_generator_eval,
+                                    state, eval_steps, prefetch_depth)
+        results[step] = metrics
+        metric_writer.write_scalars(
+            step, {f"eval/{k}": v for k, v in metrics.items()})
+        if images:
+          metric_writer.write_images(
+              step, {f"eval/{k}": v for k, v in images.items()})
+        _log.info("continuous eval @ step %d: %s", step, metrics)
+        _run_exporters_after_eval(exporters, state, metrics)
+        if ((stop_after_step and step >= stop_after_step)
+            or (max_evaluations and len(results) >= max_evaluations)):
+          return results
+      if not pending:
+        if time.monotonic() - last_new_checkpoint > timeout_s:
+          _log.info("continuous eval: no new checkpoint for %.0fs; "
+                    "stopping.", timeout_s)
+          return results
+        time.sleep(poll_interval_s)

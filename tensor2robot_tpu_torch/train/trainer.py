@@ -12,7 +12,15 @@ scanned multi-step (``iterations_per_loop``). On the GPU they are one
 CUDA graph of the fixed-shape step, captured once per (K, shapes, dtypes)
 and replayed: one dispatch for K steps. ``train_step_accum`` takes one
 optimizer step over m microbatches; ``train_step(with_health=True)``
-also reduces the gradients for the health sentinel. The JAX trainer's
+also reduces the gradients for the health sentinel.
+
+A model that draws dropout (``takes_generator``) gets a ``torch.Generator``
+a step, seeded from the trainer's seed and the step (``step_seed``), the
+counterpart of the JAX step's ``fold_in(base_rng, step)``: masks differ
+from step to step and repeat after a resume. A CUDA graph of K steps
+registers K generators of its own with the graph
+(``register_generator_state``) and seeds each for its step before a
+replay, so a replay draws the masks the eager steps would. The JAX trainer's
 mesh, parameter shardings, ZeRO and AOT executables come with the
 parallel tier and the train step's extras (``ROADMAP.md``, the flagship
 list's items 15 and 4).
@@ -21,8 +29,9 @@ list's items 15 and 4).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tensor2robot_tpu_torch import Device, bridge, resolve_device
@@ -46,6 +55,13 @@ def _leading(tree: Any) -> int:
 
 def _signature(tree: Any) -> Tuple:
   return tuple((tuple(t.shape), t.dtype) for t in tree_leaves(tree))
+
+
+def step_seed(seed: int, step: int) -> int:
+  """The seed of step `step`'s dropout generator: a function of the
+  trainer's seed and the step alone."""
+  return int(np.random.SeedSequence((seed, step)).generate_state(
+      1, np.uint64)[0] >> np.uint64(1))
 
 
 def check_graphable(optimizer: torch.optim.Optimizer) -> None:
@@ -97,16 +113,27 @@ class _GraphedSteps:
   def __init__(self, trainer: "Trainer", state: TrainState, features,
                labels, stream: torch.cuda.Stream):
     self.steps = _leading(features)
+    self.seed = trainer.seed
     self.features = tree_map(torch.empty_like, features)
     self.labels = tree_map(torch.empty_like, labels)
     self.graph = torch.cuda.CUDAGraph()
+    # One generator a captured step, registered before the capture: a
+    # replay reads each one's seed and offset, which replay() sets.
+    self.generators: List[Optional[torch.Generator]] = [None] * self.steps
+    if trainer.model.takes_generator():
+      self.generators = [torch.Generator(trainer.device)
+                         for _ in range(self.steps)]
+      for generator in self.generators:
+        self.graph.register_generator_state(generator)
+    self._seed_generators(state.step)
     state.opt_state.zero_grad(set_to_none=True)
     stream.wait_stream(torch.cuda.current_stream(trainer.device))
     try:
       with graph_launches.capture(self.graph, stream) as self.tally:
         for i in range(self.steps):
-          _, metrics = trainer.train_step(state, _index(self.features, i),
-                                          _index(self.labels, i))
+          _, metrics = trainer.train_step(
+              state, _index(self.features, i), _index(self.labels, i),
+              generator=self.generators[i])
     except RuntimeError as e:
       raise NotImplementedError(
           f"train_steps cannot capture {type(trainer.model).__name__}'s "
@@ -120,10 +147,17 @@ class _GraphedSteps:
     return ([t.data_ptr() for t in _state_tensors(state)] == self._tensors
             and _hyperparameters(state.opt_state) == self._hyperparameters)
 
-  def replay(self, features, labels) -> Metrics:
+  def _seed_generators(self, step: int) -> None:
+    for i, generator in enumerate(self.generators):
+      if generator is not None:
+        generator.manual_seed(step_seed(self.seed, step + i))
+
+  def replay(self, features, labels, step: int) -> Metrics:
+    """Replays the K steps from global step `step`."""
     for static, value in zip(tree_leaves((self.features, self.labels)),
                              tree_leaves((features, labels))):
       static.copy_(value, non_blocking=True)
+    self._seed_generators(step)
     self.graph.replay()
     graph_launches.replayed(self.tally)
     return {key: value.clone() for key, value in self.metrics.items()}
@@ -135,7 +169,8 @@ class Trainer:
   def __init__(self, model, seed: int = 0, device: Device = None):
     """Args:
       model: an ``AbstractT2RModel``.
-      seed: seeds the ``torch.Generator`` that draws fresh variables.
+      seed: seeds the ``torch.Generator`` that draws fresh variables, and
+        with the step each step's dropout generator.
       device: where to train; the GPU unless 'cpu' is asked for.
     """
     self.model = model
@@ -144,6 +179,16 @@ class Trainer:
     self._graphs: Dict[Tuple, _GraphedSteps] = {}
     self._warmed = set()  # per-step signatures run eagerly on the side
     self._side_stream = None
+    self._generator: Optional[torch.Generator] = None
+
+  def step_generator(self, step: int) -> Optional[torch.Generator]:
+    """The dropout generator of global step `step` on the trainer's
+    device (``step_seed``), or None for a model that draws none."""
+    if not self.model.takes_generator():
+      return None
+    if self._generator is None:
+      self._generator = torch.Generator(self.device)
+    return self._generator.manual_seed(step_seed(self.seed, step))
 
   # --- state ---------------------------------------------------------------
 
@@ -222,17 +267,23 @@ class Trainer:
                              1.0 - self.model.avg_model_params_decay)
 
   def train_step(self, state: TrainState, features, labels=None,
-                 with_health: bool = False) -> Tuple[TrainState, Metrics]:
+                 with_health: bool = False,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[TrainState, Metrics]:
     """One optimizer step; the state's tensors update in place. Go on with
     the state returned (its step is one more).
 
     ``with_health`` adds ``grad_norm`` (global L2, float32) and
     ``grads_nonfinite`` (non-finite elements) of the raw gradients, taken
     before the optimizer's step, to the metrics: the two reductions the
-    health sentinel cannot rebuild from the parameters afterwards."""
+    health sentinel cannot rebuild from the parameters afterwards.
+    `generator` feeds dropout; by default the step's
+    (``step_generator``)."""
+    if generator is None:
+      generator = self.step_generator(state.step)
     state.opt_state.zero_grad(set_to_none=True)
     loss, (metrics, new_model_state) = self.model.model_train_fn(
-        state.variables(), features, labels)
+        state.variables(), features, labels, generator=generator)
     loss.backward()
     metrics = {k: v.detach() for k, v in metrics.items()}
     if with_health:
@@ -283,22 +334,24 @@ class Trainer:
     if graph is None or not graph.holds(state):
       graph = self._graphs[key] = _GraphedSteps(
           self, state, features, labels, self._side_stream)
-    metrics = graph.replay(features, labels)
+    metrics = graph.replay(features, labels, state.step)
     return dataclasses.replace(state, step=state.step + steps), metrics
 
   def train_step_accum(self, state: TrainState, features, labels=None
                        ) -> Tuple[TrainState, Metrics]:
     """One optimizer step over m microbatches (the leading axis of every
     leaf): their gradients summed in order and divided by m, the batch
-    statistics threaded through them in order, the metrics their means."""
+    statistics threaded through them in order, the metrics their means.
+    The microbatches draw dropout from the step's generator in turn."""
     micro = _leading(features)
+    generator = self.step_generator(state.step)
     state.opt_state.zero_grad(set_to_none=True)
     model_state = dict(state.model_state)
     per_micro = []
     for i in range(micro):
       loss, (metrics, new_model_state) = self.model.model_train_fn(
           {**state.params, **model_state}, _index(features, i),
-          _index(labels, i))
+          _index(labels, i), generator=generator)
       loss.backward()  # adds into .grad
       model_state.update(new_model_state)
       per_micro.append({k: v.detach() for k, v in metrics.items()})

@@ -19,10 +19,9 @@ A CUDA window needs CUPTI. Where PyTorch cannot trace the card,
 ``stop_trace`` raises (writing nothing) when a CUDA window holds no device
 event.
 
-``ProfilerHook`` has no ``Hook`` base class yet, and
-``ProfilerHookBuilder`` (hooks made from a config) waits for
-``ROADMAP.md``'s flagship item 13 (the hooks); the replay loop drives the
-hook's ``after_step`` and ``end`` itself.
+``ProfilerHook`` is a train-loop ``Hook``; ``ProfilerHookBuilder`` makes
+one from a config for ``train_eval_model(hook_builders=...)``, and the
+replay loop drives the hook's ``after_step`` and ``end`` itself.
 """
 
 from __future__ import annotations
@@ -32,11 +31,12 @@ import json
 import logging
 import os
 import threading
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from tensor2robot_tpu_torch import Device, resolve_device
+from tensor2robot_tpu_torch.hooks.hook_builder import Hook, HookBuilder
 from tensor2robot_tpu_torch.obs import trace as obs_trace
 
 _log = logging.getLogger(__name__)
@@ -147,7 +147,7 @@ def trace(log_dir: str, device: Device = None):
       stop_trace()
 
 
-class ProfilerHook:
+class ProfilerHook(Hook):
   """Captures a window of training steps into a trace directory.
 
   Steps are observed where the caller reports them (``after_step``), so
@@ -210,3 +210,17 @@ class ProfilerHook:
           "ProfilerHook never started: no reported step reached "
           "start_step=%d (training ran %d steps).", self._start_step,
           int(state.step))
+
+
+class ProfilerHookBuilder(HookBuilder):
+  """Makes a ProfilerHook from a config (its device is the trainer's)."""
+
+  def __init__(self, start_step: int = 10, end_step: int = 13,
+               log_dir: Optional[str] = None):
+    self._start_step = start_step
+    self._end_step = end_step
+    self._log_dir = log_dir
+
+  def create_hooks(self, trainer, model_dir: str) -> List[Hook]:
+    return [ProfilerHook(start_step=self._start_step,
+                         end_step=self._end_step, log_dir=self._log_dir)]

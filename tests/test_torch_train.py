@@ -731,7 +731,9 @@ class TestTrainEval:
 
   @pytest.mark.parametrize("name, value", [
       ("model_dir", "run"), ("create_exporters_fn", lambda m: []),
-      ("hook_builders", [object()]), ("iterations_per_loop", 50),
+      ("hook_builders", [type("NoHooks", (), {
+          "create_hooks": lambda self, trainer, model_dir: []})()]),
+      ("iterations_per_loop", 50),
       ("gradient_accumulation_steps", 2), ("mesh", object()),
       ("param_specs", {}), ("shard_optimizer_state", True), ("fsdp", True)])
   def test_what_waits_raises(self, name, value, tmp_path):
@@ -742,8 +744,10 @@ class TestTrainEval:
       assert os.path.isfile(tmp_path / value / "operative_config.txt")
       assert os.listdir(tmp_path / value / "checkpoints") == ["0"]
       return
-    if name in ("iterations_per_loop", "gradient_accumulation_steps"):
-      # No longer wait: tests/test_torch_train_steps.py trains with them.
+    if name in ("iterations_per_loop", "gradient_accumulation_steps",
+                "create_exporters_fn", "hook_builders"):
+      # No longer wait: tests/test_torch_train_steps.py trains with the
+      # first two, tests/test_torch_harness.py drives the other two.
       result = train_eval.train_eval_model(model, max_train_steps=0,
                                            device="cpu", **{name: value})
       assert result.state.step == 0

@@ -402,8 +402,7 @@ class TestCLIs:
         "--checks", "qtopt", "--device", "cpu"]) == 1
     assert json.loads(capsys.readouterr().out)["passed"] is False
 
-  @pytest.mark.parametrize("check, item", [("maml", "item 12"),
-                                           ("grasp2vec", "item 14"),
+  @pytest.mark.parametrize("check, item", [("grasp2vec", "item 14"),
                                            ("vrgripper", "item 14")])
   def test_waiting_checks_name_their_item(self, check, item, capsys):
     assert run_capability_checks.main(["--checks", check,

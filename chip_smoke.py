@@ -53,7 +53,7 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   learner's host path (sample the prioritized ring, label with fleet CEM
   against the lagged target net, train, TD errors, priority write-back):
   the JAX smoke's off-policy bar (TinyQ, eval TD error against the retry
-  env's Q* down 30%) at seeds 0 and 1, the JAX learner bench's host path,
+  env's Q* down 30%) at seed 0, the JAX learner bench's host path,
   the production learner at full width (the 64x64 uint8 GroupNorm critic,
   batch 32, CEM 64/6/3, a 4-shard ring of 50,000 filled past 2,000 by
   collector threads) for 200 steps with each stage's host and device
@@ -135,6 +135,23 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   ``pose_env_maml_train.cfg`` through ``run_t2r_trainer`` with an async
   export hook and a best exporter, then ``--mode continuous_eval`` over
   its checkpoints, and restores the best export on the card.
+- slice 17 runs the research zoo and the program format: ``zoo_grasp2vec``
+  trains BASELINE #2 at its published width (ResNet-50 towers, width 64,
+  224x224, embedding 512, batch 64, bf16, BatchNorm, Adam 1e-4) as a
+  ``train_steps`` CUDA graph against eager steps bit for bit, holds
+  ``remat=True`` against ``False`` bit for bit with each one's step ms and
+  peak memory, and runs ``check_grasp2vec`` at the full scale to the JAX
+  bar (0.62; the fast scale's 0.38 is a TPU calibration neither package
+  reaches off the TPU); ``zoo_vrgripper`` does the graph check for
+  BASELINE #5 (``VRGripperEnvModel``: FiLM ResNet-18 width 32, 100x100,
+  an MDN of 5, batch 64), the TEC model and meta-BC (the last in a process
+  of its own), trains ``vrgripper_train.cfg`` through the CLI on records
+  ``episode_to_transitions`` writes into a ``model_dir`` whose export
+  serves, and runs ``check_vrgripper`` at the full scale to its bar
+  (0.80); ``export_program`` exports pose_env and the VRGripper MDN model
+  as ``serving_fn.pt2`` and serves them with no model object against the
+  eager model at batch 1 and 8, K1 launching once a pose_env request
+  through the program's custom op.
 
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
@@ -289,13 +306,14 @@ QTOPT_SCENES = 200  # check_qtopt's held-out scenes
 ACCUM_MICRO, ACCUM_BATCH = 4, 16
 # Slice 8: the QT-Opt learner on Bellman targets. (a) The JAX smoke's
 # off-policy bar (replay/smoke.py: eval TD error against the retry env's
-# Q* down 30%) at two seeds; (c) the production learner of
+# Q* down 30%) at seed 0 (0 and 1 until slice 17's phases joined); (c)
+# the production learner of
 # run_qtopt_replay's non-smoke config (tensor2robot_tpu/bin/
 # run_qtopt_replay.py: 64x64 uint8 images, GroupNorm, Adam 1e-4, batch 32,
 # CEM 64/6/3, gamma 0.8, a 4-shard prioritized ring of 50,000 filled past
 # 2,000 by 4 collectors of 8 envs); (d) one label at the published
 # 472x472.
-LEARNER_SEEDS = (0, 1)
+LEARNER_SEEDS = (0,)
 LEARNER_BAR = 0.30
 LEARNER_WARM_STEPS = 10
 LEARNER_STEPS = 200
@@ -307,7 +325,8 @@ LABEL_FACTORED_ATOL = 1e-5
 # Slice 9: the closed QT-Opt loop. (a) run_qtopt_replay --smoke (TinyQ,
 # the JAX smoke's bar); (b) the production loop of the JAX
 # CLI's non-smoke config (collectors acting through CEMFleetPolicy's
-# bucket-8 graph while the learner trains) for 20 steps (the collector
+# bucket-8 graph while the learner trains) for 10 steps (20 until slice
+# 17's phases joined; the collector
 # threads' env stepping holds the interpreter, and the eager learner runs
 # at ~1.3 steps/s beside them on an H100, against ~27 alone:
 # scripts/profile_qtopt_loop.py); (c) CEMFleetPolicy at the published
@@ -327,7 +346,7 @@ LOOP_SMOKE_STEPS = 300
 # 20 steps (200 before slice 10's phases joined, 100 before slice 11's, 50
 # before slice 14's, to keep the script inside its time limit): no hot
 # reload; the vector production loop of slice 10 covers one.
-LOOP_PRODUCTION_STEPS = 20
+LOOP_PRODUCTION_STEPS = 10
 FLEET_RUNGS = (1, 2, 4, 8, 16)
 FLEET_RELOADS = 3
 FLEET_CALLS = 7
@@ -2408,7 +2427,7 @@ RESUME_PARITY = (("tinyq", 6, 6, False), ("flagship_64", 20, 20, True))
 RESUME_SMOKE_HALF = 150
 RESUME_PRODUCTION_STEPS = 10
 PROFILE_WINDOW = "5,8"
-PROFILE_STEPS = 20
+PROFILE_STEPS = 12
 # Slice 10's vector actor: the smoke with --vector-actors at one seed (the
 # 0.30 bar, one acting bucket), the production loop with one VectorActor
 # over the 32 envs, and the learner alone in the same call (the actor
@@ -3479,6 +3498,7 @@ def run_qtopt_anakin(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
 PRECISION_TIERS = ("bf16", "int8")
 PRECISION_CEM = dict(num_samples=16, num_elites=4, iterations=2)
 PRECISION_PRODUCTION_STEPS = 100  # dispatches of 18, then 25 steps
+PRECISION_FLEET_RUNGS = (1, 4, 16)  # each tier's 472x472 timings
 
 
 def tier_policy_graphs(torch, dev, seed: int, tier: str) -> dict:
@@ -3547,7 +3567,8 @@ def tier_policy_graphs(torch, dev, seed: int, tier: str) -> dict:
 
 def tier_fleet_timings(torch, dev, seed: int, tier: str, smi: str) -> list:
   """(f): the 472x472 uint8 GroupNorm critic's fleet policy at `tier`,
-  CEM 64/6/3, every rung: graph against eager bit for bit, request ms,
+  CEM 64/6/3, at PRECISION_FLEET_RUNGS (every rung until slice 17's phases
+  joined): graph against eager bit for bit, request ms,
   replay device ms, peak memory."""
   from tensor2robot_tpu_torch.replay.loop import _HotReloadPredictor
   from tensor2robot_tpu_torch.research.qtopt import synthetic_grasping as sg
@@ -3566,7 +3587,7 @@ def tier_fleet_timings(torch, dev, seed: int, tier: str, smi: str) -> list:
   torch.backends.cudnn.deterministic = True
   rungs = []
   try:
-    for bucket in FLEET_RUNGS:
+    for bucket in PRECISION_FLEET_RUNGS:
       torch.cuda.synchronize()
       torch.cuda.reset_peak_memory_stats()
       held_mib = torch.cuda.memory_allocated() / 2**20
@@ -3602,7 +3623,7 @@ def tier_fleet_timings(torch, dev, seed: int, tier: str, smi: str) -> list:
       emit("qtopt_precision_fleet", card=smi, **rungs[-1])
   finally:
     torch.backends.cudnn.deterministic = deterministic
-  if policy.compile_counts != {b: 1 for b in FLEET_RUNGS}:
+  if policy.compile_counts != {b: 1 for b in PRECISION_FLEET_RUNGS}:
     raise AssertionError(f"{tier} fleet captures: {policy.compile_counts}")
   del policy, predictor
   gc.collect()
@@ -4444,8 +4465,9 @@ MAML_TASKS = 8  # check_maml's meta-batch
 MAML_INNER_STEPS = 3
 MAML_K1_PER_META_STEP = MAML_TASKS * (MAML_INNER_STEPS + 1)
 MAML_EVAL_TASKS = 64
-MAML_GRAPH_STEPS = 4  # a graphed stack
-MAML_WARM_STEPS = 2
+# A graphed stack and its warm-up (4 and 2 until slice 17's phases joined).
+MAML_GRAPH_STEPS = 2
+MAML_WARM_STEPS = 1
 MAML_TIMED_STEPS = 5
 MAML_GRAPH_CASES = ("second_order", "first_order", "learned_rates",
                     "mock_dropout")
@@ -4811,9 +4833,467 @@ def run_maml(torch, ss, gl, dev, seed: int, root: str, smi: str) -> dict:
   }
 
 
+# Slice 17: the research zoo and the program format.
+ZOO_BATCH = 64  # BASELINE #2's and #5's batch
+G2V_IMAGE = 224  # grasp2vec_train.cfg's published width: ResNet-50/64
+ZOO_WARM_STEPS = 1
+ZOO_GRAPH_STEPS = 3
+ZOO_TIMED_STEPS = 4
+TEC_BATCH = 16  # vrgripper_tec_train.cfg's batch, 2 + 2 samples a task
+VR_MAML_TASKS = 2
+VR_CLI_EPISODES, VR_CLI_STEPS_PER_EPISODE = 40, 10
+VR_CLI_STEPS, VR_CLI_SAVE = 200, 100
+EXPORT_BATCHES = (1, 8)
+# A program against the eager model on the card: the same kernels on the
+# same inputs, at the served dtype (bf16); held to the GPU-vs-CPU bf16
+# serving bound, the exact difference reported.
+PROGRAM_ATOL = SERVE_BF16_ATOL
+
+
+def zoo_k1_launches(ss) -> int:
+  """K1 runs on no zoo training path: its launches since the last reset
+  must stay 0 there."""
+  return ss.spatial_softmax.launches
+
+
+def triplet_stacks(torch, dev, seed: int, steps_list, image: int):
+  """(K-stacked grasp2vec features, None) per K: synthetic triplets at
+  `image`, ZOO_BATCH a step drawn without replacement."""
+  from tensor2robot_tpu_torch.research.grasp2vec import (
+      synthetic_scenes as scenes,
+  )
+  from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+  pool = 2 * ZOO_BATCH
+  data = scenes.sample_triplets(pool, image_size=image, seed=seed)
+  rng = np.random.default_rng(seed)
+  out = []
+  for steps in steps_list:
+    batches = [scenes.as_model_batch(
+        data, rng.choice(pool, ZOO_BATCH, replace=False))
+               for _ in range(steps)]
+    out.append((ts.TensorSpecStruct(
+        (key, torch.from_numpy(np.stack([b[key] for b in batches])).to(dev))
+        for key in batches[0]), None))
+  return out
+
+
+def spec_stacks(torch, model, dev, seed: int, batch: int, steps_list):
+  """(K-stacked features, labels or None) per K, drawn from the model's
+  TRAIN specs: images uniform in [0, 1], the rest standard normal."""
+  from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+  rng = np.random.default_rng(seed)
+
+  def draw(spec, steps):
+    return ts.TensorSpecStruct(
+        (key, torch.from_numpy(
+            rng.random((steps, batch) + s.shape, np.float32)
+            if "image" in key else
+            rng.normal(size=(steps, batch) + s.shape).astype(np.float32)
+        ).to(dev)) for key, s in ts.flatten_spec_structure(spec).items())
+
+  out = []
+  for steps in steps_list:
+    labels = draw(model.get_label_specification("train"), steps)
+    out.append((draw(model.get_feature_specification("train"), steps),
+                labels if len(labels) else None))
+  return out
+
+
+def zoo_graph(torch, ss, gl, model, dev, seed: int, stacks, root: str,
+              name: str, smi: str) -> dict:
+  """graph_vs_eager on the zoo model, K1's launches read (0 expected)."""
+  start = time.perf_counter()
+  reset_spatial_softmax_counts(ss)
+  case = graph_vs_eager(torch, ss, gl, model, dev, seed, stacks[0],
+                        stacks[1], root, name, profiled=False)
+  case["k1_launches_phase"] = zoo_k1_launches(ss)
+  case["seconds"] = time.perf_counter() - start
+  emit(f"{name}_graph", card=smi, **case)
+  if case["k1_launches_phase"]:
+    raise AssertionError(f"{name}: K1 launched on a path without it")
+  return {key: case[key] for key in (
+      "bitwise_equal", "eager_step_ms_median", "graphed_step_ms_median",
+      "graphed_device_ms_per_step", "peak_mib_graphed", "loss", "seconds")}
+
+
+def remat_vs_plain(torch, dev, seed: int, smi: str) -> dict:
+  """Grasp2Vec at its published width with remat=True against False:
+  the first step bit for bit (cuDNN deterministic), then each one's step
+  ms and the peak memory of a step beyond the state's own."""
+  from tensor2robot_tpu_torch.research.grasp2vec.grasp2vec_model import (
+      Grasp2VecModel,
+  )
+  from tensor2robot_tpu_torch.train.trainer import Trainer, _index
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  (features, _), = triplet_stacks(torch, dev, seed + 5,
+                                  [1 + ZOO_TIMED_STEPS], G2V_IMAGE)
+  result, after_first = {}, {}
+  for remat in (False, True):
+    model = Grasp2VecModel(remat=remat,
+                           optimizer_fn=create_adam_optimizer(1e-4))
+    trainer = Trainer(model, seed=seed, device=dev)
+    state = trainer.create_train_state()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = trainer.train_step(state, _index(features, 0))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    after_first[remat] = (
+        {k: v.detach().clone() for k, v in state.params.items()},
+        {k: v.clone() for k, v in state.model_state.items()},
+        float(metrics["loss"]))
+    times = []
+    for i in range(1, 1 + ZOO_TIMED_STEPS):
+      torch.cuda.synchronize()
+      begin = time.perf_counter()
+      state, _ = trainer.train_step(state, _index(features, i))
+      torch.cuda.synchronize()
+      times.append((time.perf_counter() - begin) * 1e3)
+    result[f"remat_{str(remat).lower()}"] = {
+        "step_ms_median": float(np.median(times)),
+        "step_ms": times,
+        "peak_mib_step": peak / 2 ** 20,
+        "peak_mib_above_state": (peak - resident) / 2 ** 20}
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+  torch.backends.cudnn.deterministic = deterministic
+  (p0, s0, l0), (p1, s1, l1) = after_first[False], after_first[True]
+  diff = {
+      "params": max(float((p0[k].float() - p1[k].float()).abs().max())
+                    for k in p0),
+      "statistics": max(float((s0[k] - s1[k]).abs().max()) for k in s0),
+      "loss": abs(l0 - l1)}
+  result.update({"max_abs_diff": diff,
+                 "bitwise_equal": not any(diff.values())})
+  emit("zoo_grasp2vec_remat", card=smi, **result)
+  if not result["bitwise_equal"]:
+    raise AssertionError(f"zoo_grasp2vec: remat differs from no remat: "
+                         f"{diff}")
+  return result
+
+
+def run_zoo_check(torch, ss, dev, name: str, scale: str, root: str,
+                  smi: str) -> dict:
+  """The port's check_<name> at `scale`: the JAX knobs and bar, which
+  fails the run when missed."""
+  from tensor2robot_tpu_torch.bin import run_capability_checks as checks
+  start = time.perf_counter()
+  reset_spatial_softmax_counts(ss)
+  result = checks._CHECKS[name](scale, root, dev.type)
+  bar = checks._EXPECT[(name, scale)]
+  result.update({"scale": scale, "knobs": checks._SCALES[name][scale],
+                 "bar": bar,
+                 "k1_launches_phase": zoo_k1_launches(ss),
+                 "seconds": time.perf_counter() - start})
+  emit(f"zoo_{name}_check", card=smi, **result)
+  if not result["success_rate"] >= bar:
+    raise AssertionError(f"check_{name} missed the JAX bar {bar}: {result}")
+  return result
+
+
+def run_zoo_grasp2vec(torch, ss, gl, dev, seed: int, root: str,
+                      smi: str) -> dict:
+  """Slice 17's grasp2vec paths: BASELINE #2 at its published width
+  (ResNet-50, width 64, 224x224, embedding 512, batch 64, bf16, BatchNorm,
+  Adam 1e-4) as a train_steps CUDA graph against eager steps bit for bit,
+  remat against no remat, and check_grasp2vec at the full scale."""
+  from tensor2robot_tpu_torch.research.grasp2vec.grasp2vec_model import (
+      Grasp2VecModel,
+  )
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+  start = time.perf_counter()
+  model = Grasp2VecModel(optimizer_fn=create_adam_optimizer(1e-4))
+  stacks = triplet_stacks(torch, dev, seed,
+                          [ZOO_WARM_STEPS, ZOO_GRAPH_STEPS], G2V_IMAGE)
+  graph = zoo_graph(torch, ss, gl, model, dev, seed, stacks, root,
+                    "zoo_grasp2vec", smi)
+  del stacks
+  gc.collect()
+  torch.cuda.empty_cache()
+  remat = remat_vs_plain(torch, dev, seed, smi)
+  # The full scale: the fast scale's bar (0.38) was calibrated on a TPU
+  # v5e, and neither package reaches it off the TPU (ROADMAP.md Facts).
+  check = run_zoo_check(torch, ss, dev, "grasp2vec", "full", root, smi)
+  return {"graph": graph, "remat": remat, "check": check,
+          "seconds": time.perf_counter() - start}
+
+
+def vrgripper_records(path: str, seed: int) -> int:
+  """BASELINE #5's demonstrations as episode_to_transitions writes them:
+  pose_env scenes at 100x100 in episodes of VR_CLI_STEPS_PER_EPISODE,
+  14-d gripper poses, 7-d actions (the reach target, then zeros)."""
+  from tensor2robot_tpu_torch.research.pose_env import pose_env
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      episode_to_transitions,
+  )
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      vrgripper_env_models as vr,
+  )
+  n = VR_CLI_EPISODES * VR_CLI_STEPS_PER_EPISODE
+  images, targets = pose_env.collect_episodes(n, seed=seed,
+                                              image_size=vr.IMAGE_SIZE)
+  rng = np.random.default_rng(seed)
+  poses = rng.normal(size=(n, vr.GRIPPER_POSE_SIZE)).astype(np.float32)
+  actions = np.concatenate([targets, np.zeros((n, 5), np.float32)], -1)
+  episodes = [{key: value[i::VR_CLI_EPISODES] for key, value in
+               (("images", images), ("gripper_poses", poses),
+                ("actions", actions))} for i in range(VR_CLI_EPISODES)]
+  episode_to_transitions.write_episodes(path, episodes)
+  return n
+
+
+def run_vrgripper_cli(torch, ss, dev, seed: int, root: str,
+                      smi: str) -> dict:
+  """vrgripper_train.cfg through run_t2r_trainer on cuda, on records
+  episode_to_transitions writes: VR_CLI_STEPS steps into a model_dir with
+  checkpoints and an export whose program serves with no model."""
+  from tensor2robot_tpu_torch import config
+  from tensor2robot_tpu_torch.bin import run_t2r_trainer
+  from tensor2robot_tpu_torch.export import export_utils
+  from tensor2robot_tpu_torch.export import native_export_generator as native
+  from tensor2robot_tpu_torch.predictors.exported_model_predictor import (
+      ExportedModelPredictor,
+  )
+  start = time.perf_counter()
+  records = os.path.join(root, "vrgripper.tfrecord")
+  transitions = vrgripper_records(records, seed)
+  write_s = time.perf_counter() - start
+  model_dir = os.path.join(root, "vrgripper_run")
+  cfg = os.path.join(_ROOT, "tensor2robot_tpu_torch", "research",
+                     "vrgripper", "configs", "vrgripper_train.cfg")
+  config.clear_config()
+  reset_spatial_softmax_counts(ss)
+  train_start = time.perf_counter()
+  rc = run_t2r_trainer.main([
+      "--config", cfg, "--import_module",
+      "tensor2robot_tpu_torch.research.vrgripper.vrgripper_env_models",
+      "--binding", f'DefaultRecordInputGenerator.file_patterns = "{records}"',
+      "--binding", f"train_eval_model.max_train_steps = {VR_CLI_STEPS}",
+      "--binding",
+      f"train_eval_model.save_checkpoints_steps = {VR_CLI_SAVE}",
+      "--binding", "train_eval_model.log_every_steps = 50",
+      "--model_dir", model_dir])
+  train_s = time.perf_counter() - train_start
+  config.clear_config()
+  checkpoints = sorted(int(d) for d in os.listdir(
+      os.path.join(model_dir, "checkpoints")) if d.isdigit())
+  with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+    logged = [json.loads(line) for line in f]
+  losses = [r["loss"] for r in logged if "loss" in r]
+  export_root = os.path.join(model_dir, "export", "latest")
+  versions = export_utils.list_export_versions(export_root)
+  served = ExportedModelPredictor(export_root=export_root)
+  restored = served.restore() and served.device.type == "cuda"
+  export_dir = os.path.join(export_root, str(versions[-1]))
+  out = served.predict(export_features("vrgripper_mdn", 4, seed))
+  result = {
+      "train_rc": rc, "transitions": transitions, "write_s": write_s,
+      "train_s": train_s, "checkpoints": checkpoints,
+      "loss_first_last": [losses[0], losses[-1]] if losses else None,
+      "export_versions": len(versions),
+      "export_files": sorted(os.listdir(export_dir)),
+      "program_restored_on_cuda": bool(restored),
+      "served_shape": list(out["inference_output"].shape),
+      "k1_launches_phase": zoo_k1_launches(ss),
+      "seconds": time.perf_counter() - start}
+  emit("zoo_vrgripper_cli", card=smi, **result)
+  if not (rc == 0 and checkpoints == [VR_CLI_SAVE, VR_CLI_STEPS]
+          and versions and native.SERVING_FN_NAME in result["export_files"]
+          and restored and result["served_shape"] == [4, 7]
+          and np.isfinite(out["inference_output"]).all()
+          and not result["k1_launches_phase"]):
+    raise AssertionError(f"zoo_vrgripper_cli: {result}")
+  return result
+
+
+def run_meta_bc_graph(torch, ss, gl, dev, seed: int, root: str,
+                      smi: str) -> dict:
+  """meta-BC (vrgripper_maml_model: float32, GroupNorm, 4+4 samples, one
+  inner step, VR_MAML_TASKS tasks) as a train_steps CUDA graph against
+  eager meta-steps."""
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      vrgripper_env_models as vr,
+  )
+  model = vr.vrgripper_maml_model()
+  stacks = spec_stacks(torch, model, dev, seed, VR_MAML_TASKS,
+                       [ZOO_WARM_STEPS, ZOO_GRAPH_STEPS])
+  return zoo_graph(torch, ss, gl, model, dev, seed, stacks, root,
+                   "zoo_vrgripper_meta_bc", smi)
+
+
+def meta_bc_graph_in_a_fresh_process(seed: int) -> dict:
+  """run_meta_bc_graph in a child process of its own (``--meta-bc-graph``),
+  waited for; its result is its stdout's last line.
+
+  In a process where other models trained first (in this script the MDN
+  and TEC graph cases), meta-BC's eager meta-steps are not reproducible:
+  two single steps from the same variables part by 1e-9 in the first
+  layers' gradients, which the second-order meta-step amplifies to 5.6e-4
+  in the parameters after 5 steps; with cuDNN off, with
+  ``CUBLAS_WORKSPACE_CONFIG`` set and under
+  ``torch.use_deterministic_algorithms(True)`` alike, no op flagged. In a
+  fresh process every run agrees bit for bit (``ROADMAP.md`` Queue 3).
+  So the graph is held against eager steps there."""
+  child = subprocess.run(
+      [sys.executable, os.path.abspath(__file__), "--meta-bc-graph",
+       "--seed", str(seed)], capture_output=True, text=True, timeout=600)
+  if child.returncode:
+    raise AssertionError(f"meta-BC graph child failed:\n"
+                         f"{child.stdout[-4000:]}\n{child.stderr[-4000:]}")
+  print(child.stdout, end="", flush=True)
+  return json.loads(child.stdout.strip().splitlines()[-1])
+
+
+def run_zoo_vrgripper(torch, ss, gl, dev, seed: int, root: str,
+                      smi: str) -> dict:
+  """Slice 17's VRGripper paths: BASELINE #5 at its published width
+  (VRGripperEnvModel: FiLM ResNet-18 width 32, 100x100, MDN of 5, action
+  7, pose 14, batch 64, bf16) as a CUDA graph against eager steps bit for
+  bit, the TEC model (batch 16, 2 + 2 samples) and meta-BC
+  (vrgripper_maml_model, 4 tasks) the same way, vrgripper_train.cfg
+  through the CLI, and check_vrgripper at the full scale."""
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      vrgripper_env_models as vr,
+  )
+  from tensor2robot_tpu_torch.research.vrgripper.vrgripper_env_tec_models import (
+      VRGripperEnvTecModel,
+  )
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+  start = time.perf_counter()
+  cases = {"zoo_vrgripper_meta_bc": meta_bc_graph_in_a_fresh_process(seed)}
+  for name, model, batch in (
+      ("zoo_vrgripper_mdn", vr.VRGripperEnvModel(
+          optimizer_fn=create_adam_optimizer(1e-4)), ZOO_BATCH),
+      ("zoo_vrgripper_tec", VRGripperEnvTecModel(
+          optimizer_fn=create_adam_optimizer(1e-4)), TEC_BATCH)):
+    stacks = spec_stacks(torch, model, dev, seed, batch,
+                         [ZOO_WARM_STEPS, ZOO_GRAPH_STEPS])
+    cases[name] = zoo_graph(torch, ss, gl, model, dev, seed, stacks, root,
+                            name, smi)
+    del stacks
+    gc.collect()
+    torch.cuda.empty_cache()
+  cli = run_vrgripper_cli(torch, ss, dev, seed, root, smi)
+  # The full scale, as for grasp2vec (ROADMAP.md Facts).
+  check = run_zoo_check(torch, ss, dev, "vrgripper", "full", root, smi)
+  return {"graphs": cases, "cli": cli, "check": check,
+          "seconds": time.perf_counter() - start}
+
+
+def export_features(name: str, batch: int, seed: int) -> dict:
+  """A request: pose_env scenes, or VRGripper images and gripper poses at
+  the published width."""
+  from tensor2robot_tpu_torch.research.vrgripper import (
+      vrgripper_env_models as vr,
+  )
+  rng = np.random.default_rng(seed)
+  if name == "pose_env":
+    return {"image": env_batch(seed)[:batch]}
+  return {"image": rng.random((batch, vr.IMAGE_SIZE, vr.IMAGE_SIZE, 3),
+                              np.float32),
+          "gripper_pose": rng.normal(
+              size=(batch, vr.GRIPPER_POSE_SIZE)).astype(np.float32)}
+
+
+def run_export_program(torch, ss, dev, seed: int, root: str,
+                       smi: str) -> dict:
+  """Slice 17's program format: pose_env (BASELINE #1, K1 on its path)
+  and the VRGripper MDN model (#5), at their published widths and bf16,
+  exported as serving_fn.pt2 on this machine and served by
+  ExportedModelPredictor(export_root=...) with no model: outputs against
+  the eager model's at batch 1 and 8 through one program, K1's launches
+  through the program (one a pose_env request), the t2r_assets.pb read
+  back to the JSON asset's specs, trace seconds and request ms beside
+  the eager path's."""
+  from tensor2robot_tpu_torch.export import export_utils
+  from tensor2robot_tpu_torch.export.native_export_generator import (
+      NativeExportGenerator,
+  )
+  from tensor2robot_tpu_torch.predictors.exported_model_predictor import (
+      ExportedModelPredictor,
+  )
+  from tensor2robot_tpu_torch.proto import proto_utils
+  from tensor2robot_tpu_torch.research.pose_env import (
+      PoseEnvRegressionModel,
+  )
+  from tensor2robot_tpu_torch.research.vrgripper.vrgripper_env_models import (
+      VRGripperEnvModel,
+  )
+  result = {}
+  for name, model, k1_per_request in (
+      ("pose_env", PoseEnvRegressionModel(), 1),
+      ("vrgripper_mdn", VRGripperEnvModel(), 0)):
+    start = time.perf_counter()
+    variables = model.init_variables(torch.Generator().manual_seed(seed),
+                                     device="cpu")
+    generator = NativeExportGenerator(export_root=os.path.join(root, name))
+    generator.set_specification_from_model(model)
+    export_dir = generator.export(variables, global_step=1)
+    program = ExportedModelPredictor(export_root=generator.export_root)
+    eager = ExportedModelPredictor(model, generator.export_root)
+    if not (program.restore() and eager.restore()
+            and program.device.type == "cuda"):
+      raise AssertionError(f"export_program {name}: not restored on cuda")
+    with open(os.path.join(export_dir,
+                           export_utils.SPEC_ASSET_PB_NAME), "rb") as f:
+      pb_specs, _, pb_extra = proto_utils.parse_t2r_assets(
+          proto_utils.T2RAssets.parse(f.read()))
+    json_specs, _, json_extra = export_utils.read_spec_assets(export_dir)
+    pb_read_back = (dict(pb_specs) == dict(json_specs)
+                    and pb_extra == json_extra)
+    reset_spatial_softmax_counts(ss)
+    outputs = {b: program.predict(export_features(name, b, seed + b))
+               for b in EXPORT_BATCHES}
+    launches = dict(ss.spatial_softmax.launches_by_kernel)
+    errors = {}
+    for b in EXPORT_BATCHES:
+      want = eager.predict(export_features(name, b, seed + b))
+      errors[b] = max(float(np.abs(outputs[b][k] - want[k]).max())
+                      for k in want)
+    timings = {}
+    for b in EXPORT_BATCHES:
+      features = export_features(name, b, seed + b)
+      timings[f"program_request_ms_batch{b}"] = host_ms(
+          torch, lambda: program.predict(features), reps=16)
+      timings[f"eager_request_ms_batch{b}"] = host_ms(
+          torch, lambda: eager.predict(features), reps=16)
+    result[name] = {
+        "trace_s": generator.last_trace_s,
+        "program_bytes": os.path.getsize(
+            os.path.join(export_dir, "serving_fn.pt2")),
+        "format": json_extra["format"],
+        "max_abs_vs_eager": {str(b): e for b, e in errors.items()},
+        "atol": PROGRAM_ATOL,
+        "output_shapes": {str(b): {k: list(v.shape) for k, v in o.items()}
+                          for b, o in outputs.items()},
+        "k1_launches_program": launches,
+        "k1_launches_expected": k1_per_request * len(EXPORT_BATCHES),
+        "pb_read_back": pb_read_back,
+        **timings, "seconds": time.perf_counter() - start}
+    emit("export_program", card=smi, model=name, **result[name])
+    finite = all(np.isfinite(v).all() for o in outputs.values()
+                 for v in o.values())
+    if not (pb_read_back and finite
+            and json_extra["format"] == "torch_export_pt2"
+            and max(errors.values()) <= PROGRAM_ATOL
+            and sum(launches.values()) == k1_per_request * len(
+                EXPORT_BATCHES)):
+      raise AssertionError(f"export_program {name}: {result[name]}")
+  if not result["pose_env"]["k1_launches_expected"] > 0:
+    raise AssertionError("export_program: K1 never ran in the program")
+  return result
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=0)
+  parser.add_argument("--meta-bc-graph", action="store_true",
+                      help="run only slice 17's meta-BC graph check (the "
+                      "process run_zoo_vrgripper starts for it)")
   args = parser.parse_args(argv)
 
   import torch
@@ -4834,6 +5314,11 @@ def main(argv=None) -> int:
   gl = importlib.import_module("tensor2robot_tpu_torch.ops.graph_launches")
   dev = torch.device("cuda")
   smi = nvidia_smi()
+  if args.meta_bc_graph:
+    with tempfile.TemporaryDirectory() as tmp:
+      result = run_meta_bc_graph(torch, ss, gl, dev, args.seed, tmp, smi)
+    print(json.dumps(result), flush=True)
+    return 0
   emit("device", name=torch.cuda.get_device_name(0),
        count=torch.cuda.device_count(), nvidia_smi=smi,
        torch=torch.__version__, cuda=torch.version.cuda)
@@ -5061,6 +5546,30 @@ def main(argv=None) -> int:
                                for k, v in maml["graph"].items()},
          k1_launches=maml_launches)
 
+  # Slice 17's main paths: the research zoo at its published widths
+  # (grasp2vec's ResNet-50, VRGripper's FiLM ResNet, TEC and meta-BC as
+  # CUDA graphs, remat, the CLI, the capability checks; no TPU kernel runs
+  # on them) and the program format, whose pose_env program holds K1 as
+  # its custom op.
+  with tempfile.TemporaryDirectory() as tmp:
+    start = time.perf_counter()
+    zoo_g2v = run_zoo_grasp2vec(torch, ss, gl, dev, args.seed, tmp, smi)
+    zoo_vr = run_zoo_vrgripper(torch, ss, gl, dev, args.seed, tmp, smi)
+    programs = run_export_program(torch, ss, dev, args.seed, tmp, smi)
+    program_launches = programs["pose_env"]["k1_launches_program"]
+    emit("zoo", seconds=time.perf_counter() - start,
+         grasp2vec_retrieval=zoo_g2v["check"]["success_rate"],
+         vrgripper_success=zoo_vr["check"]["success_rate"],
+         graphs_bitwise_equal={
+             "zoo_grasp2vec": zoo_g2v["graph"]["bitwise_equal"],
+             **{k: v["bitwise_equal"] for k, v in zoo_vr["graphs"].items()}},
+         remat_bitwise_equal=zoo_g2v["remat"]["bitwise_equal"],
+         phase_s={"zoo_grasp2vec": zoo_g2v["seconds"],
+                  "zoo_vrgripper": zoo_vr["seconds"],
+                  "export_program": sum(p["seconds"]
+                                        for p in programs.values())},
+         k1_launches_export_program=program_launches)
+
   timing = time_spatial_softmax(torch, ss, feature_map)
   emit("kernel_timing", spatial_softmax=timing)
   # K1 on the map the train step hands it, where its layout differs.
@@ -5088,7 +5597,8 @@ def main(argv=None) -> int:
           RECORD_SEEDS) * (POSE_STEPS + REACH_EPISODES + 2)
                    + sum(graphed_pose["k1_launches_phase"].values())
                    + accum["k1_launches"]
-                   + sum(sum(v.values()) for v in maml_launches.values())),
+                   + sum(sum(v.values()) for v in maml_launches.values())
+                   + sum(program_launches.values())),
       "launches_by_path": {
           "serve_slice": by_kernel, "pose_train": pose["k1_launches_training"],
           "pose_reach": pose["k1_launches_served"],
@@ -5096,7 +5606,10 @@ def main(argv=None) -> int:
              for r in records[1:] for part in ("training", "served")},
           "pose_graph": graphed_pose["k1_launches_phase"],
           "grad_accum": {"channels": accum["k1_launches"]},
-          **maml_launches},
+          **maml_launches, "export_program": program_launches},
+      "export_program_request_ms": {
+          key: programs["pose_env"][key] for key in programs["pose_env"]
+          if key.endswith("_ms_batch1") or key.endswith("_ms_batch8")},
       "maml_k1_launches_per_meta_step": maml["check"][
           "k1_launches_per_meta_step"],
       "maml_k1_launches_per_eval": {

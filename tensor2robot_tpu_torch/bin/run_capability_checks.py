@@ -13,8 +13,12 @@ non-zero when a check misses its bar. ``--device`` (default ``cuda``;
 meta-trains the pose_env MAML regressor on two-object reaching tasks
 through ``Trainer.train_steps`` (on the GPU one CUDA graph replay for
 ``MAML_ITERATIONS_PER_LOOP`` meta-steps) and scores adapted predictions on
-fresh tasks, as the JAX check does. grasp2vec and vrgripper raise
-NotImplementedError naming the ROADMAP.md item they wait for.
+fresh tasks, as the JAX check does. grasp2vec trains the embedding model
+(ResNet-18, GroupNorm) on synthetic triplets and scores held-out 64-way
+retrieval; vrgripper trains the FiLM ResNet regressor on pose_env
+demonstrations and scores reaches; both train through
+``Trainer.train_steps`` (on the GPU one CUDA graph replay for
+``ZOO_ITERATIONS_PER_LOOP`` steps) on the JAX checks' data and draws.
 """
 
 from __future__ import annotations
@@ -54,6 +58,8 @@ ITERATIONS_PER_LOOP = 50
 # check_maml's meta-steps a dispatch: a meta-step is ~18,000 kernels, so a
 # shorter stack keeps the eager first stack and the capture short.
 MAML_ITERATIONS_PER_LOOP = 10
+# check_grasp2vec's and check_vrgripper's steps a dispatch.
+ZOO_ITERATIONS_PER_LOOP = 10
 
 
 def _train_and_restore_predictor(model, record_path, steps, run_dir,
@@ -268,17 +274,132 @@ def check_maml(scale: str, workdir: str, device: str) -> dict:
                     "radius), gated on adapted-unadapted margin"}
 
 
-def _waiting(item: str):
-  def check(scale: str, workdir: str, device: str) -> dict:
-    raise NotImplementedError(f"this check waits for ROADMAP.md {item}.")
-  return check
+def _train_stacked(trainer, state, steps: int, batch_fn, device: str):
+  """`steps` train steps in stacks of ZOO_ITERATIONS_PER_LOOP; batch_fn()
+  draws one step's (features, labels) as numpy dicts (labels may be
+  None). Returns (state, the last metrics, train seconds)."""
+  import torch
+
+  from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+
+  def stack(batches):
+    if batches[0] is None:
+      return None
+    return ts.TensorSpecStruct(
+        (key, torch.from_numpy(np.stack([b[key] for b in batches])).to(
+            device)) for key in batches[0])
+
+  start = time.perf_counter()
+  for first in range(0, steps, ZOO_ITERATIONS_PER_LOOP):
+    batches = [batch_fn() for _ in range(
+        min(ZOO_ITERATIONS_PER_LOOP, steps - first))]
+    state, metrics = trainer.train_steps(
+        state, stack([f for f, _ in batches]), stack([l for _, l in batches]))
+  metrics = {key: float(value) for key, value in metrics.items()}
+  return state, metrics, time.perf_counter() - start
+
+
+def check_grasp2vec(scale: str, workdir: str, device: str) -> dict:
+  import torch
+
+  from tensor2robot_tpu_torch.research.grasp2vec import synthetic_scenes as ss
+  from tensor2robot_tpu_torch.research.grasp2vec.grasp2vec_model import (
+      Grasp2VecModel,
+  )
+  from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+
+  del workdir
+  knobs = _SCALES["grasp2vec"][scale]
+  model = Grasp2VecModel(image_size=knobs["image"], depth=18, norm="group",
+                         optimizer_fn=create_adam_optimizer(1e-3))
+  trainer = Trainer(model, seed=0, device=device)
+  state = trainer.create_train_state()
+  batch = 64
+  data = ss.sample_triplets(knobs["triplets"], image_size=knobs["image"],
+                            seed=0)
+  rng = np.random.default_rng(1)
+
+  def draw():
+    # Without replacement: a repeated triplet makes two equal positives.
+    idx = rng.choice(knobs["triplets"], batch, replace=False)
+    return ss.as_model_batch(data, idx), None
+
+  state, metrics, train_s = _train_stacked(trainer, state, knobs["steps"],
+                                           draw, device)
+  heldout = ss.sample_triplets(64, image_size=knobs["image"], seed=777)
+  features = ts.TensorSpecStruct(
+      (key, torch.from_numpy(value).to(device)) for key, value in
+      ss.as_model_batch(heldout, np.arange(64)).items())
+  eval_metrics = trainer.eval_step(state, features, None)
+  return {"success_rate": float(eval_metrics["retrieval_accuracy"]),
+          "train_retrieval_accuracy": metrics["retrieval_accuracy"],
+          "final_npairs": metrics["npairs"], "train_s": train_s,
+          "steps_per_dispatch": ZOO_ITERATIONS_PER_LOOP,
+          "metric": "held-out 64-way retrieval accuracy"}
+
+
+def check_vrgripper(scale: str, workdir: str, device: str,
+                    seed_offset: int = 0) -> dict:
+  import torch
+
+  from tensor2robot_tpu_torch.research.pose_env import (
+      evaluate_policy,
+      pose_env,
+  )
+  from tensor2robot_tpu_torch.research.vrgripper.vrgripper_env_models import (
+      VRGripperRegressionModel,
+  )
+  from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+
+  del workdir
+  knobs = _SCALES["vrgripper"][scale]
+  model = VRGripperRegressionModel(image_size=knobs["image"], action_size=2,
+                                   gripper_pose_size=4,
+                                   optimizer_fn=create_adam_optimizer(1e-3))
+  # seed_offset moves the training randomness (init, demos, batch order);
+  # the eval episodes stay fixed.
+  trainer = Trainer(model, seed=seed_offset, device=device)
+  state = trainer.create_train_state()
+  batch = 64
+  images, targets = pose_env.collect_episodes(
+      knobs["demos"], seed=seed_offset, image_size=knobs["image"])
+  rng = np.random.default_rng(1 + seed_offset)
+  proprio = rng.normal(0, 1, (knobs["demos"], 4)).astype(np.float32)
+
+  def draw():
+    idx = rng.choice(knobs["demos"], batch, replace=False)
+    return ({"image": images[idx].astype(np.float32) / 255.0,
+             "gripper_pose": proprio[idx]}, {"action": targets[idx]})
+
+  state, metrics, train_s = _train_stacked(trainer, state, knobs["steps"],
+                                           draw, device)
+  predict = trainer.predict_fn(state)
+  zero_proprio = torch.zeros((1, 4), device=device)
+
+  def policy(features):
+    out = predict(ts.TensorSpecStruct({
+        "image": torch.from_numpy(features["image"]).to(device),
+        "gripper_pose": zero_proprio}))
+    return {"inference_output": out["inference_output"].float().cpu().numpy()}
+
+  result = evaluate_policy(policy, num_episodes=200, seed=4321,
+                           image_size=knobs["image"])
+  return {"success_rate": result["success_rate"],
+          "mean_reward": result["mean_reward"],
+          "final_mse": metrics["mse"], "train_s": train_s,
+          "steps_per_dispatch": ZOO_ITERATIONS_PER_LOOP,
+          "metric": "pose_env reach success within 0.1"}
 
 
 _CHECKS = {
     "pose_env": check_pose_env,
     "qtopt": check_qtopt,
-    "grasp2vec": _waiting("the flagship list's item 14, grasp2vec"),
-    "vrgripper": _waiting("the flagship list's item 14, vrgripper"),
+    "grasp2vec": check_grasp2vec,
+    "vrgripper": check_vrgripper,
     "maml": check_maml,
 }
 

@@ -116,6 +116,17 @@ def params_to_state_dict(params: Mapping[str, Any],
                    type(module).__name__)
 
 
+def variables_to_tensors(variables: Mapping[str, Any],
+                         specs: Mapping[str, tuple],
+                         owner: str) -> Dict[str, torch.Tensor]:
+  """The flax variables tree as tensors of the given {key: (shape, dtype)}
+  specs, on the CPU, with `variables_to_state_dict`'s checks: for a
+  consumer with no module, as a serving program."""
+  expected = {key: torch.empty(shape, dtype=dtype, device="meta")
+              for key, (shape, dtype) in specs.items()}
+  return _map_onto(variables, expected, owner)
+
+
 def _split_rates(variables: Mapping[str, Any]):
   """(variables with the base's params, the MAML rates tree or None)."""
   params = variables.get("params")

@@ -2,7 +2,8 @@
 
 Counterpart of ``tensor2robot_tpu/export/export_utils.py``. An export root
 holds numeric version directories; each holds ``variables.npz``
-(``export/variables_io.py``) and the JSON spec asset ``t2r_assets.json``.
+(``export/variables_io.py``) and the spec asset twice: ``t2r_assets.json``
+and its proto twin ``t2r_assets.pb`` (``proto/t2r.proto``).
 A version is written into a temporary directory and published by one
 rename, so a polling predictor never sees half of one.
 """
@@ -17,9 +18,11 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from tensor2robot_tpu_torch.proto import proto_utils
 from tensor2robot_tpu_torch.specs import tensorspec_utils as ts
 
 SPEC_ASSET_NAME = "t2r_assets.json"
+SPEC_ASSET_PB_NAME = "t2r_assets.pb"
 VARIABLES_NPZ = "variables.npz"
 
 
@@ -100,9 +103,9 @@ def write_spec_assets(
     extra: Optional[dict] = None,
     global_step: int = 0,
 ) -> str:
-  """Writes the JSON spec asset predictors read the signature from. (The
-  JAX package also writes a proto twin, ``t2r_assets.pb``; its readers
-  take the JSON one first.)"""
+  """Writes the two spec assets predictors read the signature from: the
+  JSON one and its proto twin (``proto/t2r.proto`` ``T2RAssets``), as the
+  JAX package does. Returns the JSON one's path."""
   payload = {
       "feature_spec": json.loads(ts.to_serialized(feature_spec)),
       "label_spec": (json.loads(ts.to_serialized(label_spec))
@@ -113,6 +116,10 @@ def write_spec_assets(
   path = os.path.join(export_dir, SPEC_ASSET_NAME)
   with open(path, "w") as f:
     json.dump(payload, f, indent=2, sort_keys=True)
+  assets = proto_utils.make_t2r_assets(
+      feature_spec, label_spec, extra=extra, global_step=global_step)
+  with open(os.path.join(export_dir, SPEC_ASSET_PB_NAME), "wb") as f:
+    f.write(assets.serialize())
   return path
 
 
@@ -130,8 +137,15 @@ def list_export_versions(export_root: str) -> List[int]:
 def read_spec_assets(
     export_dir: str,
 ) -> Tuple[ts.TensorSpecStruct, Optional[ts.TensorSpecStruct], dict]:
-  """Reads back (feature_spec, label_spec, extra) from the JSON asset."""
-  with open(os.path.join(export_dir, SPEC_ASSET_NAME)) as f:
+  """Reads back (feature_spec, label_spec, extra): from the JSON asset, or
+  from the proto twin where the JSON one is absent (an exporter that
+  writes only the proto)."""
+  path = os.path.join(export_dir, SPEC_ASSET_NAME)
+  if not os.path.exists(path):
+    with open(os.path.join(export_dir, SPEC_ASSET_PB_NAME), "rb") as f:
+      assets = proto_utils.T2RAssets.parse(f.read())
+    return proto_utils.parse_t2r_assets(assets)
+  with open(path) as f:
     payload = json.load(f)
   feature_spec = ts.from_serialized(json.dumps(payload["feature_spec"]))
   label_spec = (ts.from_serialized(json.dumps(payload["label_spec"]))

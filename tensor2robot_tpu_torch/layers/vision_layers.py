@@ -7,15 +7,17 @@ no layout copy is made either way.
 
 Numerics follow flax: parameters stay in float32; ``Conv`` and ``Dense``
 cast their input, kernel and bias to the compute dtype; normalisation
-computes in float32, with the parameters and statistics promoted to
-float32 where a scoring tier hands them over in bfloat16, and returns the
-compute dtype; convolutions pad as
+computes in float32 (float64 for a float64 input, as flax promotes), with
+the parameters and statistics promoted where a scoring tier hands them
+over in bfloat16, and returns the compute dtype; convolutions pad as
 XLA's "SAME" does, with the odd pixel at the high end.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable, Sequence, Tuple
 
 import torch
@@ -54,17 +56,18 @@ class Conv(nn.Conv2d):
   """flax ``nn.Conv`` with "SAME" padding, on (B, C, H, W) activations."""
 
   def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-               stride: int = 1, dtype: torch.dtype = torch.bfloat16):
+               stride: int = 1, dtype: torch.dtype = torch.bfloat16,
+               bias: bool = True):
     super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                     padding=0)
+                     padding=0, bias=bias)
     self.compute_dtype = dtype
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     dtype = self.compute_dtype
     x = F.pad(x.to(dtype),
               same_padding(x.shape[-2:], self.kernel_size[0], self.stride[0]))
-    return F.conv2d(x, self.weight.to(dtype), self.bias.to(dtype),
-                    self.stride)
+    bias = None if self.bias is None else self.bias.to(dtype)
+    return F.conv2d(x, self.weight.to(dtype), bias, self.stride)
 
 
 class Dense(nn.Linear):
@@ -80,6 +83,27 @@ class Dense(nn.Linear):
     return F.linear(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
 
 
+_STATE = threading.local()
+
+
+def _norm_dtype(x: torch.Tensor) -> torch.dtype:
+  """Normalisation's dtype: at least float32."""
+  return torch.promote_types(x.dtype, torch.float32)
+
+
+@contextlib.contextmanager
+def frozen_statistics():
+  """Within this context (on this thread), training-mode ``BatchNorm``
+  normalises with the batch's statistics but leaves its running averages
+  unmoved."""
+  previous = getattr(_STATE, "frozen", False)
+  _STATE.frozen = True
+  try:
+    yield
+  finally:
+    _STATE.frozen = previous
+
+
 class BatchNorm(nn.Module):
   """flax ``nn.BatchNorm`` on (B, C, H, W) or (B, C), statistics in float32.
 
@@ -87,8 +111,11 @@ class BatchNorm(nn.Module):
   with the batch's mean and biased variance over every axis but C, and
   moves the running averages in place to 0.99 old + 0.01 batch, the
   variance the biased one, as flax does (torch's own update keeps 0.9 and
-  the unbiased variance). The model hands training copies of its running averages,
-  so the caller's variables never change.
+  the unbiased variance). The model hands training copies of its running
+  averages, so the caller's variables never change. Inside
+  ``frozen_statistics()`` training leaves them as they are: a
+  rematerialized block's forward runs again in the backward pass, and
+  flax moves the averages once.
   """
 
   def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
@@ -100,7 +127,7 @@ class BatchNorm(nn.Module):
     self.compute_dtype = dtype
 
   def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-    x = x.float()
+    x = x.to(_norm_dtype(x))
     if train:
       if x.device.type == "cpu":
         # PyTorch's CPU batch norm sums a channels-last input's statistics
@@ -108,19 +135,21 @@ class BatchNorm(nn.Module):
         # contiguous path, enough to move this model's gradients by a
         # tenth of their largest (tests/test_torch_train.py).
         x = x.contiguous()
-      with torch.no_grad():
-        var, mean = torch.var_mean(
-            x, dim=(0,) + tuple(range(2, x.dim())), correction=0)
-        for running, batch in ((self.running_mean, mean),
-                               (self.running_var, var)):
-          running.mul_(_BATCH_NORM_MOMENTUM).add_(
-              batch, alpha=1.0 - _BATCH_NORM_MOMENTUM)
+      if not getattr(_STATE, "frozen", False):
+        with torch.no_grad():
+          var, mean = torch.var_mean(
+              x, dim=(0,) + tuple(range(2, x.dim())), correction=0)
+          for running, batch in ((self.running_mean, mean),
+                                 (self.running_var, var)):
+            running.mul_(_BATCH_NORM_MOMENTUM).add_(
+                batch, alpha=1.0 - _BATCH_NORM_MOMENTUM)
     # Parameters and statistics a scoring tier hands over in bfloat16
     # normalise in float32 too (a no-op on float32 tensors).
     return F.batch_norm(
-        x, None if train else self.running_mean.float(),
-        None if train else self.running_var.float(), self.weight.float(),
-        self.bias.float(), training=train, eps=_BATCH_NORM_EPSILON,
+        x, None if train else self.running_mean.to(x.dtype),
+        None if train else self.running_var.to(x.dtype),
+        self.weight.to(x.dtype), self.bias.to(x.dtype), training=train,
+        eps=_BATCH_NORM_EPSILON,
     ).to(self.compute_dtype)
 
 
@@ -139,8 +168,9 @@ class GroupNormAuto(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     norm = self.GroupNorm_0
-    return F.group_norm(x.float(), norm.num_groups, norm.weight.float(),
-                        norm.bias.float(), norm.eps).to(self.compute_dtype)
+    x = x.to(_norm_dtype(x))
+    return F.group_norm(x, norm.num_groups, norm.weight.to(x.dtype),
+                        norm.bias.to(x.dtype), norm.eps).to(self.compute_dtype)
 
 
 def make_norm(kind: str, dtype: torch.dtype) -> Callable[[int], nn.Module]:

@@ -104,6 +104,10 @@ def _leaf(tensor: torch.Tensor) -> torch.Tensor:
 class MAMLModel(AbstractT2RModel):
   """Wraps an AbstractT2RModel with a MAML inner and outer loop."""
 
+  # The tasks run in a Python loop, which a torch.export trace unrolls
+  # for its example's task count: no program with a dynamic batch.
+  exports_program = False
+
   def __init__(
       self,
       base_model: AbstractT2RModel,

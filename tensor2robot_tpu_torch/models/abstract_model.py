@@ -78,6 +78,10 @@ def flax_default_init_(module: nn.Module,
 class AbstractT2RModel(abc.ABC):
   """Spec-declaring, loss-defining, optimizer-providing model base."""
 
+  # Whether torch.export can trace the PREDICT forward into the serving
+  # program (export/native_export_generator.py).
+  exports_program = True
+
   def __init__(self, optimizer_fn: Optional[optimizers.OptimizerFn] = None,
                use_avg_model_params: bool = False,
                avg_model_params_decay: float = 0.9999,

@@ -20,6 +20,13 @@ input: the counterpart of the derivative XLA takes of the JAX
 ``custom_jvp``'s rule, without the plain version. A double backward
 (``create_graph=True``) differentiates the plain version, as the JAX rule
 derives higher orders from the reference.
+
+An exported program holds K1 as the custom op ``t2r::spatial_softmax``
+(``ops/dispatch.py``): the wrapper calls it while an exporter traces.
+Its CUDA implementation is ``_launch`` (counted as every launch is), its
+CPU implementation the plain version, and its fake one gives the output's
+shape for tracing. A program that holds it loads only where this module
+has been imported.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from tensor2robot_tpu_torch.ops import _build, graph_launches
+from tensor2robot_tpu_torch.ops import _build, dispatch, graph_launches
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID = 1 << 30  # H*W bound of the kernels' 32-bit grid index
@@ -154,6 +161,31 @@ class _SpatialSoftmaxFn(torch.autograd.Function):
     return grad, None
 
 
+@torch.library.custom_op("t2r::spatial_softmax", mutates_args=())
+def spatial_softmax_op(features: torch.Tensor,
+                       temperature: float) -> torch.Tensor:
+  """K1 as an operator for exported programs; this body is its CPU
+  implementation, the plain version."""
+  if features.device.type != "cpu":
+    raise ValueError(
+        f"t2r::spatial_softmax has CPU and CUDA implementations; got "
+        f"{features.device}.")
+  return spatial_softmax_reference(features, temperature)
+
+
+@spatial_softmax_op.register_kernel("cuda")
+def _spatial_softmax_op_cuda(features: torch.Tensor,
+                             temperature: float) -> torch.Tensor:
+  return _launch(features, temperature)
+
+
+@spatial_softmax_op.register_fake
+def _spatial_softmax_op_fake(features: torch.Tensor,
+                             temperature: float) -> torch.Tensor:
+  b, _, _, c = features.shape
+  return features.new_empty((b, 2 * c))
+
+
 def spatial_softmax(features: torch.Tensor,
                     temperature: float = 1.0) -> torch.Tensor:
   """Expected (x, y) image coordinates per channel ("feature points").
@@ -173,6 +205,8 @@ def spatial_softmax(features: torch.Tensor,
   if features.dtype not in _DTYPE_CODES:
     raise TypeError(
         f"spatial_softmax takes float32 or bfloat16; got {features.dtype}.")
+  if dispatch.use_custom_ops():  # an exporter is tracing
+    return spatial_softmax_op(features, float(temperature))
   if features.device.type == "cpu":
     return spatial_softmax_reference(features, temperature)
   if features.device.type != "cuda":

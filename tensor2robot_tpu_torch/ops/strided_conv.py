@@ -56,16 +56,19 @@ def strided3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 class FoldedStridedConv3x3(nn.Conv2d):
   """The drop-in for a SAME 3x3 stride-2 conv, on (B, C, H, W)
-  activations, with the parity conv's parameters (``weight`` OIHW,
-  ``bias``): parity and folded checkpoints interchange."""
+  activations, with the parity conv's parameters (``weight`` OIHW, an
+  optional ``bias``): parity and folded checkpoints interchange."""
 
   def __init__(self, in_channels: int, features: int,
-               dtype: torch.dtype = torch.bfloat16):
-    super().__init__(in_channels, features, 3, stride=2)
+               dtype: torch.dtype = torch.bfloat16, bias: bool = True):
+    super().__init__(in_channels, features, 3, stride=2, bias=bias)
     self.compute_dtype = dtype
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     dtype = self.compute_dtype
     y = strided3x3_same(x.to(dtype).permute(0, 2, 3, 1),
                         self.weight.to(dtype).permute(2, 3, 1, 0))
-    return y.permute(0, 3, 1, 2) + self.bias.to(dtype)[:, None, None]
+    y = y.permute(0, 3, 1, 2)
+    if self.bias is None:
+      return y
+    return y + self.bias.to(dtype)[:, None, None]

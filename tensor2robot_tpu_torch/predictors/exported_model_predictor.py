@@ -5,32 +5,44 @@ poll an export root for the newest version, block-with-timeout until the
 first export exists, predict on numpy dicts, hot-reload newer versions,
 and hot-swap variables in place (``set_variables``).
 
-A native export's ``serving_fn.bin`` is StableHLO, which only JAX runs.
-This predictor instead rebuilds the network from the model's Python code,
-as the JAX ``CheckpointPredictor`` does, and serves the export's
-``variables.npz`` through the weight bridge. When the export carries its
-spec asset (``t2r_assets.json``), its feature keys, shapes and dtypes must
-match the model's PREDICT feature spec.
+Two ways to serve a version:
+
+- ``ExportedModelPredictor(export_root=...)``, with no model, serves the
+  version's program, ``serving_fn.pt2`` (``torch.export``), as the JAX
+  predictor of this name serves its StableHLO: no model code, the feature
+  spec read from the spec assets, the variables from ``variables.npz``
+  mapped onto the program's inputs. The program is moved to the serving
+  device. A program that holds a hand kernel holds it as a custom op
+  (``ops/dispatch.py``), which must be registered before the program
+  loads: import ``tensor2robot_tpu_torch.ops`` first (this module does).
+- ``ExportedModelPredictor(model, export_root)`` rebuilds the network from
+  the model's Python code, as the JAX ``CheckpointPredictor`` does, and
+  serves ``variables.npz`` through the weight bridge; a version without a
+  program (MAML's) is served so. When the export carries its spec asset,
+  its feature keys, shapes and dtypes must match the model's PREDICT
+  feature spec.
 
 ``predict_examples`` serves serialized tf.Example records, the format the
-data-collection fleet logs. It parses them with the model's preprocessor's
-PREDICT in-spec (for pose_env, a jpeg-encoded uint8 image), runs the
-preprocessor on the host, then ``predict``. The JAX native predictor
-parses with the export's model-ready spec instead; where the preprocessor
-passes features through unchanged the two are the same, and where it does
-not (pose_env's jpeg records) the JAX predictor cannot parse the records.
+data-collection fleet logs. With a model it parses them with the model's
+preprocessor's PREDICT in-spec (for pose_env, a jpeg-encoded uint8 image),
+runs the preprocessor on the host, then ``predict``. Serving a program, it
+parses with the export's model-ready spec, as the JAX native predictor
+does; where a preprocessor changes the features (pose_env's jpeg records)
+only the model's way can parse the records.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+import tensor2robot_tpu_torch.ops  # noqa: F401 (registers the custom ops)
 from tensor2robot_tpu_torch import Device, bridge, modes, resolve_device
 from tensor2robot_tpu_torch.export import export_utils, variables_io
+from tensor2robot_tpu_torch.export import native_export_generator as native
 from tensor2robot_tpu_torch.models.abstract_model import AbstractT2RModel
 from tensor2robot_tpu_torch.predictors.abstract_predictor import (
     AbstractPredictor,
@@ -46,20 +58,26 @@ def _to_numpy(tensor: torch.Tensor) -> np.ndarray:
 
 
 class ExportedModelPredictor(AbstractPredictor):
-  """Polls export_root and serves the newest export's variables."""
+  """Polls export_root and serves the newest export: its program, or,
+  given a model, its variables through the model's network."""
 
-  def __init__(self, model: AbstractT2RModel, export_root: str,
-               device: Device = None):
+  def __init__(self, model: Optional[AbstractT2RModel] = None,
+               export_root: Optional[str] = None, device: Device = None):
     """Args:
-      model: the model whose network the export's variables fill.
+      model: None serves each version's ``serving_fn.pt2``; else the model
+        whose network the export's variables fill.
       export_root: directory of numeric version subdirectories.
       device: where to serve; the GPU unless 'cpu' is asked for.
     """
+    if export_root is None:
+      raise ValueError("ExportedModelPredictor needs an export_root.")
     self._model = model
     self._export_root = export_root
     self._device = resolve_device(device)
-    self._feature_spec = ts.flatten_spec_structure(
-        model.get_feature_specification(modes.PREDICT))
+    self._feature_spec = (None if model is None else ts.flatten_spec_structure(
+        model.get_feature_specification(modes.PREDICT)))
+    self._program = None  # the served program's module, without a model
+    self._feature_keys = None
     self._variables = None
     self._version = -1
     self._example_parser = None
@@ -78,14 +96,41 @@ class ExportedModelPredictor(AbstractPredictor):
           f"a native export under {self._export_root}", timeout_s,
           raise_on_timeout)
     export_dir = os.path.join(self._export_root, str(newest))
-    if os.path.exists(os.path.join(export_dir, export_utils.SPEC_ASSET_NAME)):
-      self._check_spec_assets(export_dir)
     tree = variables_io.load_variables(
         os.path.join(export_dir, export_utils.VARIABLES_NPZ))
-    state = bridge.variables_to_state_dict(tree, self._model.module)
+    if self._model is None:
+      state = self._load_program(export_dir, tree)
+    else:
+      if os.path.exists(os.path.join(export_dir,
+                                     export_utils.SPEC_ASSET_NAME)):
+        self._check_spec_assets(export_dir)
+      state = bridge.variables_to_state_dict(tree, self._model.module)
     self._variables = {k: v.to(self._device) for k, v in state.items()}
     self._version = newest
     return True
+
+  def _load_program(self, export_dir: str, tree) -> Dict[str, torch.Tensor]:
+    """Loads the version's program onto the serving device; returns its
+    variables, `tree` mapped onto the program's inputs."""
+    from torch.export.passes import move_to_device_pass
+    feature_spec, _, extra = export_utils.read_spec_assets(export_dir)
+    if extra.get("format") != native.PROGRAM_FORMAT:
+      raise ValueError(
+          f"Export {export_dir} holds no serving program (format "
+          f"{extra.get('format')!r}); pass its model to serve its "
+          "variables.")
+    program = torch.export.load(
+        os.path.join(export_dir, native.SERVING_FN_NAME))
+    if self._device.type != "cpu":
+      program = move_to_device_pass(program, self._device)
+    state = bridge.variables_to_tensors(
+        tree, {key: (shape, getattr(torch, dtype))
+               for key, shape, dtype in extra["variables"]}, export_dir)
+    self._program = program.module()
+    self._feature_spec = feature_spec
+    self._feature_keys = list(extra["feature_keys"])
+    self._example_parser = None  # rebuilt for the new spec
+    return state
 
   def _check_spec_assets(self, export_dir: str) -> None:
     exported, _, extra = export_utils.read_spec_assets(export_dir)
@@ -102,7 +147,11 @@ class ExportedModelPredictor(AbstractPredictor):
             f"model takes {want!r}.")
 
   def init_randomly(self) -> None:
-    """Serves freshly initialised weights (seed 0) as version 0."""
+    """Serves freshly initialised weights (seed 0) as version 0; needs
+    the model."""
+    if self._model is None:
+      raise NotImplementedError(
+          "init_randomly draws the model's variables: pass the model.")
     self._variables = self._model.init_variables(
         torch.Generator().manual_seed(0), device=self._device)
     self._version = 0
@@ -124,15 +173,23 @@ class ExportedModelPredictor(AbstractPredictor):
     inputs = ts.TensorSpecStruct(
         (key, torch.from_numpy(np.ascontiguousarray(value)).to(self._device))
         for key, value in flat.items())
-    outputs = self._model.predict_fn(self._variables, inputs)
+    fn, variables = self.device_fn()
     return {k: _to_numpy(v) for k, v in
-            export_utils.normalize_serving_outputs(outputs).items()}
+            export_utils.normalize_serving_outputs(
+                fn(variables, inputs)).items()}
 
   def predict_examples(self, serialized) -> Dict[str, np.ndarray]:
     """Serves a batch of serialized tf.Example records (no TensorFlow):
-    parse with the preprocessor's PREDICT in-spec, preprocess, predict."""
+    with a model, parse with the preprocessor's PREDICT in-spec,
+    preprocess, predict; serving a program, parse with its feature spec
+    and predict."""
     from tensor2robot_tpu_torch.data.parser import ExampleParser
     self.assert_is_loaded()
+    if self._model is None:
+      if self._example_parser is None:
+        self._example_parser = ExampleParser(self._feature_spec)
+      features, _ = self._example_parser.parse_batch(list(serialized))
+      return self.predict(features)
     preprocessor = self._model.preprocessor
     if self._example_parser is None:
       self._example_parser = ExampleParser(
@@ -142,13 +199,24 @@ class ExportedModelPredictor(AbstractPredictor):
     return self.predict(features)
 
   def device_fn(self):
-    """(fn, variables): ``fn(variables, features)`` is the model's PREDICT
-    forward on tensors already on this predictor's device; the variables
-    are the served ones, on that device."""
+    """(fn, variables): ``fn(variables, features)`` is the PREDICT forward
+    (the program's, or the model's) on tensors already on this
+    predictor's device; the variables are the served ones, on that
+    device."""
     self.assert_is_loaded()
-    return self._model.predict_fn, self._variables
+    if self._model is not None:
+      return self._model.predict_fn, self._variables
+    program, keys = self._program, self._feature_keys
+
+    def serve(variables, features):
+      with torch.no_grad():
+        return program(variables, *[features[key] for key in keys])
+
+    return serve, self._variables
 
   def get_feature_specification(self) -> ts.TensorSpecStruct:
+    if self._model is None:
+      self.assert_is_loaded()
     return self._feature_spec
 
   @property
@@ -157,5 +225,6 @@ class ExportedModelPredictor(AbstractPredictor):
 
   def close(self) -> None:
     self._variables = None
+    self._program = None
     self._example_parser = None
     self._version = -1  # assert_is_loaded fails cleanly after close()

@@ -693,9 +693,10 @@ class TestTrainEval:
     assert set(result.eval_metrics) == {"loss", "mse", "mean_pose_error"}
     assert all(np.isfinite(v) for v in result.eval_metrics.values())
     assert sorted(os.listdir(result.export_dir)) == [
-        "t2r_assets.json", "variables.npz"]
+        "serving_fn.pt2", "t2r_assets.json", "t2r_assets.pb",
+        "variables.npz"]
     _, _, extra = export_utils.read_spec_assets(result.export_dir)
-    assert extra["format"] == "variables_npz"
+    assert extra["format"] == "torch_export_pt2"
     assert extra["feature_keys"] == ["image"]
 
     images = _batches(1, seed=3)[0][0]["image"]

@@ -402,15 +402,6 @@ class TestCLIs:
         "--checks", "qtopt", "--device", "cpu"]) == 1
     assert json.loads(capsys.readouterr().out)["passed"] is False
 
-  @pytest.mark.parametrize("check, item", [("grasp2vec", "item 14"),
-                                           ("vrgripper", "item 14")])
-  def test_waiting_checks_name_their_item(self, check, item, capsys):
-    assert run_capability_checks.main(["--checks", check,
-                                       "--device", "cpu"]) == 1
-    record = json.loads(capsys.readouterr().out)
-    assert "NotImplementedError" in record["error"] and item in (
-        record["error"])
-
   def test_qtopt_cfg_trains_and_writes_the_jax_operative_config(
       self, tmp_path):
     """The port's qtopt_train.cfg through its CLI with a miniature

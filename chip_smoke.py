@@ -63,9 +63,9 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   while the learner trains with the health sentinel and hot-reloads the
   policy: the JAX smoke's bar at seed 0, the production loop at
   full width (the 64x64 critic, 4 collectors of 8 envs, a ring of
-  50,000), and the fleet policy at the published 472x472 at every rung,
-  its graph against its eager control bit for bit, captured once across
-  three reloads.
+  50,000), and the fleet policy at the published 472x472 at rungs 1, 4
+  and 16, its graph against its eager control bit for bit, captured once
+  across three reloads.
 - slice 10 makes that loop preemptible and batches its acting:
   ``qtopt_resume`` holds the learner's crash-resume parity bit for bit
   (TinyQ, and the production 64x64 critic at batch 32), resumes
@@ -153,6 +153,31 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   eager model at batch 1 and 8, K1 launching once a pose_env request
   through the program's custom op.
 
+- slice 18 runs the parallel tier's training half with two gloo ranks
+  co-located on the card (``parallel/launch.py``; NCCL refuses two ranks
+  on one device): ``parallel_attention`` holds Ulysses attention over
+  {"seq": 2} (each rank's local core K2 forward, K3 and K4 backward on
+  (8, 2048, 1, 64) bf16 of a global (8, 2048, 2, 64), causal) against one
+  process's ``ops.flash_attention`` on the global input, with each rank's
+  kernel launches counted, ring attention against the dense reference,
+  and SNAIL's ``AttentionBlock(seq_mesh=)`` at slice 2's width for 3 Adam
+  steps against the unsharded block; ``parallel_train`` trains the
+  472x472 critic at batch 32 (float32, TF32 off, the EMA kept) through
+  ``train_eval_model`` in four modes, data parallel, ZeRO-1 and FSDP on
+  {"data": 2} and tensor parallel by the model's partition rules on
+  {"data": 1, "model": 2}, 3 steps each, every mode held against one
+  rank's run on the global batch (losses, the first step's gradients and
+  Adam updates, the running statistics), with each mode's ms a step, a
+  rank's peak memory, its parameter blocks and the collectives' bytes.
+  Their step times measure the structure, not multi-card scaling: both
+  ranks share one card.
+
+Slice 6's record run and slice 7's capability check wait on the host's
+record parser with the card idle, so each runs in a child process of
+this script (``--background``) beside slice 16's and 17's phases, whose
+checks hold no time; meta-BC's graph check runs in a child as well. The
+``phase_seconds`` line gives the run's seconds by phase and each child's.
+
 Each path runs with the launch counts set to 0 just before it and checks
 them just after. Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -231,6 +256,25 @@ FLASH_LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 FLASH_BF16_ROW_SHARE = 2 ** -5
 FLASH_BF16_RTOL = 2 ** -7
 FLASH_BF16_FLOOR = 1e-5
+# Slice 18: two gloo ranks on the card. Ulysses at K2's table shape (a
+# global (8, 2048, 2, 64) bf16, causal: (8, 2048, 1, 64) a rank), held
+# within flash_limit of one process's flash_attention; ring attention
+# within the same limit of the dense reference; the SNAIL ring block at
+# slice 2's width in float32 (TF32 off) against the unsharded block; the
+# training modes at the flagship's width and batch, float32 (TF32 off),
+# held against one rank's run with slice 5's limits (see GRAD_NOISE_SHARE).
+PARALLEL_RANKS = 2
+PARALLEL_ATTENTION_SHAPE = (8, 2048, 2, 64)
+PARALLEL_SNAIL_STEPS = 3
+PARALLEL_TRAIN_STEPS = 3
+# A mode's first gradients against the one-rank run's, as a share of each
+# tensor's largest. At 472x472 the float32 sums of cuDNN's convolutions
+# and batch norm over a batch of 32 and over two of 16 part by up to
+# 0.0039 of a tensor's largest (pre_conv2's kernel, the same in every
+# data-parallel mode; in float64 they agree to float32 rounding); on the
+# CPU at 64x64 the modes agree within 5e-6. A lost reduction or a
+# gradient off by the rank count moves it by ~1.
+PARALLEL_GRAD_SHARE = 1e-2
 
 
 def flash_limit(torch, want):
@@ -330,7 +374,7 @@ LABEL_FACTORED_ATOL = 1e-5
 # threads' env stepping holds the interpreter, and the eager learner runs
 # at ~1.3 steps/s beside them on an H100, against ~27 alone:
 # scripts/profile_qtopt_loop.py); (c) CEMFleetPolicy at the published
-# 472x472 at every rung, its
+# 472x472 at LOOP_FLEET_RUNGS, its
 # graph against its eager control bit for bit (cuDNN deterministic), and
 # at 64x64 float32 against the CPU.
 LOOP_SEEDS = (0,)
@@ -348,6 +392,10 @@ LOOP_SMOKE_STEPS = 300
 # reload; the vector production loop of slice 10 covers one.
 LOOP_PRODUCTION_STEPS = 10
 FLEET_RUNGS = (1, 2, 4, 8, 16)
+# The closed loop's fleet policy timed at 472x472 on three of its rungs
+# (every rung until slice 18's phases joined; the serving phases keep all
+# five).
+LOOP_FLEET_RUNGS = (1, 4, 16)
 FLEET_RELOADS = 3
 FLEET_CALLS = 7
 # The fleet step on the card against the CPU, float32 with TF32 off: the
@@ -357,6 +405,22 @@ FLEET_F32_ATOL = 1e-4
 
 def emit(phase: str, **fields) -> None:
   print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+class PhaseClock:
+  """Seconds by phase of the whole run (host clock, one lap a phase)."""
+
+  def __init__(self):
+    self.start = self.last = time.perf_counter()
+    self.seconds = {}
+
+  def lap(self, name: str) -> None:
+    now = time.perf_counter()
+    self.seconds[name] = self.seconds.get(name, 0.0) + now - self.last
+    self.last = now
+
+  def total(self) -> float:
+    return time.perf_counter() - self.start
 
 
 def nvidia_smi() -> str:
@@ -2317,7 +2381,7 @@ def run_qtopt_loop(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
   predictor = _HotReloadPredictor(model, variables(seed))
   policy = CEMFleetPolicy(predictor, action_size=4, seed=seed,
                           **CEM_SERVING)
-  scenes, _ = sg.sample_scenes(max(FLEET_RUNGS), IMAGE_SIZE, seed + 5)
+  scenes, _ = sg.sample_scenes(max(LOOP_FLEET_RUNGS), IMAGE_SIZE, seed + 5)
 
   def graph_vs_eager(bucket):
     images = list(scenes[:bucket])
@@ -2337,7 +2401,7 @@ def run_qtopt_loop(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
     return graphed
 
   rungs = []
-  for bucket in FLEET_RUNGS:
+  for bucket in LOOP_FLEET_RUNGS:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held_mib = torch.cuda.memory_allocated() / 2**20
@@ -2363,17 +2427,17 @@ def run_qtopt_loop(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
         "held_mib": held_mib,
         "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20})
     emit("qtopt_loop_fleet", card=smi, **rungs[-1])
-  before = graph_vs_eager(2)
+  before = graph_vs_eager(LOOP_FLEET_RUNGS[1])
   for reload in range(1, FLEET_RELOADS + 1):
     predictor.set_variables(variables(seed + reload))
-    for bucket in FLEET_RUNGS:
+    for bucket in LOOP_FLEET_RUNGS:
       graph_vs_eager(bucket)
-  if np.array_equal(graph_vs_eager(2), before):
+  if np.array_equal(graph_vs_eager(LOOP_FLEET_RUNGS[1]), before):
     raise AssertionError("the reloaded variables did not change an action")
   fleet = {"cem": CEM_SERVING, "image_size": IMAGE_SIZE,
            "compile_counts": dict(policy.compile_counts),
            "model_version": predictor.model_version, "rungs": rungs}
-  if policy.compile_counts != {b: 1 for b in FLEET_RUNGS}:
+  if policy.compile_counts != {b: 1 for b in LOOP_FLEET_RUNGS}:
     raise AssertionError(f"fleet captures across reloads: {fleet}")
   torch.backends.cudnn.deterministic = deterministic
   del policy, predictor
@@ -2433,7 +2497,8 @@ PROFILE_STEPS = 12
 # over the 32 envs, and the learner alone in the same call (the actor
 # stopped once the ring passes min_fill). ROADMAP's bar, reported and not
 # gated: the loop's learner within 2x of the learner alone.
-VECTOR_PRODUCTION_STEPS = 200
+VECTOR_PRODUCTION_STEPS = 200  # refresh_every: one hot reload
+VECTOR_ALONE_STEPS = 100  # the learner alone (200 until slice 18)
 STARVATION_BAR = 2.0
 
 
@@ -2641,6 +2706,7 @@ def run_qtopt_vector(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
   for name, alone in (("vector", False), ("alone", True)):
     timed = drive_loop(ReplayTrainLoop(config, os.path.join(root, name),
                                        device=dev),
+                       VECTOR_ALONE_STEPS if alone else
                        VECTOR_PRODUCTION_STEPS, gl, alone=alone)
     run = timed.pop("run")
     runs[name] = {
@@ -2722,7 +2788,7 @@ def run_qtopt_vector(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
 DEVICE_TINY_K = 4
 DEVICE_FLAGSHIP_K = 50
 DEVICE_RING = 1024
-DEVICE_PRODUCTION_STEPS = 400
+DEVICE_PRODUCTION_STEPS = 300
 DEVICE_PROFILE_WINDOW = (100, 101)  # the dispatch that ends at step 150
 DEVICE_IDLE_BAR = 0.2
 DEVICE_BLOCKED_BAR = 0.05
@@ -3037,7 +3103,7 @@ ANAKIN_RASTER_SCENES = 512
 # (eager), dispatch 2 captures, dispatch 3 replays.
 ANAKIN_GRAPH_CASES = (("tinyq", 16, 4, 320), ("flagship", 16, 8, 384))
 ANAKIN_GRAPH_RING = 1024
-ANAKIN_PRODUCTION_STEPS = 150  # dispatches of 18, then 25 optimizer steps
+ANAKIN_PRODUCTION_STEPS = 100  # dispatches of 18, then 25 optimizer steps
 ANAKIN_PROFILE_WINDOW = (43, 44)  # the third dispatch
 ANAKIN_BLOCKED_BAR = 0.05
 ANAKIN_SPEEDUP_BAR = 5.0
@@ -3497,8 +3563,8 @@ def run_qtopt_anakin(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
 # 64x64 (K = 50) and the production --anakin run's steady rates.
 PRECISION_TIERS = ("bf16", "int8")
 PRECISION_CEM = dict(num_samples=16, num_elites=4, iterations=2)
-PRECISION_PRODUCTION_STEPS = 100  # dispatches of 18, then 25 steps
-PRECISION_FLEET_RUNGS = (1, 4, 16)  # each tier's 472x472 timings
+PRECISION_PRODUCTION_STEPS = 60  # dispatches of 18, then 25 steps
+PRECISION_FLEET_RUNGS = (1, 16)  # each tier's 472x472 timings
 
 
 def tier_policy_graphs(torch, dev, seed: int, tier: str) -> dict:
@@ -3568,7 +3634,8 @@ def tier_policy_graphs(torch, dev, seed: int, tier: str) -> dict:
 def tier_fleet_timings(torch, dev, seed: int, tier: str, smi: str) -> list:
   """(f): the 472x472 uint8 GroupNorm critic's fleet policy at `tier`,
   CEM 64/6/3, at PRECISION_FLEET_RUNGS (every rung until slice 17's phases
-  joined): graph against eager bit for bit, request ms,
+  joined, rungs 1, 4 and 16 until slice 18's): graph against eager bit
+  for bit, request ms,
   replay device ms, peak memory."""
   from tensor2robot_tpu_torch.replay.loop import _HotReloadPredictor
   from tensor2robot_tpu_torch.research.qtopt import synthetic_grasping as sg
@@ -5125,37 +5192,82 @@ def run_meta_bc_graph(torch, ss, gl, dev, seed: int, root: str,
                    "zoo_vrgripper_meta_bc", smi)
 
 
-def meta_bc_graph_in_a_fresh_process(seed: int) -> dict:
-  """run_meta_bc_graph in a child process of its own (``--meta-bc-graph``),
-  waited for; its result is its stdout's last line.
+class Background:
+  """One of this script's phases in a child process of its own
+  (``--background NAME``), started at construction and waited for by
+  ``result``, whose value is the child's stdout's last line.
 
-  In a process where other models trained first (in this script the MDN
-  and TEC graph cases), meta-BC's eager meta-steps are not reproducible:
-  two single steps from the same variables part by 1e-9 in the first
-  layers' gradients, which the second-order meta-step amplifies to 5.6e-4
-  in the parameters after 5 steps; with cuDNN off, with
-  ``CUBLAS_WORKSPACE_CONFIG`` set and under
-  ``torch.use_deterministic_algorithms(True)`` alike, no op flagged. In a
-  fresh process every run agrees bit for bit (``ROADMAP.md`` Queue 3).
-  So the graph is held against eager steps there."""
-  child = subprocess.run(
-      [sys.executable, os.path.abspath(__file__), "--meta-bc-graph",
-       "--seed", str(seed)], capture_output=True, text=True, timeout=600)
-  if child.returncode:
-    raise AssertionError(f"meta-BC graph child failed:\n"
-                         f"{child.stdout[-4000:]}\n{child.stderr[-4000:]}")
-  print(child.stdout, end="", flush=True)
-  return json.loads(child.stdout.strip().splitlines()[-1])
+  The record-fed phases (slice 6's ``pose_records``, slice 7's
+  ``qtopt_capability``) wait on the host's record parser 93-96% of their
+  time with the card idle, so they run beside ``maml`` and ``zoo``, whose
+  checks hold bars and bit equality but no time. meta-BC's graph check
+  runs in a fresh process for another reason (``run_background``). Every child started is stopped before the script exits."""
+
+  started: list = []
+
+  def __init__(self, name: str, seed: int):
+    self.name = name
+    self.start = time.perf_counter()
+    self.out = tempfile.TemporaryFile(mode="w+")
+    self.err = tempfile.TemporaryFile(mode="w+")
+    self.proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--background", name,
+         "--seed", str(seed)], stdout=self.out, stderr=self.err, text=True)
+    Background.started.append(self)
+
+  def result(self, timeout_s: float = 900.0) -> dict:
+    try:
+      rc = self.proc.wait(timeout=timeout_s)
+    finally:
+      self.stop()
+    self.seconds = time.perf_counter() - self.start
+    self.out.seek(0)
+    self.err.seek(0)
+    out, err = self.out.read(), self.err.read()
+    print(out, end="", flush=True)
+    if rc:
+      raise AssertionError(f"background phase {self.name} failed (rc "
+                           f"{rc}):\n{out[-4000:]}\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+  def stop(self) -> None:
+    if self.proc.poll() is None:
+      self.proc.kill()
+      self.proc.wait()
+
+
+def run_background(name: str, torch, ss, gl, dev, seed: int, root: str,
+                   smi: str) -> dict:
+  """What ``--background NAME`` runs."""
+  if name == "pose_records":
+    return {"records": [run_pose_records(torch, ss, gl, dev, record_seed,
+                                         root)
+                        for record_seed in RECORD_SEEDS]}
+  if name == "qtopt_capability":
+    return run_qtopt_capability(torch, gl, dev, root)
+  if name == "meta_bc_graph":
+    # In a process where other models trained first (in this script the
+    # MDN and TEC graph cases), meta-BC's eager meta-steps are not
+    # reproducible: two single steps from the same variables part by 1e-9
+    # in the first layers' gradients, which the second-order meta-step
+    # amplifies to 5.6e-4 in the parameters after 5 steps; with cuDNN off,
+    # with ``CUBLAS_WORKSPACE_CONFIG`` set and under
+    # ``torch.use_deterministic_algorithms(True)`` alike, no op flagged.
+    # In a fresh process every run agrees bit for bit (``ROADMAP.md``
+    # Queue 3). So the graph is held against eager steps there.
+    return run_meta_bc_graph(torch, ss, gl, dev, seed, root, smi)
+  raise ValueError(f"no background phase {name!r}")
 
 
 def run_zoo_vrgripper(torch, ss, gl, dev, seed: int, root: str,
-                      smi: str) -> dict:
+                      smi: str, meta_bc: Background) -> dict:
   """Slice 17's VRGripper paths: BASELINE #5 at its published width
   (VRGripperEnvModel: FiLM ResNet-18 width 32, 100x100, MDN of 5, action
   7, pose 14, batch 64, bf16) as a CUDA graph against eager steps bit for
   bit, the TEC model (batch 16, 2 + 2 samples) and meta-BC
-  (vrgripper_maml_model, 4 tasks) the same way, vrgripper_train.cfg
-  through the CLI, and check_vrgripper at the full scale."""
+  (vrgripper_maml_model, 4 tasks) the same way (`meta_bc`, started in a
+  process of its own), vrgripper_train.cfg through the CLI, and
+  check_vrgripper at the full scale."""
   from tensor2robot_tpu_torch.research.vrgripper import (
       vrgripper_env_models as vr,
   )
@@ -5164,7 +5276,7 @@ def run_zoo_vrgripper(torch, ss, gl, dev, seed: int, root: str,
   )
   from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
   start = time.perf_counter()
-  cases = {"zoo_vrgripper_meta_bc": meta_bc_graph_in_a_fresh_process(seed)}
+  cases = {}
   for name, model, batch in (
       ("zoo_vrgripper_mdn", vr.VRGripperEnvModel(
           optimizer_fn=create_adam_optimizer(1e-4)), ZOO_BATCH),
@@ -5177,6 +5289,7 @@ def run_zoo_vrgripper(torch, ss, gl, dev, seed: int, root: str,
     del stacks
     gc.collect()
     torch.cuda.empty_cache()
+  cases["zoo_vrgripper_meta_bc"] = meta_bc.result()
   cli = run_vrgripper_cli(torch, ss, dev, seed, root, smi)
   # The full scale, as for grasp2vec (ROADMAP.md Facts).
   check = run_zoo_check(torch, ss, dev, "vrgripper", "full", root, smi)
@@ -5288,12 +5401,487 @@ def run_export_program(torch, ss, dev, seed: int, root: str,
   return result
 
 
+# --- slice 18's rank bodies ----------------------------------------------
+# Module-level functions for parallel/launch.py, which spawns each rank
+# (the child imports this file without running main). attention_rank runs
+# in two ranks on the card; the training bodies there too, and in CPU
+# ranks at small sizes in tests/test_torch_parallel_train.py. Every rank
+# draws its inputs from the seed, so each holds the same global tensors,
+# as a JAX caller's replicated arrays.
+
+# The four modes of the training check: mesh axes and train_eval_model's
+# arguments.
+PARALLEL_MODES = {
+    "dp": dict(axes={"data": 2}),
+    "zero1": dict(axes={"data": 2}, shard_optimizer_state=True),
+    "fsdp": dict(axes={"data": 2}, fsdp=True),
+    "tp": dict(axes={"data": 1, "model": 2}, partition_rules=True),
+}
+
+
+def _rank_device(torch, name: str):
+  return torch.device("cuda", 0) if name == "cuda" else torch.device("cpu")
+
+
+def _tf32_off(torch) -> None:
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _held(torch, name: str, got, want) -> dict:
+  """|got - want| against flash_limit; raises past it."""
+  diff = (got.float() - want.float()).abs()
+  share = float((diff / flash_limit(torch, want)).max())
+  if not share <= 1.0:
+    raise AssertionError(f"{name}: max err {float(diff.max())}, {share} "
+                         "times its limit at worst")
+  return {"max_abs_err": float(diff.max()), "limit_share": share}
+
+
+def _forward_backward(torch, fn, inputs, dout, device):
+  """(output, gradients, ms): fn's forward and backward from leaf copies
+  of `inputs`, timed on the host clock around synchronised work."""
+  leaves = [x.detach().clone().requires_grad_() for x in inputs]
+  torch.cuda.synchronize(device)
+  start = time.perf_counter()
+  out = fn(*leaves)
+  out.backward(dout)
+  torch.cuda.synchronize(device)
+  ms = (time.perf_counter() - start) * 1e3
+  return out.detach(), [x.grad for x in leaves], ms
+
+
+def _collective_counts(collectives) -> dict:
+  return {"calls": dict(collectives.calls),
+          "payload_bytes": dict(collectives.payload_bytes),
+          "staged_bytes": dict(collectives.staged_bytes)}
+
+
+def attention_rank(rank: int, seed: int) -> dict:
+  """Ulysses, ring and the SNAIL ring block on a {"seq": ranks} mesh on
+  the card: Ulysses with the flash kernels as its local core (K2 forward,
+  K3 and K4 backward) against one process's ``ops.flash_attention`` on the
+  global input, this rank's kernel launches counted; ring attention
+  against the dense reference; SNAIL's ``AttentionBlock(seq_mesh=)``
+  trained PARALLEL_SNAIL_STEPS Adam steps against the unsharded block
+  from the same weights."""
+  import torch
+
+  from tensor2robot_tpu_torch.layers import snail
+  from tensor2robot_tpu_torch.layers.vision_layers import Dense
+  from tensor2robot_tpu_torch.models.abstract_model import flax_default_init_
+  from tensor2robot_tpu_torch.parallel import collectives, distributed
+  from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+  from tensor2robot_tpu_torch.parallel.ring_attention import (
+      dense_attention_reference,
+      ring_attention,
+  )
+  from tensor2robot_tpu_torch.parallel.ulysses_attention import (
+      ulysses_attention,
+  )
+  from tensor2robot_tpu_torch.utils.optimizers import create_adam_optimizer
+  fa = importlib.import_module("tensor2robot_tpu_torch.ops.flash_attention")
+  device = _rank_device(torch, "cuda")
+  _tf32_off(torch)
+  mesh = mesh_lib.create_mesh({"seq": distributed.process_count()})
+  rng = np.random.default_rng(seed)
+  shape = PARALLEL_ATTENTION_SHAPE
+  q, k, v = (torch.from_numpy(0.5 * rng.standard_normal(shape).astype(
+      np.float32)).to(device, torch.bfloat16) for _ in range(3))
+  dout = torch.from_numpy(rng.standard_normal(shape).astype(
+      np.float32)).to(device, torch.bfloat16)
+  result = {"rank": rank, "shape": list(shape), "dtype": "bfloat16",
+            "local_shape": [shape[0], shape[1], shape[2] // mesh.size,
+                            shape[3]]}
+
+  def ulysses(*x):
+    return ulysses_attention(*x, mesh, causal=True, attn_impl="pallas")
+
+  # One process's flash attention on the global input, then Ulysses with
+  # the flash kernels locally (a warm call first); this rank's launches
+  # counted for the timed call.
+  want_out, want_grads, result["flash_ms"] = _forward_backward(
+      torch, lambda *x: fa.flash_attention(*x, causal=True), (q, k, v),
+      dout, device)
+  _forward_backward(torch, ulysses, (q, k, v), dout, device)
+  for name in fa.flash_attention.launches:
+    fa.flash_attention.launches[name] = 0
+  collectives.reset_counts()
+  out, grads, result["ulysses_ms"] = _forward_backward(
+      torch, ulysses, (q, k, v), dout, device)
+  result["ulysses_launches"] = dict(fa.flash_attention.launches)
+  result["ulysses"] = {
+      name: _held(torch, f"ulysses {name}", got, want)
+      for name, got, want in zip(("out", "dq", "dk", "dv"),
+                                 [out] + grads, [want_out] + want_grads)}
+  result["ulysses_collectives"] = _collective_counts(collectives)
+
+  # Ring attention against the dense reference.
+  want_out, want_grads, result["dense_ms"] = _forward_backward(
+      torch, lambda *x: dense_attention_reference(*x, causal=True),
+      (q, k, v), dout, device)
+  collectives.reset_counts()
+  out, grads, result["ring_ms"] = _forward_backward(
+      torch, lambda *x: ring_attention(*x, mesh, causal=True), (q, k, v),
+      dout, device)
+  result["ring"] = {
+      name: _held(torch, f"ring {name}", got, want)
+      for name, got, want in zip(("out", "dq", "dk", "dv"),
+                                 [out] + grads, [want_out] + want_grads)}
+  result["ring_collectives"] = _collective_counts(collectives)
+
+  # SNAIL's attention block with seq_mesh against the unsharded block.
+  torch.manual_seed(seed)
+  blocks, heads = [], []
+  for seq_mesh in (mesh, None):
+    blocks.append(snail.AttentionBlock(SNAIL_FEATURES, SNAIL_FEATURES,
+                                       SNAIL_FEATURES, torch.float32,
+                                       seq_mesh=seq_mesh))
+    heads.append(Dense(blocks[-1].out_features, 1, torch.float32))
+  flax_default_init_(blocks[0], torch.Generator().manual_seed(seed))
+  flax_default_init_(heads[0], torch.Generator().manual_seed(seed))
+  blocks[1].load_state_dict(blocks[0].state_dict())
+  heads[1].load_state_dict(heads[0].state_dict())
+  x = torch.from_numpy(rng.standard_normal(
+      (SNAIL_BATCH, SNAIL_SEQ, SNAIL_FEATURES)).astype(np.float32)).to(device)
+  target = torch.from_numpy(rng.standard_normal(
+      (SNAIL_BATCH, SNAIL_SEQ, 1)).astype(np.float32)).to(device)
+  losses, step_ms = [], []
+  for block, head in zip(blocks, heads):
+    block.to(device)
+    head.to(device)
+    optimizer = create_adam_optimizer()(list(block.parameters())
+                                        + list(head.parameters()))
+    stream, times = [], []
+    for _ in range(PARALLEL_SNAIL_STEPS):
+      torch.cuda.synchronize(device)
+      start = time.perf_counter()
+      optimizer.zero_grad(set_to_none=True)
+      loss = torch.mean((head(block(x)) - target) ** 2)
+      loss.backward()
+      optimizer.step()
+      torch.cuda.synchronize(device)
+      times.append((time.perf_counter() - start) * 1e3)
+      stream.append(float(loss.detach()))
+    losses.append(stream)
+    step_ms.append(float(np.median(times[1:] or times)))
+  rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+  if not rel <= TRAIN_F32_RTOL:
+    raise AssertionError(f"SNAIL ring block vs unsharded: losses {losses}")
+  result["snail"] = {"shape": [SNAIL_BATCH, SNAIL_SEQ, SNAIL_FEATURES],
+                     "steps": PARALLEL_SNAIL_STEPS, "losses_ring": losses[0],
+                     "losses_dense": losses[1], "max_rel_loss_diff": rel,
+                     "loss_rtol": TRAIN_F32_RTOL,
+                     "step_ms_ring": step_ms[0], "step_ms_dense": step_ms[1]}
+  result["backend"] = collectives.describe()
+  return result
+
+
+def _host_copies(variables) -> dict:
+  """numpy copies (a CPU tensor's numpy view would follow its in-place
+  updates)."""
+  return {key: value.detach().float().cpu().numpy().copy()
+          for key, value in variables.items()}
+
+
+def _recorder(keep: bool):
+  """A hook builder whose one hook records each step's loss, and the first
+  step's update of every variable and its reduced gradients, whole (kept
+  when `keep`: on rank 0)."""
+  from tensor2robot_tpu_torch.hooks.hook_builder import Hook, HookBuilder
+
+  class Recorder(Hook, HookBuilder):
+
+    def __init__(self):
+      self.losses, self.before, self.update, self.grads = [], None, None, None
+
+    def create_hooks(self, trainer, model_dir: str):
+      return [self]
+
+    def begin(self, trainer, state, model_dir: str) -> None:
+      self.trainer = trainer
+      self.before = _host_copies(state.full_variables())
+
+    def after_step(self, state, metrics: dict) -> None:
+      self.losses.append(float(metrics["loss"]))
+      if state.step == 1:
+        after = _host_copies(state.full_variables())
+        grads = ({key: p.grad for key, p in state.params.items()
+                  if p.grad is not None} if state.layout is None
+                 else state.layout.full_gradients(state))
+        if keep:
+          self.update = {key: after[key] - self.before[key] for key in after}
+          self.grads = _host_copies(grads)
+        self.before = None
+
+  return Recorder()
+
+
+def parallel_flagship_model(cfg: dict):
+  """The QT-Opt critic of the training check: its published widths at
+  ``cfg["image_size"]``, float32 (TF32 off; ``cfg["dtype"]`` may say
+  float64), batch norm, the EMA kept; warm-started from
+  ``cfg["init_from_checkpoint"]`` when given (an npz of either package)."""
+  import torch
+
+  from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+      QTOptGraspingModel,
+  )
+  dtype = getattr(torch, cfg.get("dtype", "float32"))
+  return QTOptGraspingModel(
+      image_size=cfg["image_size"], compute_dtype=dtype,
+      param_dtype=dtype, use_avg_model_params=True,
+      init_from_checkpoint=cfg.get("init_from_checkpoint"))
+
+
+def _train_mode(cfg: dict, mode, keep: bool) -> dict:
+  """``train_eval_model`` over a mesh in `mode` (None: one rank on the
+  global batch), recording the loss of each step, the first step's update
+  of every variable, the step time, the rank's peak memory, its parameter
+  blocks' shapes, the shapes of the Adam moments its optimizer holds and
+  the collectives' bytes."""
+  import torch
+
+  from tensor2robot_tpu_torch.data.default_input_generator import (
+      DefaultRandomInputGenerator,
+  )
+  from tensor2robot_tpu_torch.parallel import collectives, tp_rules
+  from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+  from tensor2robot_tpu_torch.train import mesh_layout
+  from tensor2robot_tpu_torch.train.train_eval import train_eval_model
+  device = _rank_device(torch, cfg["device"])
+  _tf32_off(torch)
+  model = parallel_flagship_model(cfg)
+  kwargs = {}
+  if mode is not None:
+    spec = PARALLEL_MODES[mode]
+    mesh = mesh_lib.create_mesh(spec["axes"])
+    kwargs = {"mesh": mesh,
+              "shard_optimizer_state": spec.get("shard_optimizer_state",
+                                                False),
+              "fsdp": spec.get("fsdp", False)}
+    if spec.get("partition_rules"):
+      kwargs["param_specs"] = tp_rules.partition_specs_for_model(model, mesh)
+  recorder = _recorder(keep)
+  collectives.reset_counts()
+  held = 0
+  if device.type == "cuda":
+    torch.cuda.synchronize(device)  # the context exists before the reset
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+  # One directory for every rank (the primary writes, all read).
+  model_dir = os.path.join(cfg["model_dir"], mode or "one_rank")
+  start = time.perf_counter()
+  result = train_eval_model(
+      model, DefaultRandomInputGenerator(batch_size=cfg["batch"],
+                                         seed=cfg["seed"]),
+      max_train_steps=cfg["steps"], model_dir=model_dir,
+      log_every_steps=1, device=device, seed=cfg["seed"],
+      handle_preemption=False, hook_builders=[recorder], **kwargs)
+  seconds = time.perf_counter() - start
+  payload = torch.load(os.path.join(model_dir, "checkpoints",
+                                    str(cfg["steps"]), "state.pt"),
+                       map_location="cpu", weights_only=True)
+  state = result.state
+  # The first Adam moment of each parameter, as the optimizer holds it.
+  owner = {id(tensor): key for key, tensor in
+           (state.opt_params or state.params).items()}
+  moments = {owner[id(p)]: list(state.opt_state.state[p]["exp_avg"].shape)
+             for group in state.opt_state.param_groups
+             for p in group["params"]}
+  out = {
+      "mode": mode or "one_rank", "steps": cfg["steps"],
+      "losses": recorder.losses,
+      "step_ms_median": result.loop_stats.get("step_ms_median"),
+      "seconds": seconds,
+      # Above what the process held before the run (the one-rank run
+      # shares its process with whatever ran before it).
+      "peak_mib": ((torch.cuda.max_memory_allocated(device) - held)
+                   / 2 ** 20 if device.type == "cuda" else None),
+      "local_shapes": {key: list(value.shape)
+                       for key, value in state.params.items()},
+      "opt_local_shapes": moments,
+      "moment_elements_local": sum(int(np.prod(shape))
+                                   for shape in moments.values()),
+      "checkpoint_mesh": payload.get("mesh"),
+      "checkpoint_params_whole": {key: list(value.shape)
+                                  for key, value in payload["params"].items()},
+      "collectives": _collective_counts(collectives),
+      "graphed": recorder.trainer.graphs_steps,
+  }
+  if mode is not None:
+    out["layout"] = mesh_layout.describe(state.layout)
+    out["backend"] = collectives.describe()
+  if keep:
+    out["update"] = recorder.update
+    out["grads"] = recorder.grads
+    out["batch_stats"] = _host_copies(state.model_state)
+  return out
+
+
+def train_reference(cfg: dict) -> dict:
+  """The training check's run on this one process, on the global batch."""
+  return _train_mode(cfg, None, keep=True)
+
+
+def train_rank(rank: int, cfg: dict) -> dict:
+  """Every mode of `cfg["modes"]` in turn on this rank."""
+  return {mode: _train_mode(cfg, mode, keep=rank == 0)
+          for mode in cfg["modes"]}
+
+
+def bn_fed_biases(model) -> set:
+  """The conv biases of the critic that feed BatchNorm: their exact
+  gradient is 0, so Adam steps them on float noise."""
+  names = [name for name, _ in model.module.named_parameters()]
+  return {name for name in names if name.endswith(".bias")
+          and (name.startswith("stem.") or name.startswith("pre_conv")
+               or name.startswith("post_conv"))}
+
+
+def compare_training(reference: dict, got: dict, model, tolerances: dict
+                     ) -> dict:
+  """A mode's run against the one-rank run: each step's loss within
+  `loss_rtol`, the final running statistics within `stats_atol`, the
+  first step's gradient of every tensor within `grad_share` of the
+  tensor's largest (Adam's update is blind to a gradient's scale), and
+  its first update within `adam_atol` wherever the one-rank gradient
+  exceeds `grad_noise_share` of that largest (elsewhere a gradient within
+  float noise of 0 may step either way); the BN-fed biases, whose
+  gradient is noise, are not held. Raises past a limit."""
+  losses = np.array(got["losses"])
+  want = np.array(reference["losses"])
+  report = {
+      "max_rel_loss_diff": float(np.max(np.abs(losses - want)
+                                        / np.abs(want))),
+      "stats_max_abs_err": max(
+          float(np.abs(got["batch_stats"][k] - v).max())
+          for k, v in reference["batch_stats"].items()),
+      "update_max_abs_err": 0.0, "update_held_share": 0.0,
+  }
+  skip = bn_fed_biases(model)
+  held = total = 0
+  report["grad_err_share"] = 0.0
+  for key, grad in reference["grads"].items():
+    if key in skip:
+      continue
+    largest = np.abs(grad).max()
+    share = float(np.abs(got["grads"][key] - grad).max() / largest)
+    if share >= report["grad_err_share"]:
+      report["grad_err_share"], report["grad_err_worst"] = share, key
+    mask = np.abs(grad) > tolerances["grad_noise_share"] * largest
+    diff = np.abs(got["update"][key] - reference["update"][key])[mask]
+    if diff.size:
+      report["update_max_abs_err"] = max(report["update_max_abs_err"],
+                                         float(diff.max()))
+    held += int(mask.sum())
+    total += mask.size
+  report["update_held_share"] = held / max(total, 1)
+  if not (report["max_rel_loss_diff"] <= tolerances["loss_rtol"]
+          and report["stats_max_abs_err"] <= tolerances["stats_atol"]
+          and report["grad_err_share"] <= tolerances["grad_share"]
+          and report["update_max_abs_err"] <= tolerances["adam_atol"]):
+    raise AssertionError(f"{got['mode']} disagrees with the one-rank run: "
+                         f"{report}")
+  return report
+
+
+def run_parallel_attention(torch, seed: int, smi: str) -> dict:
+  """Slice 18's sequence-parallel path in 2 ranks on the card (see the
+  docstring); each rank's K2-K4 launches through Ulysses must be one
+  forward, one dq and one dkv on the tensor cores."""
+  from tensor2robot_tpu_torch.parallel import launch
+  start = time.perf_counter()
+  ranks = launch.launch(attention_rank, PARALLEL_RANKS, (seed,),
+                        device="cuda", timeout_s=300)
+  want = kernels_of(torch, torch.bfloat16)
+  for rank in ranks:
+    if rank["ulysses_launches"] != want:
+      raise AssertionError(f"rank {rank['rank']} launched "
+                           f"{rank['ulysses_launches']} through Ulysses; "
+                           f"want {want}")
+  return {"ranks": PARALLEL_RANKS, "nvidia_smi": smi,
+          "seconds": time.perf_counter() - start, "per_rank": ranks}
+
+
+def run_parallel_train(torch, seed: int, root: str, smi: str) -> dict:
+  """Slice 18's training path: the four modes in 2 ranks on the card, each
+  against one rank's run on the global batch (``train_rank``)."""
+  from tensor2robot_tpu_torch.parallel import launch
+  from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+      IMAGE_SIZE,
+      QTOptGraspingModel,
+  )
+  start = time.perf_counter()
+  cfg = dict(device="cuda", image_size=IMAGE_SIZE,
+             batch=QTOptGraspingModel.benchmark_batch_size, seed=seed,
+             steps=PARALLEL_TRAIN_STEPS, modes=list(PARALLEL_MODES),
+             model_dir=os.path.join(root, "parallel_train"))
+  tf32 = (torch.backends.cudnn.allow_tf32,
+          torch.backends.cuda.matmul.allow_tf32)
+  reference = train_reference(cfg)
+  torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+      tf32)
+  ranks = launch.launch(train_rank, PARALLEL_RANKS, (cfg,),
+                        device="cuda", timeout_s=600)
+  model = parallel_flagship_model(cfg)
+  tolerances = dict(loss_rtol=TRAIN_F32_RTOL, stats_atol=TRAIN_F32_ATOL,
+                    adam_atol=ADAM_ATOL, grad_share=PARALLEL_GRAD_SHARE,
+                    grad_noise_share=GRAD_NOISE_SHARE)
+  whole = {key: list(p.shape) for key, p in model.module.named_parameters()}
+  modes = {}
+  for mode in PARALLEL_MODES:
+    got = ranks[0][mode]
+    report = compare_training(reference, got, model, tolerances)
+    layout = got["layout"]
+    sharded = sorted(key for key, shape in got["local_shapes"].items()
+                     if shape != whole[key])
+    if mode == "tp" and got["local_shapes"]["stem.weight"] != [32, 3, 6, 6]:
+      raise AssertionError(f"tp: stem.weight is {got['local_shapes']}")
+    if mode == "fsdp" and not sharded:
+      raise AssertionError("fsdp: no parameter is sharded")
+    # The Adam moments the optimizer holds: as many elements as the
+    # layout's table gives this rank, in blocks under every mode but DP.
+    blocks = sorted(key for key, shape in got["opt_local_shapes"].items()
+                    if shape != whole[key])
+    if (got["moment_elements_local"] != layout["optimizer_elements_local"]
+        or bool(blocks) == (mode == "dp")):
+      raise AssertionError(f"{mode}: the optimizer holds "
+                           f"{got['moment_elements_local']} moment elements "
+                           f"in blocks of {blocks}; the layout gives "
+                           f"{layout['optimizer_elements_local']}")
+    if got["graphed"] or got["checkpoint_mesh"] != layout["mesh"]:
+      raise AssertionError(f"{mode}: graphed {got['graphed']}, checkpoint "
+                           f"stamp {got['checkpoint_mesh']}")
+    modes[mode] = {
+        **report, "losses": got["losses"],
+        "step_ms_median_by_rank": [r[mode]["step_ms_median"] for r in ranks],
+        "peak_mib_by_rank": [r[mode]["peak_mib"] for r in ranks],
+        "seconds_by_rank": [r[mode]["seconds"] for r in ranks],
+        "sharded_params": sharded, "layout": layout,
+        "moment_elements_local": got["moment_elements_local"],
+        "sharded_moments": blocks,
+        "collectives_by_rank": [r[mode]["collectives"] for r in ranks],
+        "backend": got["backend"], "graphed": got["graphed"],
+        "checkpoint_mesh": got["checkpoint_mesh"]}
+  return {"ranks": PARALLEL_RANKS, "nvidia_smi": smi,
+          "image_size": cfg["image_size"], "batch": cfg["batch"],
+          "steps": cfg["steps"], "compute_dtype": "float32", "tf32": False,
+          "tolerances": tolerances,
+          "one_rank": {"losses": reference["losses"],
+                       "step_ms_median": reference["step_ms_median"],
+                       "peak_mib": reference["peak_mib"]},
+          "modes": modes, "seconds": time.perf_counter() - start}
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=0)
-  parser.add_argument("--meta-bc-graph", action="store_true",
-                      help="run only slice 17's meta-BC graph check (the "
-                      "process run_zoo_vrgripper starts for it)")
+  parser.add_argument("--background", default=None,
+                      choices=("pose_records", "qtopt_capability",
+                               "meta_bc_graph"),
+                      help="run only this phase and print its result last "
+                      "(the child process a Background starts)")
   args = parser.parse_args(argv)
 
   import torch
@@ -5314,15 +5902,17 @@ def main(argv=None) -> int:
   gl = importlib.import_module("tensor2robot_tpu_torch.ops.graph_launches")
   dev = torch.device("cuda")
   smi = nvidia_smi()
-  if args.meta_bc_graph:
+  if args.background:
     with tempfile.TemporaryDirectory() as tmp:
-      result = run_meta_bc_graph(torch, ss, gl, dev, args.seed, tmp, smi)
+      result = run_background(args.background, torch, ss, gl, dev,
+                              args.seed, tmp, smi)
     print(json.dumps(result), flush=True)
     return 0
   emit("device", name=torch.cuda.get_device_name(0),
        count=torch.cuda.device_count(), nvidia_smi=smi,
        torch=torch.__version__, cuda=torch.version.cuda)
 
+  clock = PhaseClock()
   start = time.perf_counter()
   _build.build_all()
   emit("build", seconds=time.perf_counter() - start,
@@ -5330,6 +5920,7 @@ def main(argv=None) -> int:
        ptxas={k: [line for line in v.splitlines()
                   if "ptxas info" in line or "warning" in line]
               for k, v in _build.build_logs.items()})
+  clock.lap("build")
 
   emit("kernel_checks", spatial_softmax=check_spatial_softmax(
       torch, ss, dev, args.seed))
@@ -5337,6 +5928,7 @@ def main(argv=None) -> int:
   torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32
   emit("kernel_checks", flash_attention=check_flash_attention(
       torch, fa, dev, args.seed))
+  clock.lap("kernel_checks")
 
   # The main path: serve a native export on the GPU, through the entry
   # points a robot calls, at the default bfloat16 compute dtype.
@@ -5405,6 +5997,7 @@ def main(argv=None) -> int:
           model.module.tower, tower, (torch.from_numpy(images).to(dev),))
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
         tf32)
+  clock.lap("serve_slice")
 
   # Slice 5's main path: train pose_env through K1 to the reach bar.
   with tempfile.TemporaryDirectory() as tmp:
@@ -5412,35 +6005,17 @@ def main(argv=None) -> int:
     emit("pose_train_f32", **pose_train_f32(torch, dev, args.seed,
                                             pose["images"], pose["poses"]))
     emit("pose_train_eval", **run_train_eval(torch, dev, args.seed, tmp))
-
-  # Slice 6's main path: the same run from jpeg records through the CLI,
-  # model_dir and a resume.
-  records = [crc_rates()]
-  with tempfile.TemporaryDirectory() as tmp:
-    for seed in RECORD_SEEDS:
-      records.append(run_pose_records(torch, ss, gl, dev, seed, tmp))
-  emit("pose_records_summary", **records[0],
-       success_rates={r["seed"]: r["success_rate"] for r in records[1:]},
-       success_rates_at_0_1={r["seed"]: r["success_rate_at_0.1"]
-                             for r in records[1:]},
-       step_ms_median={r["seed"]: r["step_ms_median"] for r in records[1:]},
-       input_wait_ms_median={r["seed"]: r["input_wait_ms_median"]
-                             for r in records[1:]},
-       input_wait_share={r["seed"]: r["input_wait_share"]
-                         for r in records[1:]},
-       write_s={r["seed"]: r["write_s"] for r in records[1:]},
-       phase_s={r["seed"]: r["seconds"] for r in records[1:]},
-       parser_records_per_s_4_threads=records[1][
-           "parser_records_per_s_4_threads"],
-       sha256_first_16_records_seed_0=records[1]["sha256_first_16_records"])
+  clock.lap("pose_train")
 
   # Slice 2's main path: train the SNAIL stack through K2, K3 and K4.
   snail = run_snail_slice(torch, fa, dev, args.seed)
   emit("snail_slice", **snail)
+  clock.lap("snail_slice")
 
   # Slice 7's main paths: pose_env's step and the flagship critic's as
   # CUDA graphs against eager steps, gradient accumulation on the card
-  # against the CPU, and the QT-Opt capability check at full scale.
+  # against the CPU (its QT-Opt capability check at full scale runs
+  # below, beside maml and the zoo).
   with tempfile.TemporaryDirectory() as tmp:
     graphed_pose = pose_graph(torch, ss, gl, dev, args.seed, pose["images"],
                               pose["poses"], tmp)
@@ -5450,13 +6025,14 @@ def main(argv=None) -> int:
     emit("grad_accum", **accum)
     emit("qtopt_flagship", **run_qtopt_flagship(torch, ss, gl, dev,
                                                 args.seed, tmp))
-    run_qtopt_capability(torch, gl, dev, tmp)
+  clock.lap("pose_graph_accum_qtopt_flagship")
 
   # Slice 8's main path: the QT-Opt learner on Bellman targets (the
   # learner's host path; no TPU kernel runs on it).
   with tempfile.TemporaryDirectory() as tmp:
     emit("qtopt_learner", **run_qtopt_learner(torch, dev, args.seed, tmp,
                                               smi))
+  clock.lap("qtopt_learner")
 
   # Slice 9's main path: the closed QT-Opt loop (collectors acting through
   # the fleet policy's CUDA graphs while the learner trains); no TPU
@@ -5465,6 +6041,7 @@ def main(argv=None) -> int:
     start = time.perf_counter()
     loop_result = run_qtopt_loop(torch, gl, dev, args.seed, tmp, smi)
     emit("qtopt_loop", seconds=time.perf_counter() - start, **loop_result)
+  clock.lap("qtopt_loop")
 
   # Slice 10's main paths: the loop's checkpoints, resume and profiler
   # window, and its vector actor; no TPU kernel runs on them.
@@ -5473,11 +6050,13 @@ def main(argv=None) -> int:
     resume_result = run_qtopt_resume(torch, gl, dev, args.seed, tmp, smi)
     emit("qtopt_resume", seconds=time.perf_counter() - start,
          **resume_result)
+  clock.lap("qtopt_resume")
   with tempfile.TemporaryDirectory() as tmp:
     start = time.perf_counter()
     vector_result = run_qtopt_vector(torch, gl, dev, args.seed, tmp, smi)
     emit("qtopt_vector", seconds=time.perf_counter() - start,
          **vector_result)
+  clock.lap("qtopt_vector")
 
   # Slice 11's main paths: the device-resident ring and the megastep learner
   # (CUDA graphs of K learn iterations); no TPU kernel runs on them.
@@ -5486,6 +6065,7 @@ def main(argv=None) -> int:
     device_result = run_qtopt_device(torch, gl, dev, args.seed, tmp, smi)
     emit("qtopt_device", seconds=time.perf_counter() - start,
          **device_result)
+  clock.lap("qtopt_device")
 
   # Slice 12's main paths: the fused Anakin loop (the env, acting, the
   # extend and the learner on the card); no TPU kernel runs on them.
@@ -5494,6 +6074,7 @@ def main(argv=None) -> int:
     anakin_result = run_qtopt_anakin(torch, gl, dev, args.seed, tmp, smi)
     emit("qtopt_anakin", seconds=time.perf_counter() - start,
          **anakin_result)
+  clock.lap("qtopt_anakin")
 
   # Slice 13's main paths: the bf16 and int8 scoring tiers through the
   # fleet policy, the benches, the megastep and the Anakin loop; no TPU
@@ -5504,6 +6085,7 @@ def main(argv=None) -> int:
         torch, dev, args.seed, tmp, smi, anakin_result["production"])
     emit("qtopt_precision", seconds=time.perf_counter() - start,
          **precision_result)
+  clock.lap("qtopt_precision")
 
   # Slice 14's main paths: the obs spine through the replay loop, and one
   # serving replica; no TPU kernel runs on them.
@@ -5511,11 +6093,13 @@ def main(argv=None) -> int:
     start = time.perf_counter()
     obs_result = run_obs_loop(torch, dev, args.seed, tmp, smi)
     emit("obs_loop", seconds=time.perf_counter() - start, **obs_result)
+  clock.lap("obs_loop")
   with tempfile.TemporaryDirectory() as tmp:
     start = time.perf_counter()
     serve_result = run_serve_fleet(torch, dev, args.seed, tmp, smi)
     emit("serve_fleet", seconds=time.perf_counter() - start,
          **serve_result)
+  clock.lap("serve_fleet")
 
   # Slice 15's main paths: the routed fleet, two replicas on the one card
   # behind the router, the rollout controller and the tier rollouts; no
@@ -5525,6 +6109,16 @@ def main(argv=None) -> int:
     router_result = run_serve_router(torch, dev, args.seed, tmp, smi)
     emit("serve_router", seconds=time.perf_counter() - start,
          **router_result)
+  clock.lap("serve_router")
+
+  # Slice 6's main path (the pose_env run from jpeg records through the
+  # CLI, model_dir and a resume) and slice 7's QT-Opt capability check at
+  # full scale, each in a process of its own beside maml and the zoo: they
+  # wait on the host's record parser with the card idle.
+  records = [crc_rates()]
+  background = {name: Background(name, args.seed)
+                for name in ("qtopt_capability", "pose_records")}
+  clock.lap("crc_and_background_start")
 
   # Slice 16's main paths: MAML through K1's forward and its second-order
   # outer gradient (the check, the graphs, meta-serving), and the training
@@ -5545,6 +6139,7 @@ def main(argv=None) -> int:
          graphs_bitwise_equal={k: v["bitwise_equal"]
                                for k, v in maml["graph"].items()},
          k1_launches=maml_launches)
+  clock.lap("maml")
 
   # Slice 17's main paths: the research zoo at its published widths
   # (grasp2vec's ResNet-50, VRGripper's FiLM ResNet, TEC and meta-BC as
@@ -5553,8 +6148,10 @@ def main(argv=None) -> int:
   # its custom op.
   with tempfile.TemporaryDirectory() as tmp:
     start = time.perf_counter()
+    meta_bc = Background("meta_bc_graph", args.seed)
     zoo_g2v = run_zoo_grasp2vec(torch, ss, gl, dev, args.seed, tmp, smi)
-    zoo_vr = run_zoo_vrgripper(torch, ss, gl, dev, args.seed, tmp, smi)
+    zoo_vr = run_zoo_vrgripper(torch, ss, gl, dev, args.seed, tmp, smi,
+                               meta_bc)
     programs = run_export_program(torch, ss, dev, args.seed, tmp, smi)
     program_launches = programs["pose_env"]["k1_launches_program"]
     emit("zoo", seconds=time.perf_counter() - start,
@@ -5569,6 +6166,44 @@ def main(argv=None) -> int:
                   "export_program": sum(p["seconds"]
                                         for p in programs.values())},
          k1_launches_export_program=program_launches)
+  clock.lap("zoo")
+
+  capability = background["qtopt_capability"].result()
+  records += background["pose_records"].result()["records"]
+  emit("pose_records_summary", **records[0],
+       success_rates={r["seed"]: r["success_rate"] for r in records[1:]},
+       success_rates_at_0_1={r["seed"]: r["success_rate_at_0.1"]
+                             for r in records[1:]},
+       step_ms_median={r["seed"]: r["step_ms_median"] for r in records[1:]},
+       input_wait_ms_median={r["seed"]: r["input_wait_ms_median"]
+                             for r in records[1:]},
+       input_wait_share={r["seed"]: r["input_wait_share"]
+                         for r in records[1:]},
+       write_s={r["seed"]: r["write_s"] for r in records[1:]},
+       phase_s={r["seed"]: r["seconds"] for r in records[1:]},
+       parser_records_per_s_4_threads=records[1][
+           "parser_records_per_s_4_threads"],
+       sha256_first_16_records_seed_0=records[1]["sha256_first_16_records"])
+  clock.lap("background_wait")
+  # Each child's seconds from its start to its join, beside its phase's
+  # own.
+  background_seconds = {
+      "qtopt_capability": {
+          "start_to_join_s": background["qtopt_capability"].seconds,
+          "phase_s": capability["seconds"]},
+      "pose_records": {
+          "start_to_join_s": background["pose_records"].seconds,
+          "phase_s": sum(r["seconds"] for r in records[1:])}}
+
+  # Slice 18's main paths: the parallel tier's training half, two gloo
+  # ranks on the one card: Ulysses through K2-K4 a rank, ring attention,
+  # the SNAIL ring block, and the critic's four training modes.
+  parallel_attention = run_parallel_attention(torch, args.seed, smi)
+  emit("parallel_attention", **parallel_attention)
+  clock.lap("parallel_attention")
+  with tempfile.TemporaryDirectory() as tmp:
+    emit("parallel_train", **run_parallel_train(torch, args.seed, tmp, smi))
+  clock.lap("parallel_train")
 
   timing = time_spatial_softmax(torch, ss, feature_map)
   emit("kernel_timing", spatial_softmax=timing)
@@ -5582,6 +6217,9 @@ def main(argv=None) -> int:
     emit("kernel_timing", spatial_softmax_training_map=training_timing)
   flash_timing = time_flash_attention(torch, fa, dev, args.seed + 3)
   emit("kernel_timing", flash_attention=flash_timing)
+  clock.lap("kernel_timing")
+  emit("phase_seconds", seconds=clock.seconds, total=clock.total(),
+       background=background_seconds, nvidia_smi=smi)
   # The batch predict's call: batch 64 in the default bfloat16 (and the
   # batch-1 request's time beside it).
   main_row, batch1_row = (
@@ -5639,7 +6277,14 @@ def main(argv=None) -> int:
       "route": "cuda",
       "source": "tensor2robot_tpu_torch/csrc/flash_attention.cu",
       "replaces": f"tensor2robot_tpu/ops/flash_attention.py:{line}",
-      "launches": snail["launches"][counter],
+      "launches": snail["launches"][counter] + sum(
+          rank["ulysses_launches"][counter]
+          for rank in parallel_attention["per_rank"]),
+      "launches_by_path": {
+          "snail_slice": snail["launches"][counter],
+          **{f"parallel_attention_rank_{rank['rank']}":
+             rank["ulysses_launches"][counter]
+             for rank in parallel_attention["per_rank"]}},
       **flash_timing[name],
       # SDPA's backward computes dq, dk and dv in one call: the pair
       # dq + dkv compares with it.
@@ -5657,4 +6302,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-  sys.exit(main())
+  try:
+    sys.exit(main())
+  finally:
+    for child in Background.started:
+      child.stop()

@@ -46,7 +46,7 @@ block (the fused loop against the vector fleet beside the megastep at the
 same env count and policy, ``replay/anakin_bench.py``; skip it with
 ``--no-anakin-bench``). ``--precision bf16`` scores acting and labels
 at bfloat16 (``research/qtopt/cem.py``); the TD metrics stay float32.
-``--mesh`` (item 15) waits for a later ``ROADMAP.md`` item and raises by
+``--mesh`` (item 15b) waits for a later ``ROADMAP.md`` item and raises by
 name.
 """
 
@@ -205,7 +205,7 @@ def main(argv=None) -> None:
                       help="skip the anakin_throughput block of an "
                            "--anakin run")
   parser.add_argument("--mesh", default="0",
-                      help="DP[,TP]; any mesh waits for ROADMAP.md item 15")
+                      help="DP[,TP]; any mesh waits for ROADMAP.md item 15b")
   parser.add_argument("--precision", default="f32", choices=("f32", "bf16"),
                       help="CEM scoring tier of acting and labels")
   parser.add_argument("--profile", default=None,

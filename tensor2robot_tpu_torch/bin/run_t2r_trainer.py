@@ -14,6 +14,15 @@ bindings) over ``--model_dir``'s checkpoints. ``--device`` (default
 ``cuda``; ``cpu`` on a machine without a GPU) goes to the entry point as a
 call-site argument, not a binding, so it never enters the operative
 config.
+
+Under ``python -m torch.distributed.run --nproc-per-node N -m
+tensor2robot_tpu_torch.bin.run_t2r_trainer ...`` the N processes join one
+process group first (``parallel.distributed.initialize``: NCCL when each
+rank trains on a card of its own, gloo otherwise, as under ``--device
+cpu``) and train over a mesh of all
+of them: data parallel by default, FSDP with ``--binding
+'train_eval_model.fsdp = True'``, ZeRO-1 with
+``train_eval_model.shard_optimizer_state = True``.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import logging
 import sys
 
 from tensor2robot_tpu_torch import config as t2r_config
+from tensor2robot_tpu_torch.parallel import distributed
 from tensor2robot_tpu_torch.train.train_eval import (
     continuous_eval_model,
     train_eval_model,
@@ -52,6 +62,9 @@ def main(argv=None) -> int:
   parser.add_argument("--device", default="cuda",
                       help="cuda (the default) or cpu")
   args = parser.parse_args(argv)
+  # First: the ranks of a torch.distributed.run launch join one group
+  # (a single process is left as it is), on gloo for CPU ranks.
+  distributed.initialize(device=args.device)
 
   logging.basicConfig(
       level=logging.INFO,
@@ -69,15 +82,18 @@ def main(argv=None) -> int:
               else "train_eval_model.model_dir")
     t2r_config.bind(target, args.model_dir)
 
-  if args.mode == "continuous_eval":
-    results = continuous_eval_model(device=args.device)
-    logging.info("Evaluated %d checkpoints: %s", len(results),
-                 sorted(results))
+  try:
+    if args.mode == "continuous_eval":
+      results = continuous_eval_model(device=args.device)
+      logging.info("Evaluated %d checkpoints: %s", len(results),
+                   sorted(results))
+      return 0
+    result = train_eval_model(device=args.device)
+    logging.info("Final train metrics: %s", result.train_metrics)
+    logging.info("Final eval metrics: %s", result.eval_metrics)
     return 0
-  result = train_eval_model(device=args.device)
-  logging.info("Final train metrics: %s", result.train_metrics)
-  logging.info("Final eval metrics: %s", result.eval_metrics)
-  return 0
+  finally:
+    distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -89,8 +89,18 @@ def fetch_variables_to_host(
 
 
 def export_and_gc(generator, variables, keep: int,
-                  global_step: int = 0) -> str:
-  """One export, then version GC down to the newest `keep`."""
+                  global_step: int = 0) -> Optional[str]:
+  """One export, then version GC down to the newest `keep`.
+
+  The chief-worker gate for export files: over several ranks only the
+  primary writes (ranks publishing the same versioned directories would
+  race each other and the GC), and the others return None. Every rank
+  must still gather the variables before the call (``TrainState.
+  full_variables`` is a collective over a mesh); gating the gather instead
+  of the write would leave the primary waiting in it."""
+  from tensor2robot_tpu_torch.parallel import distributed
+  if not distributed.is_primary():
+    return None
   export_dir = generator.export(variables, global_step=global_step)
   garbage_collect_exports(generator.export_root, keep=keep)
   return export_dir

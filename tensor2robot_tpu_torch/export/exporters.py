@@ -133,6 +133,8 @@ class BestExporter(Exporter):
       return None
     export_dir = self._export(variables, global_step)
     self._best = value
+    if export_dir is None:
+      return None  # not the primary rank: the export and its state are its
     os.makedirs(self.export_root, exist_ok=True)
     # Written to a temporary file and renamed, as an export is published:
     # a crash never leaves a truncated state file.

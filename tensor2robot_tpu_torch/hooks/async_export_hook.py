@@ -65,11 +65,22 @@ class AsyncExportHook(Hook):
         except queue.Empty:
           pass
 
+  @staticmethod
+  def _fetch(state):
+    """The (EMA) variables whole on the host, on every rank (a gather over
+    a mesh), or None on a rank that will not export: every rank joins the
+    gather, and only the primary's export writes (``export_and_gc``)."""
+    from tensor2robot_tpu_torch.parallel import distributed
+    variables = export_utils.fetch_variables_to_host(
+        state.full_variables(use_ema=True))
+    return variables if distributed.is_primary() else None
+
   def after_checkpoint(self, step: int, state) -> None:
     if self._worker is None:  # begin was not called
       return
-    self._submit((export_utils.fetch_variables_to_host(
-        state.variables(use_ema=True)), int(state.step)))
+    variables = self._fetch(state)
+    if variables is not None:
+      self._submit((variables, int(state.step)))
     self._last_submitted_step = int(state.step)
 
   def _run(self) -> None:
@@ -101,9 +112,10 @@ class AsyncExportHook(Hook):
     deadline = time.monotonic() + self._shutdown_timeout_s
     submitted = True
     if self._last_submitted_step != int(state.step):
-      submitted = self._put_with_deadline(
-          (export_utils.fetch_variables_to_host(
-              state.variables(use_ema=True)), int(state.step)), deadline)
+      variables = self._fetch(state)
+      if variables is not None:
+        submitted = self._put_with_deadline((variables, int(state.step)),
+                                            deadline)
     if submitted and self._put_with_deadline(self._stop, deadline):
       self._worker.join(timeout=max(0.0, deadline - time.monotonic()))
       if not self._worker.is_alive():

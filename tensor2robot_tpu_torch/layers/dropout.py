@@ -16,9 +16,27 @@ JAX package is taken at rate 0 or outside TRAIN mode.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
+
+_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def batch_shard(parts: int, index: int):
+  """Within this context (on this thread), dropout draws the mask of the
+  whole batch, `parts` times the rows it is given, and keeps block `index`
+  of it: a rank of a data mesh drops what the one-rank run on the global
+  batch drops. The batch is the leading dim."""
+  previous = getattr(_STATE, "shard", None)
+  _STATE.shard = (parts, index)
+  try:
+    yield
+  finally:
+    _STATE.shard = previous
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
@@ -33,5 +51,9 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
   if rate == 1.0:
     return torch.zeros_like(x)
   keep_prob = 1.0 - rate
-  keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+  parts, index = getattr(_STATE, "shard", None) or (1, 0)
+  rows = x.shape[0]
+  draw = torch.rand((rows * parts,) + tuple(x.shape[1:]),
+                    generator=generator, device=x.device)
+  keep = draw[index * rows:(index + 1) * rows] < keep_prob
   return torch.where(keep, x / keep_prob, torch.zeros_like(x))

@@ -23,6 +23,7 @@ from torch import nn
 
 from tensor2robot_tpu_torch.layers.vision_layers import Dense
 from tensor2robot_tpu_torch.ops.flash_attention import flash_attention
+from tensor2robot_tpu_torch.parallel.ring_attention import ring_attention
 
 
 class CausalConv(nn.Module):
@@ -92,17 +93,20 @@ class AttentionBlock(nn.Module):
   ``use_flash`` runs the core through ``ops.flash_attention`` (K2 forward,
   K3 and K4 backward on the card): O(T) device memory instead of the
   (B, T, T) scores. It needs key_size == value_size and is first order
-  only. ``seq_mesh`` (sequence-parallel ring attention) is not ported.
+  only. ``seq_mesh`` runs the core as ring attention
+  (``parallel.ring_attention``) with the sequence split over the mesh's
+  `seq_axis` (and the batch over `batch_axis` on dp x sp meshes); the
+  block's input and output stay whole on every rank.
   """
 
   def __init__(self, in_features: int, key_size: int, value_size: int,
                dtype: torch.dtype = torch.bfloat16, use_flash: bool = False,
-               seq_mesh=None):
+               seq_mesh=None, seq_axis: str = "seq", batch_axis=None):
     super().__init__()
-    if seq_mesh is not None:
-      raise NotImplementedError(
-          "AttentionBlock(seq_mesh=...) runs ring attention, which is not "
-          "ported yet: ROADMAP.md, item 15 (the parallel tiers).")
+    if use_flash and seq_mesh is not None:
+      raise ValueError(
+          "use_flash is the in-device core; for sequence-parallel "
+          "attention seq_mesh alone selects ring_attention.")
     if use_flash and key_size != value_size:
       raise ValueError(
           "use_flash requires key_size == value_size (one head dim); "
@@ -112,6 +116,8 @@ class AttentionBlock(nn.Module):
     self.value = Dense(in_features, value_size, dtype)
     self.key_size = key_size
     self.use_flash = use_flash
+    self.seq_mesh, self.seq_axis, self.batch_axis = (seq_mesh, seq_axis,
+                                                     batch_axis)
     self.compute_dtype = dtype
     self.out_features = in_features + value_size
 
@@ -121,6 +127,11 @@ class AttentionBlock(nn.Module):
     if self.use_flash:
       read = flash_attention(queries[:, :, None, :], keys[:, :, None, :],
                              values[:, :, None, :], causal=True)[:, :, 0, :]
+    elif self.seq_mesh is not None:
+      read = ring_attention(
+          queries[:, :, None, :], keys[:, :, None, :], values[:, :, None, :],
+          mesh=self.seq_mesh, axis=self.seq_axis, causal=True,
+          batch_axis=self.batch_axis)[:, :, 0, :]
     else:
       # float32 logits and softmax: attention normalisation is
       # precision-sensitive even at short T.

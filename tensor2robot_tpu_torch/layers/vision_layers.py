@@ -92,6 +92,21 @@ def _norm_dtype(x: torch.Tensor) -> torch.dtype:
 
 
 @contextlib.contextmanager
+def synced_statistics(average: Callable[[torch.Tensor], torch.Tensor]):
+  """Within this context (on this thread), training-mode ``BatchNorm``
+  takes the moments of the global batch: `average` maps a rank's moments
+  to the mean over the data axis's ranks, differentiably
+  (``parallel.collectives.mean``), as XLA reduces them over a sharded
+  batch. The trainer enters it under a data mesh of more than one rank."""
+  previous = getattr(_STATE, "average", None)
+  _STATE.average = average
+  try:
+    yield
+  finally:
+    _STATE.average = previous
+
+
+@contextlib.contextmanager
 def frozen_statistics():
   """Within this context (on this thread), training-mode ``BatchNorm``
   normalises with the batch's statistics but leaves its running averages
@@ -128,6 +143,9 @@ class BatchNorm(nn.Module):
 
   def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
     x = x.to(_norm_dtype(x))
+    average = getattr(_STATE, "average", None)
+    if train and average is not None:
+      return self._synced(x, average)
     if train:
       if x.device.type == "cpu":
         # PyTorch's CPU batch norm sums a channels-last input's statistics
@@ -151,6 +169,26 @@ class BatchNorm(nn.Module):
         self.weight.to(x.dtype), self.bias.to(x.dtype), training=train,
         eps=_BATCH_NORM_EPSILON,
     ).to(self.compute_dtype)
+
+  def _synced(self, x: torch.Tensor, average) -> torch.Tensor:
+    """Training over a sharded batch: the mean, then the biased variance
+    about it, each averaged over the ranks (every rank holds the same
+    number of rows), so every rank normalises with the global batch's
+    moments and moves its running averages alike."""
+    dims = (0,) + tuple(range(2, x.dim()))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mean = average(x.mean(dim=dims))
+    centered = x - mean.view(shape)
+    var = average(centered.square().mean(dim=dims))
+    if not getattr(_STATE, "frozen", False):
+      with torch.no_grad():
+        for running, batch in ((self.running_mean, mean),
+                               (self.running_var, var)):
+          running.mul_(_BATCH_NORM_MOMENTUM).add_(
+              batch, alpha=1.0 - _BATCH_NORM_MOMENTUM)
+    scale = torch.rsqrt(var + _BATCH_NORM_EPSILON) * self.weight.to(x.dtype)
+    return (centered * scale.view(shape)
+            + self.bias.to(x.dtype).view(shape)).to(self.compute_dtype)
 
 
 class GroupNormAuto(nn.Module):

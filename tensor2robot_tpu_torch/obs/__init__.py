@@ -17,8 +17,9 @@ Counterpart of ``tensor2robot_tpu/obs``'s host spine:
 - ``ledger``: the executable ledger (build counts, dispatches and their
   time a program) and the shared exactly-once assertion.
 
-Fault injection, the fleet aggregator, the ledger's attribution through
-the loops and the benches wait for ``ROADMAP.md``'s flagship item 15.
+Fault injection, the fleet aggregator and the benches wait for
+``ROADMAP.md``'s flagship item 15c, the ledger's attribution through the
+loops for item 15b.
 """
 
 from tensor2robot_tpu_torch.obs.context import (

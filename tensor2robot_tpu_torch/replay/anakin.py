@@ -63,7 +63,7 @@ float32, and the loop still captures once. ``dtype`` names the scoring
 dtype.
 
 Refused by name: ``ledger=`` (the executable ledger, ``ROADMAP.md``'s
-flagship item 15).
+flagship item 15b).
 """
 
 from __future__ import annotations
@@ -169,7 +169,7 @@ class AnakinLoop(TargetNetwork):
     seed: keys every draw (see the module's docstring).
     polyak_tau: None copies the online variables on ``refresh``.
     precision: the scoring tier of acting and labels.
-    ledger: item 15's executable ledger; refused.
+    ledger: item 15b's executable ledger; refused.
     health: the learn adds ``health.SUMMARY_KEYS`` to the metrics, the
       spike keys reduced by their running max over the dispatch.
     graphs: on the card, replay the period's graph (False runs every
@@ -203,7 +203,7 @@ class AnakinLoop(TargetNetwork):
       raise NotImplementedError(
           "AnakinLoop(ledger=) attributes the Anakin period's time in the "
           "executable ledger (obs/ledger.py); the ledger's attribution "
-          "through the loops waits for ROADMAP.md's flagship item 15.")
+          "through the loops waits for ROADMAP.md's flagship item 15b.")
     if inner_steps < 1 or train_every < 1 or inner_steps % train_every:
       raise ValueError(
           f"inner_steps {inner_steps} must be a positive multiple of "

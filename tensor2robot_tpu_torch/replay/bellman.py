@@ -32,7 +32,7 @@ the CEM max. Targets, TD errors (priorities and the eval metric against
 Q*) and everything after the max stay float32 under every tier.
 
 The JAX updater's executable ledger and its multi-process target
-placement (``ROADMAP.md`` item 15) are not ported; asking for them raises
+placement (``ROADMAP.md`` item 15b) are not ported; asking for them raises
 by name.
 """
 
@@ -141,7 +141,7 @@ class TargetNetwork:
     polyak_tau: None copies on refresh; else target <- tau * online +
       (1 - tau) * target per refresh.
     sharding: the JAX package's mesh placement of the target; it waits
-      for ``ROADMAP.md``'s flagship item 15 and raises when given.
+      for ``ROADMAP.md``'s flagship item 15b and raises when given.
     device: where the target lives; the GPU unless 'cpu' is asked for.
   """
 
@@ -150,7 +150,7 @@ class TargetNetwork:
     if sharding is not None:
       raise NotImplementedError(
           "TargetNetwork(sharding=) places the target over a mesh, which "
-          "waits for ROADMAP.md's flagship item 15 (the parallel tier).")
+          "waits for ROADMAP.md's flagship item 15b (the parallel tier).")
     self.device = resolve_device(device)
     self._polyak_tau = polyak_tau
     self._target_variables = (None if variables is None
@@ -222,7 +222,7 @@ class BellmanUpdater(TargetNetwork):
       of the max.
     seed: with the label seed, fixes each state's CEM draws.
     polyak_tau: None = hard copy on refresh().
-    ledger: the JAX package's executable ledger; waits for item 15.
+    ledger: the JAX package's executable ledger; waits for item 15b.
     precision: the CEM scoring tier of the labels (TD errors stay
       float32).
     device: where labels and TD errors are computed; the GPU unless
@@ -238,7 +238,7 @@ class BellmanUpdater(TargetNetwork):
       raise NotImplementedError(
           "BellmanUpdater(ledger=) attributes the label programs' time in "
           "the executable ledger (obs/ledger.py); the ledger's attribution "
-          "through the loops waits for ROADMAP.md's flagship item 15.")
+          "through the loops waits for ROADMAP.md's flagship item 15b.")
     super().__init__(variables, polyak_tau=polyak_tau, device=device)
     self.precision = cem.validate_precision(precision)
     self._model = model

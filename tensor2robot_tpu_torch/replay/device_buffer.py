@@ -44,7 +44,7 @@ captured graph over the target net's float32 tensors; the train step, the
 TD errors and the priorities stay float32.
 
 Not ported, and refused by name: a mesh with capacity sharding and the
-executable ledger (``ROADMAP.md``'s flagship item 15).
+executable ledger (``ROADMAP.md``'s flagship item 15b).
 """
 
 from __future__ import annotations
@@ -192,7 +192,7 @@ class DeviceReplayBuffer:
   Args:
     mesh / data_axis / ledger: the JAX buffer's capacity sharding over a
       mesh and its executable ledger; they wait for ``ROADMAP.md``'s
-      flagship item 15 and raise when given. ``shard_capacity`` has
+      flagship item 15b and raise when given. ``shard_capacity`` has
       nothing to shard on one device.
     device: where the ring lives; the GPU unless 'cpu' is asked for.
   """
@@ -219,7 +219,7 @@ class DeviceReplayBuffer:
           "DeviceReplayBuffer(mesh=, data_axis=, ledger=) shards the ring "
           "over a mesh and attributes its programs' time in the executable "
           "ledger (obs/ledger.py) through the loops, which wait for "
-          "ROADMAP.md's flagship item 15 (the parallel tier and the "
+          "ROADMAP.md's flagship item 15b (the parallel tier and the "
           "ledger's attribution through the loops).")
     if capacity < 1:
       raise ValueError(f"capacity must be >= 1, got {capacity}")
@@ -596,12 +596,12 @@ def make_learn_iteration_fn(model, step_fn, sample, update_priorities,
   ``health.SUMMARY_KEYS``; `step_fn` must then add ``grad_norm`` and
   ``grads_nonfinite`` (``train_step(with_health=True)``).
   `constrain_batch` re-shards the batch over a mesh, which waits for
-  ``ROADMAP.md``'s flagship item 15.
+  ``ROADMAP.md``'s flagship item 15b.
   """
   if constrain_batch is not None:
     raise NotImplementedError(
         "make_learn_iteration_fn(constrain_batch=) lays the batch over a "
-        "mesh, which waits for ROADMAP.md's flagship item 15.")
+        "mesh, which waits for ROADMAP.md's flagship item 15b.")
 
   def learn(train_state, buffer_state, target_variables, sample_draws,
             label_noise):
@@ -706,7 +706,7 @@ class MegastepLearner(TargetNetwork):
   The train state must live on the learner's device, its optimizer
   graphable (``trainer.check_graphable``: Adam needs ``capturable=True``).
   `precision` is the label stage's scoring tier; `ledger` waits for
-  item 15.
+  item 15b.
   """
 
   def __init__(
@@ -731,7 +731,7 @@ class MegastepLearner(TargetNetwork):
       raise NotImplementedError(
           "MegastepLearner(ledger=) attributes the megastep's time in the "
           "executable ledger (obs/ledger.py); the ledger's attribution "
-          "through the loops waits for ROADMAP.md's flagship item 15.")
+          "through the loops waits for ROADMAP.md's flagship item 15b.")
     if inner_steps < 1:
       raise ValueError(f"inner_steps must be >= 1, got {inner_steps}")
     if trainer.device != buffer.device:

@@ -25,7 +25,7 @@ a snapshot of the EMA variables:
   (``anakin.AnakinLoop``: the env, acting, the extend and the learner all
   on the card, no collector threads), and returns the JAX result's keys;
   its ``obs`` block carries the spans' ``trace_stage_counts`` (the JAX
-  block's executable attribution waits for item 15's ledger).
+  block's executable attribution waits for item 15b's ledger).
   With ``vector_actors`` one ``actor.VectorActor`` steps every env through
   one bucket pinned to the fleet; with ``checkpoint_every`` it saves the
   train state with a sidecar (target net, ring, counters, eval history,
@@ -52,7 +52,7 @@ copy-out. The collectors' bucket is captured before their threads start,
 so no capture ever runs beside another thread's launches.
 
 Not ported, and named where asked for: the mesh and the checkpoints'
-mesh stamp, and the fault seam (``fault_plan=``; all item 15).
+mesh stamp (item 15b), and the fault seam (``fault_plan=``; item 15c).
 """
 
 from __future__ import annotations
@@ -250,9 +250,9 @@ class CollectorWorker:
 # Options whose paths wait for a later ROADMAP.md item, with their defaults:
 # a config that asks for one raises by name.
 _WAITING = {
-    "mesh_dp": (0, "item 15 (the parallel tier)"),
-    "mesh_tp": (1, "item 15 (the parallel tier)"),
-    "zero1": (None, "item 15 (the parallel tier)"),
+    "mesh_dp": (0, "item 15b (the loop's parallel tier)"),
+    "mesh_tp": (1, "item 15b (the loop's parallel tier)"),
+    "zero1": (None, "item 15b (the loop's parallel tier)"),
 }
 
 
@@ -467,7 +467,7 @@ class ReplayTrainLoop:
     watchdog: where the loop's threads beat (default: the process
       watchdog, whose monitor runs only once its owner starts it).
     fault_plan: the fault seam; it waits for ``ROADMAP.md``'s flagship
-      item 15 and raises when given.
+      item 15c and raises when given.
     device: where the learner and the policy run; the GPU unless 'cpu'
       is asked for.
   """
@@ -479,7 +479,7 @@ class ReplayTrainLoop:
     if fault_plan is not None:
       raise NotImplementedError(
           "ReplayTrainLoop(fault_plan=) injects faults through "
-          "obs/faults.py, which waits for ROADMAP.md's flagship item 15 "
+          "obs/faults.py, which waits for ROADMAP.md's flagship item 15c "
           "(the obs tier).")
     self.config = config
     self.logdir = logdir
@@ -745,7 +745,7 @@ class ReplayTrainLoop:
                        ledger, param_refreshes: int, **extra) -> Dict:
     """The JAX loop's result schema, every path's; its ``obs`` block
     carries the spans' stage counts (the JAX block's executable
-    attribution waits for item 15's ledger)."""
+    attribution waits for item 15b's ledger)."""
     final_eval = eval_history[-1]
     reduction = 1.0 - (final_eval["eval_td_error"]
                        / max(initial_eval["eval_td_error"], 1e-9))
@@ -1249,7 +1249,7 @@ class ReplayTrainLoop:
     multiple. It stops once `num_steps` optimizer steps have run: the
     dispatches before ``min_fill`` collect without training, so their
     number adapts. The JAX result's ``param_sharding`` belongs to the mesh
-    (item 15) and is left out."""
+    (item 15b) and is left out."""
     c = self.config
     total_envs = c.num_collectors * c.envs_per_collector
     state = self.trainer.create_train_state()

@@ -29,7 +29,7 @@ Its phases:
    the router's ledger. ``tpquant_bench`` runs the same cycle at int8.
 
 The JAX bench's per-tier ledger phase (its attribution of time by tier
-through the loops) waits for ``ROADMAP.md``'s flagship item 15: asking
+through the loops) waits for ``ROADMAP.md``'s flagship item 15b: asking
 for it (``measure_precision(skip_waiting=False)``) raises by name. The
 default runs phases 1 and 2.
 """
@@ -289,7 +289,7 @@ def _measure_tier_ledger(*_args, **_kwargs):
   raise NotImplementedError(
       "the precision bench's per-tier ledger phase (the executable "
       "ledger's attribution of time by tier through the megastep and the "
-      "Anakin loop) waits for ROADMAP.md's flagship item 15.")
+      "Anakin loop) waits for ROADMAP.md's flagship item 15b.")
 
 
 def _measure_tier_rollout(tier: str, n_devices: int = 2,
@@ -430,7 +430,7 @@ def measure_precision(
       "fused_loop": fused,
       "td_delta_bar": R14_TD_DELTA_BAR,
       "cem_bf16_action_agreement": agreement["overall_rate"],
-      "waiting": {"tier_ledger": "item 15"},
+      "waiting": {"tier_ledger": "item 15b"},
   }
   failures = []
   if agreement["overall_rate"] < R14_AGREEMENT_BAR:

@@ -23,7 +23,8 @@ selection). Two claims:
   shadow, then int8 promoted, one build a bucket a replica a tier.
 
 The JAX bench's tensor-parallel ladder waits for ``ROADMAP.md``'s flagship
-item 15 (the parallel tier): ``_measure_tp_ladder`` raises by name.
+item 15b (the flagship loop's parallel tier): ``_measure_tp_ladder``
+raises by name.
 """
 
 from __future__ import annotations
@@ -88,7 +89,7 @@ def _measure_int8_agreement(model, variables, buckets: Sequence[int],
 def _measure_tp_ladder(*_args, **_kwargs):
   raise NotImplementedError(
       "tpquant's tensor-parallel ladder waits for ROADMAP.md's flagship "
-      "item 15 (the parallel tier).")
+      "item 15b (the flagship loop's parallel tier).")
 
 
 def _measure_rollout_int8(**kwargs) -> Dict:
@@ -133,7 +134,7 @@ def measure_tpquant(
       "int8_bytes_reduction_bar": R17_INT8_BYTES_REDUCTION_BAR,
       "int8_q_agreement": agreement["overall_rate"],
       "int8_param_bytes_reduction": bytes_reduction["flagship"],
-      "waiting": {"tp_ladder": "item 15"},
+      "waiting": {"tp_ladder": "item 15b"},
   }
   failures = []
   if agreement["overall_rate"] < R17_INT8_AGREEMENT_BAR:

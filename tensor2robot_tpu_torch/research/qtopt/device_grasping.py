@@ -265,7 +265,8 @@ class DeviceGraspEnv:
   def state_shardings(self, mesh, axis: str = "data"):
     raise NotImplementedError(
         "DeviceGraspEnv.state_shardings splits the fleet over a mesh, which "
-        "waits for ROADMAP.md's flagship item 15 (the parallel tier).")
+        "waits for ROADMAP.md's flagship item 15b (the flagship loop's "
+        "parallel tier).")
 
   def step_fn(self):
     """(state, actions (N, A), reset targets (N, 2) or None) -> (state,

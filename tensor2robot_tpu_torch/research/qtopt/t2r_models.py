@@ -242,7 +242,23 @@ class QTOptGraspingModel(CriticModel):
         stem_kind=self._stem, impl=self._impl)
 
   def partition_rules(self, axis: str = "model"):
-    """Tensor-parallel partition rules belong to the parallel tier."""
-    raise NotImplementedError(
-        "QTOptGraspingModel.partition_rules waits for ROADMAP.md's flagship "
-        "item 15, the parallel tier.")
+    """Regex partition rules -> PartitionSpecs for tensor parallelism (the
+    JAX model's table, over the same flax names).
+
+    The tower is column-parallel on its 64 channels: every conv and dense
+    kernel splits its output features over `axis`, and the per-channel
+    vectors riding those outputs (biases, norm scale and bias) split the
+    same way. The float32 ``q_head`` (64 -> 1) stays replicated. First hit
+    wins (``parallel.tp_rules.match_partition_rules``); the catch-all keeps
+    anything else replicated.
+    """
+    from tensor2robot_tpu_torch.parallel.mesh import PartitionSpec as P
+    return (
+        (r"(stem|pre_conv\d|post_conv\d)/kernel", P(None, None, None, axis)),
+        (r"stem_s2d_kernel", P(None, None, None, axis)),
+        (r"(action_fc\d|fc1)/kernel", P(None, axis)),
+        (r"(stem|pre_conv\d|post_conv\d|action_fc\d|fc1)/bias", P(axis)),
+        (r"stem_s2d_bias", P(axis)),
+        (r"(stem_bn|pre_bn\d|post_bn\d)/(scale|bias)", P(axis)),
+        (r".*", P()),
+    )

@@ -24,7 +24,7 @@ Counterpart of ``tensor2robot_tpu/serving``'s single replica:
   routed fleet's bench.
 
 ``fault_bench.py`` holds the learner's crash-resume parity harness; the
-rest of the fault bench waits for ``ROADMAP.md``'s flagship item 15.
+rest of the fault bench waits for ``ROADMAP.md``'s flagship item 15c.
 """
 
 from tensor2robot_tpu_torch.serving.batcher import MicroBatcher

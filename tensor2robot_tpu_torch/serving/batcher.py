@@ -24,7 +24,7 @@ queue). A dispatcher killed by a non-``Exception`` restarts up to
 ``DispatcherDead`` and new submits raise.
 
 ``fault_plan=`` (the fault-injection seam) waits for ``ROADMAP.md``'s
-flagship item 15 and raises when given.
+flagship item 15c and raises when given.
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ class MicroBatcher:
       the dispatcher's failures (default: the process recorder).
     watchdog: takes the dispatcher's ``serve/batcher`` heartbeat
       (default: the process watchdog).
-    fault_plan: waits for ``ROADMAP.md``'s flagship item 15; refused.
+    fault_plan: waits for ``ROADMAP.md``'s flagship item 15c; refused.
     site: this batcher's name in its dispatcher-death triggers.
     restart_budget: dispatcher restarts before the batcher goes down.
   """
@@ -112,7 +112,7 @@ class MicroBatcher:
     if fault_plan is not None:
       raise NotImplementedError(
           "MicroBatcher(fault_plan=) injects faults through obs/faults.py, "
-          "which waits for ROADMAP.md's flagship item 15 (the obs tier).")
+          "which waits for ROADMAP.md's flagship item 15c (the obs tier).")
     if max_batch < 1:
       raise ValueError(f"max_batch must be >= 1, got {max_batch}")
     if deadline_ms < 0:

@@ -19,7 +19,7 @@ This module is that tier, and it changes no contract beneath it:
   (``host:pid/replica`` keys) and takes the named hosts out of the
   ingress set, by name; only ``reinstate_host`` brings one back, since
   the front door sends no probe traffic of its own. The aggregator that
-  writes the rollup waits for ``ROADMAP.md``'s flagship item 15.
+  writes the rollup waits for ``ROADMAP.md``'s flagship item 15c.
 
 Reconciliation: every submit adds one to exactly one host router's
 ``logical_requests``, so the hosts' counters sum 1:1 to the front door's

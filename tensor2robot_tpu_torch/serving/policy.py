@@ -54,7 +54,7 @@ the served copy, replayed, and the live variables copied back. A
 ``cem_bucket_<b>[_<tier>]@<label>``, and one dispatch a call.
 
 Waiting for a later ``ROADMAP.md`` item, and refused by name:
-``param_specs=`` (a tensor-parallel replica group, item 15).
+``param_specs=`` (a tensor-parallel replica group, item 15b).
 """
 
 from __future__ import annotations
@@ -126,7 +126,7 @@ class CEMFleetPolicy:
       raise NotImplementedError(
           "CEMFleetPolicy(param_specs=) shards the served critic over a "
           "tensor-parallel replica group, which waits for ROADMAP.md's "
-          "flagship item 15 (the parallel tier).")
+          "flagship item 15b (the loop's parallel tier).")
     self.precision = cem.validate_precision(precision)
     self._predictor = predictor
     self._action_size = action_size

@@ -86,7 +86,7 @@ class ExportWatcher:
     if fault_plan is not None:
       raise NotImplementedError(
           "ExportWatcher(fault_plan=) damages exports through "
-          "obs/faults.py, which waits for ROADMAP.md's flagship item 15 "
+          "obs/faults.py, which waits for ROADMAP.md's flagship item 15c "
           "(the obs tier).")
     self._export_root = export_root
     self._load_fn = load_fn or self._load_native

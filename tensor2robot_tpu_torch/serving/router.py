@@ -32,10 +32,10 @@ every replica through the predictor: each flush reads
 ``predictor.device_fn()``, and a new version is copied into each policy's
 own variables at its next flush, with no capture.
 
-Refused by name: ``fault_plan=`` (fault injection) and ``tp_group`` > 1
-with ``param_specs`` (tensor-parallel replica groups), which wait for
-``ROADMAP.md``'s flagship item 15, and ``episode_recorder=`` (the data
-flywheel), which waits for the same item.
+Refused by name: ``fault_plan=`` (fault injection, ``ROADMAP.md``'s
+flagship item 15c), ``tp_group`` > 1 with ``param_specs``
+(tensor-parallel replica groups, item 15b) and ``episode_recorder=`` (the
+data flywheel, item 15d).
 """
 
 from __future__ import annotations
@@ -173,16 +173,16 @@ class FleetRouter:
     if fault_plan is not None:
       raise NotImplementedError(
           "FleetRouter(fault_plan=) injects faults through obs/faults.py, "
-          "which waits for ROADMAP.md's flagship item 15 (the obs tier).")
+          "which waits for ROADMAP.md's flagship item 15c (the obs tier).")
     if int(tp_group) != 1 or param_specs is not None:
       raise NotImplementedError(
           "FleetRouter(tp_group=, param_specs=) serves tensor-parallel "
-          "replica groups, which wait for ROADMAP.md's flagship item 15 "
+          "replica groups, which wait for ROADMAP.md's flagship item 15b "
           "(the parallel tier).")
     if episode_recorder is not None:
       raise NotImplementedError(
           "FleetRouter(episode_recorder=) captures served traffic for the "
-          "data flywheel, which waits for ROADMAP.md's flagship item 15.")
+          "data flywheel, which waits for ROADMAP.md's flagship item 15d.")
     if devices is None:
       resolve_device(None)  # raises without CUDA
       devices = [torch.device("cuda", i)

@@ -24,8 +24,16 @@ The replay loop's crash-resume checkpoints pair a step directory with a
 package's layout byte for byte (``<name>.npz`` trees through
 ``export/variables_io``, flat arrays through ``np.savez``, ``meta.json``
 with ``_trees``, ``_flats`` and ``step``), so either package reads the
-other's sidecars. ``mesh_geometry`` and ``validate_restore_mesh`` wait for
-``ROADMAP.md``'s flagship item 15 (the parallel tier).
+other's sidecars.
+
+Over a mesh of ranks (``train/mesh_layout.py``) a save gathers every
+rank's blocks into this same layout on every rank, the primary writes it
+and all ranks meet at a barrier; the payload carries the writer's
+``mesh_geometry`` under ``mesh`` (a one-device save has no stamp). A restore onto a mesh refuses a stamp of
+another geometry (``validate_restore_mesh``, JAX's message) and cuts each
+rank's blocks from the whole tensors; a restore onto one device reads any
+stamp, since the layout is whole. Warm start and npz interchange with JAX
+are unchanged.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 
 from tensor2robot_tpu_torch import bridge
 from tensor2robot_tpu_torch.export import export_utils, variables_io
+from tensor2robot_tpu_torch.parallel import distributed
 from tensor2robot_tpu_torch.train.train_state import TrainState
 from tensor2robot_tpu_torch.utils import optimizers
 
@@ -109,14 +118,25 @@ class CheckpointManager:
       raise ValueError(f"checkpoint step {step} already exists at {final}")
     optimizer = state.opt_state
     schedule = getattr(optimizer, "lr_schedule", None)
+    if state.layout is not None:
+      whole = state.layout.full_payload(state)  # every rank gathers
+    else:
+      whole = {"params": state.params, "batch_stats": state.model_state,
+               "ema_params": state.ema_params,
+               "optimizer": optimizer.state_dict()}
     payload = {
         "step": int(step),
-        "params": _to_cpu(state.params),
-        "batch_stats": _to_cpu(state.model_state),
-        "ema_params": _to_cpu(state.ema_params),
-        "optimizer": _to_cpu(optimizer.state_dict()),
+        **_to_cpu(whole),
         "schedule": None if schedule is None else schedule.state_dict(),
     }
+    if state.layout is None or distributed.is_primary():
+      self._write(step, payload)
+    if state.layout is not None:
+      distributed.sync_global_devices(f"checkpoint {step}")
+    return True
+
+  def _write(self, step: int, payload: dict) -> None:
+    final = os.path.join(self.directory, str(step))
     tmp = os.path.join(self.directory, f"{_TMP_PREFIX}{step}-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
@@ -125,7 +145,6 @@ class CheckpointManager:
     if self.max_to_keep:
       for old in self.all_steps()[:-self.max_to_keep]:
         shutil.rmtree(os.path.join(self.directory, str(old)))
-    return True
 
   def restore(self, state: TrainState,
               step: Optional[int] = None) -> TrainState:
@@ -140,6 +159,9 @@ class CheckpointManager:
     payload = torch.load(
         os.path.join(self.directory, str(step), STATE_FILE),
         map_location="cpu", weights_only=True)
+    if state.layout is not None:
+      validate_restore_mesh(payload.get("mesh"), state.layout.mesh)
+      payload = state.layout.load_payload(state, payload)
     _copy_into(state.params, payload["params"], "params")
     _copy_into(state.model_state, payload["batch_stats"], "batch_stats")
     if (state.ema_params is None) != (payload["ema_params"] is None):
@@ -179,6 +201,39 @@ class CheckpointManager:
 
   def close(self) -> None:
     """Nothing to release."""
+
+
+# --- mesh stamps -------------------------------------------------------------
+
+
+def mesh_geometry(mesh) -> dict:
+  """JSON-able geometry stamp of a mesh: ordered {axis: size} and the rank
+  count (one device, no mesh: no axes, one device)."""
+  if mesh is None:
+    return {"axes": {}, "devices": 1}
+  return {"axes": {str(name): int(size) for name, size in mesh.shape.items()},
+          "devices": int(mesh.size)}
+
+
+def validate_restore_mesh(saved: Optional[dict], mesh) -> None:
+  """Refuses a resume whose mesh geometry differs from the writer's.
+
+  `saved` is the checkpoint's ``mesh_geometry`` stamp (None, a pre-stamp
+  checkpoint, passes). A mismatch raises with both geometries and the
+  fix named, as the JAX package does."""
+  if saved is None:
+    return
+  current = mesh_geometry(mesh)
+  if saved == current:
+    return
+  saved_axes = dict(saved.get("axes", {}))
+  fix = " x ".join(f"{name}={size}" for name, size in saved_axes.items())
+  raise ValueError(
+      f"resume mesh geometry mismatch: checkpoint was written on a mesh "
+      f"of {saved}, this loop runs {current} — sharded state cannot be "
+      f"re-laid-out across geometries on restore. Rebuild the loop with "
+      f"a {fix or 'matching'} mesh (the writer's geometry), or start a "
+      f"fresh run for the new mesh.")
 
 
 # --- warm start ------------------------------------------------------------

@@ -18,14 +18,21 @@ on SIGTERM or SIGINT leaves the loop through the final checkpoint. Hooks
 ``end`` after the final export; eval exporters (``export/exporters.py``)
 run after every evaluation. ``continuous_eval_model`` is the separate
 evaluator job: it evaluates each checkpoint of a ``model_dir`` as it
-lands. The JAX loop's parallelism raises ``NotImplementedError`` when
-asked for, naming the ``ROADMAP.md`` item it waits for; nothing is
-skipped quietly.
+lands.
+
+Over a mesh of ranks (``mesh``, ``param_specs``, ``shard_optimizer_state``,
+``fsdp``: the JAX loop's parallelism, ``train/trainer.py``) every rank
+runs this loop: each rank's input generator yields the same global batch
+and the trainer keeps the rank's block. Metric files, the event file and
+the operative config are written by the primary rank only; checkpoints
+and exports run on every rank (their gathers are collectives) and the
+primary writes the files.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import os
@@ -43,6 +50,9 @@ from tensor2robot_tpu_torch.data.prefetch import prefetch_to_device
 from tensor2robot_tpu_torch.export import export_utils
 from tensor2robot_tpu_torch.export.exporters import run_exporters
 from tensor2robot_tpu_torch.hooks.hook_builder import Hook, HookBuilder
+from tensor2robot_tpu_torch.parallel import distributed
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+from tensor2robot_tpu_torch.parallel import tp_rules
 from tensor2robot_tpu_torch.train.checkpoints import CheckpointManager
 from tensor2robot_tpu_torch.train.train_state import TrainState
 from tensor2robot_tpu_torch.train.trainer import Trainer
@@ -51,25 +61,14 @@ from tensor2robot_tpu_torch.utils.tree import tree_map
 
 _log = logging.getLogger(__name__)
 
-# What the JAX loop does and this one does not yet, by argument: the value
-# that asks for nothing, and the ROADMAP.md item it waits for.
-_WAITING = {
-    "mesh": (None, "the flagship list's item 15, the parallel tier"),
-    "param_specs": (None, "the flagship list's item 15, the parallel tier"),
-    "shard_optimizer_state": (False, "the flagship list's item 15, the "
-                                     "parallel tier"),
-    "fsdp": (False, "the flagship list's item 15, the parallel tier"),
-}
 
-
-def _refuse_waiting(caller: str, **asked) -> None:
-  """Raises NotImplementedError for an argument of `_WAITING` given a value
-  other than its default, naming the ROADMAP.md item it waits for."""
-  for name, value in asked.items():
-    default, item = _WAITING[name]
-    if value != default:
-      raise NotImplementedError(
-          f"{caller}({name}={value!r}) waits for ROADMAP.md {item}.")
+def _default_mesh(mesh, param_specs, shard_optimizer_state: bool):
+  """The JAX loop's default: a mesh of every rank ({"data": -1}) when a
+  layout asks for one or the process group has more than one rank."""
+  if mesh is None and (param_specs is not None or shard_optimizer_state
+                       or distributed.process_count() > 1):
+    return mesh_lib.create_mesh()
+  return mesh
 
 
 def _init_exporters(create_exporters_fn, model, model_dir: str):
@@ -97,7 +96,7 @@ def _run_exporters_after_eval(exporters, state: TrainState,
     run_exporters(
         exporters,
         lambda: export_utils.fetch_variables_to_host(
-            state.variables(use_ema=True)),
+            state.full_variables(use_ema=True)),
         state.step, eval_metrics)
 
 
@@ -177,6 +176,7 @@ def train_eval_model(
     param_specs=None,
     shard_optimizer_state: bool = False,
     fsdp: bool = False,
+    fsdp_min_size: int = 4096,
 ) -> TrainEvalResult:
   """Trains (and optionally evaluates and exports) `model`.
 
@@ -210,9 +210,16 @@ def train_eval_model(
       after every evaluation (the latest and best export policies).
     hook_builders: HookBuilders whose hooks observe the loop (an
       AsyncExportHookBuilder exports each checkpoint while training).
-    mesh, param_specs, shard_optimizer_state, fsdp: the JAX loop's
-      parallelism; any value but the default raises NotImplementedError
-      naming the ROADMAP.md item it waits for.
+    mesh: a ``parallel.mesh.Mesh`` of ranks; by default every rank
+      (``{"data": -1}``) when the process group has several or a layout
+      below asks for one.
+    param_specs: the parameters' specs (``parallel.tp_rules``): tensor
+      parallelism, FSDP; None replicates them (data parallelism).
+    shard_optimizer_state: ZeRO-1 (see ``Trainer``).
+    fsdp: derive FSDP specs from the model
+      (``tp_rules.infer_fsdp_specs_from_model``); exclusive with
+      param_specs and with shard_optimizer_state.
+    fsdp_min_size: the smallest parameter (elements) fsdp shards.
 
   The loop logs its timing once, at the end of training, as the record's
   ``loop_stats`` (``extra``): the host-clock time of each step from
@@ -221,8 +228,19 @@ def train_eval_model(
   "step" there is the dispatch of one stack (``steps_per_dispatch``). The
   result carries them as ``loop_stats`` too.
   """
-  _refuse_waiting("train_eval_model", mesh=mesh, param_specs=param_specs,
-                  shard_optimizer_state=shard_optimizer_state, fsdp=fsdp)
+  if fsdp:
+    if param_specs is not None:
+      raise ValueError("Pass either fsdp=True or explicit param_specs, "
+                       "not both.")
+    if shard_optimizer_state:
+      raise ValueError(
+          "fsdp=True already shards optimizer state with the params "
+          "(ZeRO-3 subsumes ZeRO-1); drop shard_optimizer_state.")
+    if mesh is None:
+      mesh = mesh_lib.create_mesh()
+    param_specs = tp_rules.infer_fsdp_specs_from_model(
+        model, mesh, min_size=fsdp_min_size)
+  mesh = _default_mesh(mesh, param_specs, shard_optimizer_state)
   if iterations_per_loop < 1:
     raise ValueError(f"iterations_per_loop must be >= 1, got "
                      f"{iterations_per_loop}")
@@ -237,8 +255,13 @@ def train_eval_model(
   if export_generator is not None:
     export_utils.resolve_export_root(export_generator, model_dir)
 
-  trainer = Trainer(model, seed=seed, device=device)
+  trainer = Trainer(model, seed=seed, device=device, mesh=mesh,
+                    param_specs=param_specs,
+                    shard_optimizer_state=shard_optimizer_state)
   state = trainer.create_train_state()
+  # The chief-worker rule: metric and event files and the operative
+  # config belong to the primary; checkpoints and exports run everywhere.
+  primary = distributed.is_primary()
 
   checkpoint_manager = None
   metric_writer = None
@@ -251,9 +274,10 @@ def train_eval_model(
     if checkpoint_manager.latest_step() is not None:
       state = checkpoint_manager.restore(state)
       _log.info("Resumed from step %d", state.step)
-    metric_writer = MetricWriter(model_dir)
-    with open(os.path.join(model_dir, "operative_config.txt"), "w") as f:
-      f.write(operative_config_str())
+    if primary:
+      metric_writer = MetricWriter(model_dir)
+      with open(os.path.join(model_dir, "operative_config.txt"), "w") as f:
+        f.write(operative_config_str())
 
   hooks: List[Hook] = []
   for builder in hook_builders:
@@ -292,6 +316,7 @@ def train_eval_model(
                                None)
       if pipeline_stats:
         _log.info("train input pipeline: %s", pipeline_stats)
+      rank_batches = map(trainer.shard_batch, host_iter)
       if iterations_per_loop > 1 or gradient_accumulation_steps > 1:
         # Both feed (K, batch, ...) stacks: a stack is K steps, or the
         # m microbatches of one step (so the stream holds steps x m
@@ -302,9 +327,9 @@ def train_eval_model(
         else:
           stack = gradient_accumulation_steps
           total = remaining * stack
-        host_batches = _stack_batches(host_iter, stack, total)
+        host_batches = _stack_batches(rank_batches, stack, total)
       else:
-        host_batches = host_iter
+        host_batches = rank_batches
       train_iter = prefetch_to_device(host_batches, device=trainer.device,
                                       depth=prefetch_depth)
       # CUDA steps return before the device finishes them; waiting on the
@@ -388,9 +413,11 @@ def train_eval_model(
     export_generator.set_specification_from_model(model)
     export_dir = export_utils.export_and_gc(
         export_generator,
-        export_utils.fetch_variables_to_host(state.variables(use_ema=True)),
+        export_utils.fetch_variables_to_host(
+            state.full_variables(use_ema=True)),
         keep=export_keep, global_step=state.step)
-    _log.info("Exported the final model to %s", export_dir)
+    if export_dir is not None:
+      _log.info("Exported the final model to %s", export_dir)
   for hook in hooks:
     hook.end(state)
   if checkpoint_manager:
@@ -420,7 +447,8 @@ def _evaluate(trainer: Trainer, model, input_generator_eval,
   summaries of the last batch ({} when it renders none)."""
   input_generator_eval.set_specification_from_model(model, modes.EVAL)
   eval_iter = prefetch_to_device(
-      input_generator_eval.create_dataset_fn(modes.EVAL)(),
+      map(trainer.shard_batch,
+          input_generator_eval.create_dataset_fn(modes.EVAL)()),
       device=trainer.device, depth=prefetch_depth)
   sums: Dict[str, float] = {}
   count = 0
@@ -434,7 +462,7 @@ def _evaluate(trainer: Trainer, model, input_generator_eval,
   images = {}
   if last_features is not None:
     images = dict(model.model_image_summaries_fn(
-        state.variables(use_ema=True), last_features) or {})
+        state.full_variables(use_ema=True), last_features) or {})
   return metrics, images
 
 
@@ -463,43 +491,63 @@ def continuous_eval_model(
   Stops when no new checkpoint appears within `timeout_s`, when a
   checkpoint at a step >= `stop_after_step` (if > 0) has been evaluated,
   or after `max_evaluations` (if > 0) evaluations. `mesh`, `param_specs`
-  and `shard_optimizer_state` wait for ROADMAP.md's item 15 and raise.
+  and `shard_optimizer_state` evaluate over a mesh of ranks as
+  ``train_eval_model`` trains: every rank restores and evaluates each
+  checkpoint (a restore refuses another geometry's stamp), the primary
+  lists the directory and decides, the others follow its broadcast, and
+  only the primary writes the metric files.
 
   Returns {checkpoint step: eval metrics} for every evaluated step.
   """
-  _refuse_waiting("continuous_eval_model", mesh=mesh,
-                  param_specs=param_specs,
-                  shard_optimizer_state=shard_optimizer_state)
-  trainer = Trainer(model, seed=seed, device=device)
+  mesh = _default_mesh(mesh, param_specs, shard_optimizer_state)
+  trainer = Trainer(model, seed=seed, device=device, mesh=mesh,
+                    param_specs=param_specs,
+                    shard_optimizer_state=shard_optimizer_state)
   template = trainer.create_train_state()
   checkpoint_manager = CheckpointManager(
       os.path.join(model_dir, "checkpoints"))
   exporters = _init_exporters(create_exporters_fn, model, model_dir)
   results: Dict[int, Dict[str, float]] = {}
   last_new_checkpoint = time.monotonic()
-  with MetricWriter(os.path.join(model_dir, "eval")) as metric_writer:
+  primary = distributed.is_primary()
+  with contextlib.ExitStack() as stack:
+    metric_writer = (stack.enter_context(
+        MetricWriter(os.path.join(model_dir, "eval"))) if primary else None)
     while True:
-      pending = [step for step in checkpoint_manager.all_steps()
-                 if step not in results]
+      pending = _agree([step for step in checkpoint_manager.all_steps()
+                        if step not in results], trainer)
       for step in pending:  # every checkpoint, oldest first
         last_new_checkpoint = time.monotonic()
         state = checkpoint_manager.restore(template, step=step)
         metrics, images = _evaluate(trainer, model, input_generator_eval,
                                     state, eval_steps, prefetch_depth)
         results[step] = metrics
-        metric_writer.write_scalars(
-            step, {f"eval/{k}": v for k, v in metrics.items()})
-        if images:
-          metric_writer.write_images(
-              step, {f"eval/{k}": v for k, v in images.items()})
+        if metric_writer:
+          metric_writer.write_scalars(
+              step, {f"eval/{k}": v for k, v in metrics.items()})
+          if images:
+            metric_writer.write_images(
+                step, {f"eval/{k}": v for k, v in images.items()})
         _log.info("continuous eval @ step %d: %s", step, metrics)
         _run_exporters_after_eval(exporters, state, metrics)
         if ((stop_after_step and step >= stop_after_step)
             or (max_evaluations and len(results) >= max_evaluations)):
           return results
       if not pending:
-        if time.monotonic() - last_new_checkpoint > timeout_s:
+        if _agree(time.monotonic() - last_new_checkpoint > timeout_s,
+                  trainer):
           _log.info("continuous eval: no new checkpoint for %.0fs; "
                     "stopping.", timeout_s)
           return results
         time.sleep(poll_interval_s)
+
+
+def _agree(value, trainer: Trainer):
+  """The primary rank's `value` on every rank of the trainer's mesh (each
+  rank lists the directory and reads its clock apart; the collectives that
+  follow need one decision)."""
+  if trainer.layout is None:
+    return value
+  box = [value]
+  torch.distributed.broadcast_object_list(box, src=0)
+  return box[0]

@@ -8,7 +8,7 @@ optimizer and, when ``use_avg_model_params``, the EMA parameters.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -26,6 +26,10 @@ class TrainState:
   model_state: Tensors                   # buffers (batch_stats)
   opt_state: torch.optim.Optimizer       # holds the Adam moments
   ema_params: Optional[Tensors] = None   # EMA copy; None unless enabled
+  # Over a mesh (``train/mesh_layout.py``): the layout, and under ZeRO-1
+  # the optimizer's blocks of the parameters (the tensors it steps).
+  opt_params: Optional[Tensors] = None
+  layout: Optional[Any] = None
 
   @property
   def eval_params(self) -> Tensors:
@@ -33,6 +37,16 @@ class TrainState:
     return self.ema_params if self.ema_params is not None else self.params
 
   def variables(self, use_ema: bool = False) -> Tensors:
-    """The model's variables (a state_dict) for ``inference_network_fn``."""
+    """The model's variables (a state_dict) for ``inference_network_fn``.
+    Over a mesh, this rank's blocks: ``full_variables`` gathers them."""
     params = self.eval_params if use_ema else self.params
     return {**params, **self.model_state}
+
+  def full_variables(self, use_ema: bool = False) -> Tensors:
+    """The variables whole, on every rank (a collective over a mesh)."""
+    if self.layout is None:
+      return self.variables(use_ema)
+    params = self.eval_params if use_ema else self.params
+    return {**{key: self.layout.gather(value.detach(),
+                                       self.layout.specs[key])
+               for key, value in params.items()}, **self.model_state}

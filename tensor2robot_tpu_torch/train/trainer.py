@@ -20,10 +20,19 @@ counterpart of the JAX step's ``fold_in(base_rng, step)``: masks differ
 from step to step and repeat after a resume. A CUDA graph of K steps
 registers K generators of its own with the graph
 (``register_generator_state``) and seeds each for its step before a
-replay, so a replay draws the masks the eager steps would. The JAX trainer's
-mesh, parameter shardings, ZeRO and AOT executables come with the
-parallel tier and the train step's extras (``ROADMAP.md``, the flagship
-list's items 15 and 4).
+replay, so a replay draws the masks the eager steps would.
+
+``Trainer(mesh=, param_specs=, shard_optimizer_state=)`` trains over a
+mesh of ranks (``parallel/``) with the JAX trainer's semantics: pure data
+parallelism replicates the parameters and averages the gradients over the
+global batch; ``param_specs`` holds parameters sharded as their specs say
+(tensor parallelism over a model axis, FSDP over the data axis);
+``shard_optimizer_state`` is ZeRO-1. ``train/mesh_layout.py`` keeps the
+layout and writes the collectives. Every rank passes its block of the
+batch (``shard_batch``). A mesh of more than one rank runs ``train_steps``
+as K eager steps: gloo's collectives run on the host, outside any stream a
+CUDA graph captures (``check_graphable`` says so). The JAX trainer's AOT
+executables come with the train step's extras (``ROADMAP.md`` item 4).
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ import torch
 from tensor2robot_tpu_torch import Device, bridge, resolve_device
 from tensor2robot_tpu_torch.obs import health
 from tensor2robot_tpu_torch.ops import graph_launches
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+from tensor2robot_tpu_torch.train.mesh_layout import MeshLayout
 from tensor2robot_tpu_torch.train.train_state import TrainState
 from tensor2robot_tpu_torch.utils import optimizers
 from tensor2robot_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -64,11 +75,18 @@ def step_seed(seed: int, step: int) -> int:
       1, np.uint64)[0] >> np.uint64(1))
 
 
-def check_graphable(optimizer: torch.optim.Optimizer) -> None:
+def check_graphable(optimizer: torch.optim.Optimizer, mesh=None) -> None:
   """Raises NotImplementedError, by name, for an optimizer whose update a
   CUDA graph cannot replay: a replay runs no Python, so it runs no
   learning-rate schedule (a host-side hook), and Adam must keep its step
-  count on the device (``capturable=True``)."""
+  count on the device (``capturable=True``). A `mesh` of more than one
+  rank raises too: its collectives run through gloo on the host, which no
+  capture holds, so its stacks run as K eager steps."""
+  if mesh_lib.is_distributed(mesh):
+    raise NotImplementedError(
+        f"A mesh of {mesh.size} ranks cannot be captured in a CUDA graph: "
+        "gloo's collectives run on the host, outside any stream a capture "
+        "holds. Trainer.train_steps runs its stacks as K eager steps.")
   name = type(optimizer).__name__
   if getattr(optimizer, "lr_schedule", None) is not None:
     raise NotImplementedError(
@@ -166,16 +184,33 @@ class _GraphedSteps:
 class Trainer:
   """Owns the device and the steps for one model."""
 
-  def __init__(self, model, seed: int = 0, device: Device = None):
+  def __init__(self, model, seed: int = 0, device: Device = None,
+               mesh: Optional[mesh_lib.Mesh] = None, param_specs=None,
+               shard_optimizer_state: bool = False, data_axis: str = "data"):
     """Args:
       model: an ``AbstractT2RModel``.
       seed: seeds the ``torch.Generator`` that draws fresh variables, and
         with the step each step's dropout generator.
       device: where to train; the GPU unless 'cpu' is asked for.
+      mesh: a ``parallel.mesh.Mesh`` of ranks; None (or one rank) trains
+        on this process alone.
+      param_specs: a flax tree of ``PartitionSpec``s for the parameters
+        (``parallel.tp_rules``): tensor parallelism over a model axis, FSDP
+        over the data axis. None replicates them: pure data parallelism.
+      shard_optimizer_state: ZeRO-1: each optimizer tensor additionally
+        splits over the data axis on its largest divisible dim its
+        parameter's spec leaves unclaimed.
+      data_axis: the mesh axis the batch splits over.
     """
     self.model = model
     self.seed = seed
     self.device = resolve_device(device)
+    self.mesh = mesh
+    self.data_axis = data_axis
+    self.layout: Optional[MeshLayout] = None
+    if mesh_lib.is_distributed(mesh):
+      self.layout = MeshLayout(model, mesh, param_specs,
+                               shard_optimizer_state, data_axis)
     self._graphs: Dict[Tuple, _GraphedSteps] = {}
     self._warmed = set()  # per-step signatures run eagerly on the side
     self._side_stream = None
@@ -231,6 +266,8 @@ class Trainer:
         ema_params=ema)
     if self.model.init_from_checkpoint:
       state = self._warm_start(state, self.model.init_from_checkpoint)
+    if self.layout is not None:
+      state = self.layout.shard(state, self.model.create_optimizer)
     return state
 
   def _warm_start(self, state: TrainState, checkpoint_path: str
@@ -257,6 +294,8 @@ class Trainer:
   def _finish_step(self, state: TrainState, new_model_state) -> None:
     """The optimizer's step, then the statistics and the EMA, in place."""
     state.opt_state.step()
+    if state.layout is not None:
+      state.layout.after_step(state)
     with torch.no_grad():
       for key, value in new_model_state.items():
         state.model_state[key].copy_(value)
@@ -281,6 +320,9 @@ class Trainer:
     (``step_generator``)."""
     if generator is None:
       generator = self.step_generator(state.step)
+    if self.layout is not None:
+      return self._mesh_step(state, [(features, labels)], generator,
+                             with_health)
     state.opt_state.zero_grad(set_to_none=True)
     loss, (metrics, new_model_state) = self.model.model_train_fn(
         state.variables(), features, labels, generator=generator)
@@ -298,17 +340,17 @@ class Trainer:
     """K optimizer steps over a K-stacked batch (the leading axis of every
     leaf); returns the last step's metrics.
 
-    On the CPU, K ``train_step`` calls. On the GPU, a CUDA graph of the K
-    steps: the first stack of a per-step shape runs eagerly on a side
-    stream (it warms up cuDNN, cuBLAS, the kernels' builds and the
-    optimizer's state), and each later (K, shapes, dtypes) is captured
-    once, then replayed with the stack copied into the graph's input
-    buffers. A final stack of another K gets a graph of its own. An
+    On the CPU, and over a mesh of ranks, K ``train_step`` calls. On the
+    GPU, a CUDA graph of the K steps: the first stack of a per-step shape
+    runs eagerly on a side stream (it warms up cuDNN, cuBLAS, the kernels'
+    builds and the optimizer's state), and each later (K, shapes, dtypes)
+    is captured once, then replayed with the stack copied into the graph's
+    input buffers. A final stack of another K gets a graph of its own. An
     optimizer or a model the graph cannot hold raises NotImplementedError
     (``check_graphable``); nothing falls back to eager steps.
     """
     steps = _leading(features)
-    if self.device.type != "cuda":
+    if self.device.type != "cuda" or self.layout is not None:
       for i in range(steps):
         state, metrics = self.train_step(state, _index(features, i),
                                          _index(labels, i))
@@ -345,6 +387,10 @@ class Trainer:
     The microbatches draw dropout from the step's generator in turn."""
     micro = _leading(features)
     generator = self.step_generator(state.step)
+    if self.layout is not None:
+      return self._mesh_step(
+          state, [(_index(features, i), _index(labels, i))
+                  for i in range(micro)], generator, False)
     state.opt_state.zero_grad(set_to_none=True)
     model_state = dict(state.model_state)
     per_micro = []
@@ -365,17 +411,71 @@ class Trainer:
             {key: torch.stack([m[key] for m in per_micro]).mean(dim=0)
              for key in per_micro[0]})
 
+  def _mesh_step(self, state: TrainState, batches, generator,
+                 with_health: bool) -> Tuple[TrainState, Metrics]:
+    """One optimizer step over a mesh (``mesh_layout``): each of `batches`
+    (this rank's blocks; more than one are microbatches whose gradients
+    average) forward and backward, the data axis's reductions, the
+    update, the statistics and the EMA; metrics averaged over the data
+    axis."""
+    layout = self.layout
+    state.opt_state.zero_grad(set_to_none=True)
+    for param in state.params.values():
+      param.grad = None
+    scale = 1.0 / (layout.data_size * len(batches))
+    model_state = dict(state.model_state)
+    per_batch = []
+    for features, labels in batches:
+      with layout.forward_context(train=True):
+        variables = layout.forward_variables(state)
+        variables.update(model_state)
+        loss, (metrics, new_model_state) = self.model.model_train_fn(
+            variables, features, labels, generator=generator)
+      (loss * scale).backward()
+      model_state.update(new_model_state)
+      per_batch.append({k: v.detach() for k, v in metrics.items()})
+    layout.reduce_gradients(state)
+    metrics = {key: torch.stack([m[key] for m in per_batch]).mean(dim=0)
+               for key in per_batch[0]}
+    if with_health:
+      metrics["grad_norm"], metrics["grads_nonfinite"] = (
+          layout.gradient_health(state))
+    self._finish_step(state, {key: model_state[key]
+                              for key in state.model_state})
+    return (dataclasses.replace(state, step=state.step + 1),
+            layout.average(metrics))
+
   def eval_step(self, state: TrainState, features, labels=None) -> Metrics:
-    """Eval metrics of one batch (EMA parameters when kept)."""
+    """Eval metrics of one batch (EMA parameters when kept); over a mesh,
+    of the global batch whose block this rank holds."""
+    if self.layout is not None:
+      with torch.no_grad(), self.layout.forward_context(train=False):
+        metrics = self.model.model_eval_fn(
+            self.layout.forward_variables(state, use_ema=True), features,
+            labels)
+      return self.layout.average(metrics)
     with torch.no_grad():
       return self.model.model_eval_fn(state.variables(use_ema=True),
                                       features, labels)
 
+  def shard_batch(self, batch: Any) -> Any:
+    """This rank's block of a global batch (the whole batch without a
+    mesh)."""
+    if self.layout is None:
+      return batch
+    return mesh_lib.shard_batch(self.mesh, batch, self.data_axis)
+
+  @property
+  def graphs_steps(self) -> bool:
+    """Whether ``train_steps`` replays CUDA graphs (the GPU, no mesh)."""
+    return self.device.type == "cuda" and self.layout is None
+
   def predict_fn(self, state: TrainState) -> Callable[[Any], Any]:
     """PREDICT-mode closure over a snapshot of the current (EMA) variables:
-    later steps update the state's tensors in place, not the snapshot."""
+    later steps update the state's tensors in place, not the snapshot.
+    Over a mesh every rank gathers the whole variables."""
     variables = {key: value.detach().clone()
-                 for key, value in state.variables(use_ema=True).items()}
+                 for key, value in state.full_variables(use_ema=True).items()}
     model = self.model
 
     def predict(features):

@@ -388,14 +388,6 @@ class TestContinuousEval:
     with open(os.path.join(model_dir, "eval", "metrics.jsonl")) as f:
       assert [json.loads(line)["step"] for line in f] == [2]
 
-  @pytest.mark.parametrize("name, value", [("mesh", object()),
-                                           ("param_specs", {}),
-                                           ("shard_optimizer_state", True)])
-  def test_parallel_arguments_wait_for_item_15(self, tmp_path, name, value):
-    with pytest.raises(NotImplementedError, match="item 15"):
-      continuous_eval_model(MockT2RModel(), _random(), str(tmp_path),
-                            device="cpu", **{name: value})
-
 
 class _Classifier(ClassificationModel):
   def get_feature_specification(self, mode):

@@ -320,8 +320,8 @@ class TestGraspingModel:
       t2r_models.QTOptGraspingModel(impl="turbo")
     with pytest.raises(ValueError, match="wire_format"):
       t2r_models.QTOptGraspingModel(wire_format="png")
-    with pytest.raises(NotImplementedError, match="item 15"):
-      t2r_models.QTOptGraspingModel().partition_rules()
+    rules = t2r_models.QTOptGraspingModel().partition_rules()
+    assert rules[-1][0] == ".*" and rules[-1][1] == ()
     model = t2r_models.QTOptGraspingModel(image_size=64, state_size=2,
                                           uint8_images=True)
     spec = model.get_feature_specification(modes.TRAIN)

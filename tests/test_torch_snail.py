@@ -279,10 +279,6 @@ class TestBlocks:
     with pytest.raises(ValueError, match="key_size == value_size"):
       snail.AttentionBlock(4, 8, 4, use_flash=True)
 
-  def test_ring_attention_is_not_ported(self):
-    with pytest.raises(NotImplementedError, match="item 15"):
-      snail.AttentionBlock(4, 8, 8, seq_mesh=object())
-
   def test_flax_init_covers_conv1d(self):
     module = snail.CausalConv(64, 256, kernel_size=2)
     flax_default_init_(module, torch.Generator().manual_seed(0))

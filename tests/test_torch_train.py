@@ -53,6 +53,7 @@ from tensor2robot_tpu_torch.export.native_export_generator import (  # noqa: E40
     NativeExportGenerator,
 )
 from tensor2robot_tpu_torch.layers import vision_layers  # noqa: E402
+from tensor2robot_tpu_torch.parallel.mesh import create_mesh  # noqa: E402
 from tensor2robot_tpu_torch.predictors.exported_model_predictor import (  # noqa: E402
     ExportedModelPredictor,
 )
@@ -735,7 +736,7 @@ class TestTrainEval:
       ("hook_builders", [type("NoHooks", (), {
           "create_hooks": lambda self, trainer, model_dir: []})()]),
       ("iterations_per_loop", 50),
-      ("gradient_accumulation_steps", 2), ("mesh", object()),
+      ("gradient_accumulation_steps", 2), ("mesh", "one rank"),
       ("param_specs", {}), ("shard_optimizer_state", True), ("fsdp", True)])
   def test_what_waits_raises(self, name, value, tmp_path):
     _, model = _models()
@@ -745,10 +746,15 @@ class TestTrainEval:
       assert os.path.isfile(tmp_path / value / "operative_config.txt")
       assert os.listdir(tmp_path / value / "checkpoints") == ["0"]
       return
+    if name == "mesh":
+      value = create_mesh({"data": 1})
     if name in ("iterations_per_loop", "gradient_accumulation_steps",
-                "create_exporters_fn", "hook_builders"):
+                "create_exporters_fn", "hook_builders", "mesh",
+                "param_specs", "shard_optimizer_state", "fsdp"):
       # No longer wait: tests/test_torch_train_steps.py trains with the
-      # first two, tests/test_torch_harness.py drives the other two.
+      # first two, tests/test_torch_harness.py drives the next two, and
+      # tests/test_torch_parallel_train.py the parallel tier's over ranks
+      # (on this one process they lay out nothing).
       result = train_eval.train_eval_model(model, max_train_steps=0,
                                            device="cpu", **{name: value})
       assert result.state.step == 0

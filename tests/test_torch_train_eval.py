@@ -506,16 +506,6 @@ class TestConfig:
             open(run / "metrics.jsonl")] == [4]
 
 
-@pytest.mark.parametrize("name, value, item", [
-    ("mesh", object(), "item 15"),
-    ("shard_optimizer_state", True, "item 15"),
-    ("fsdp", True, "item 15")])
-def test_waiting_arguments_name_their_item(name, value, item):
-  with pytest.raises(NotImplementedError, match=item):
-    train_eval.train_eval_model(_model(), max_train_steps=0, device="cpu",
-                                **{name: value})
-
-
 def test_record_generator_trains(tmp_path):
   """The record generator feeds the loop, and the parser's choice shows in
   pipeline_stats."""

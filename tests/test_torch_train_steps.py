@@ -16,6 +16,7 @@ steps on the card and skip without one.
 
 import gc
 import importlib
+import inspect
 import json
 import os
 
@@ -360,14 +361,14 @@ class TestTrainEval:
                                   **kwargs)
 
   def test_what_still_waits_names_its_item(self):
-    assert "iterations_per_loop" not in train_eval._WAITING
-    assert "gradient_accumulation_steps" not in train_eval._WAITING
-    for name, (default, item) in train_eval._WAITING.items():
-      value = object() if default is None else not default if isinstance(
-          default, bool) else (object(),)
-      with pytest.raises(NotImplementedError, match=item.split(",")[0]):
-        train_eval.train_eval_model(_model(), max_train_steps=0,
-                                    device="cpu", **{name: value})
+    # Nothing of the JAX loop waits any more: the parallel tier's
+    # arguments came with item 15a (tests/test_torch_parallel_train.py).
+    assert not hasattr(train_eval, "_WAITING")
+    for name in ("iterations_per_loop", "gradient_accumulation_steps",
+                 "mesh", "param_specs", "shard_optimizer_state", "fsdp",
+                 "fsdp_min_size"):
+      assert name in inspect.signature(
+          train_eval.train_eval_model).parameters
 
   def test_stack_batches_sizes(self):
     stream = iter(_batches(1) * 7)

@@ -171,6 +171,18 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   rank's peak memory, its parameter blocks and the collectives' bytes.
   Their step times measure the structure, not multi-card scaling: both
   ranks share one card.
+- slice 19 runs the executable ledger through the QT-Opt loops: in
+  ``qtopt_device`` and ``qtopt_anakin`` the production runs' (the 64x64
+  flagship critic at full width) ``obs.attribution`` is held to the JAX
+  smokes' require and forbid sets, every row dispatched, the learner-side
+  shares (the whole Anakin path) at most 1.0 of the window and an
+  estimated MFU for the fused program; the 64x64 megastep and Anakin
+  graph checks report each dispatch's FLOPs over its device time and run
+  the same graphed dispatches with the ledger off and on, alternating in
+  blocks (the ledger's median at most 5% slower); ``qtopt_precision``
+  holds the bf16 and int8 tier ledgers exactly once a bucket a tier; and
+  ``obs_loop`` holds the host path's attribution (``train_step``,
+  ``bellman_targets``, ``td_error``, ``health_summary``).
 
 Slice 6's record run and slice 7's capability check wait on the host's
 record parser with the card idle, so each runs in a child process of
@@ -2795,12 +2807,86 @@ DEVICE_BLOCKED_BAR = 0.05
 DEVICE_SPEEDUP_BARS = {"max": 2.0, "median": 1.5}
 
 
+# The executable ledger (slice 19): each loop's attribution is held to the
+# JAX smokes' require/forbid sets, every row dispatched, the learner-side
+# shares (the whole Anakin path) at most 1.0 of the window, and an MFU for
+# the fused programs. Its cost: LEDGER_COST_BLOCKS rounds of
+# LEDGER_COST_DISPATCHES graphed dispatches with the ledger off and on
+# (the order flipped each round); the ledger's median dispatch may be at
+# most LEDGER_COST_BAR of the median without it (host clocks on a shared
+# host, hence the loose bar).
+LEDGER_COST_BLOCKS = 4
+LEDGER_COST_DISPATCHES = 1
+LEDGER_COST_BAR = 1.05
+
+
+def ledger_row(torch, book, name: str, device_ms: float) -> dict:
+  """`name`'s ledger row, and its FLOPs over a graphed dispatch's device
+  time against the card's bf16 peak (``obs.ledger.CHIP_PEAKS``)."""
+  from tensor2robot_tpu_torch.obs import ledger as ledger_lib
+  (row,) = [r for r in book.attribution()["executables"]
+            if r["name"] == name]
+  peak = ledger_lib.peak_flops_for(torch.cuda.get_device_name(0))
+  flops = row["flops_per_dispatch"]
+  return {"ledger_row": row, "flops_per_dispatch": flops,
+          "device_mfu": (flops / (device_ms / 1e3) / peak
+                         if flops and peak else None)}
+
+
+def ledger_cost(step, state, use_ledger) -> dict:
+  """The same graphed dispatches (`step(state)` -> (state, metrics), each
+  ending in its readback) with the ledger off and on, alternating in
+  blocks; `use_ledger(on)` switches it. Host seconds a dispatch."""
+  seconds = {"off": [], "on": []}
+  for block in range(LEDGER_COST_BLOCKS):
+    for mode in (("off", "on") if block % 2 == 0 else ("on", "off")):
+      use_ledger(mode == "on")
+      for _ in range(LEDGER_COST_DISPATCHES):
+        start = time.perf_counter()
+        state, _ = step(state)
+        seconds[mode].append(time.perf_counter() - start)
+  use_ledger(True)
+  out = {mode: {"median_s": float(np.median(values)),
+                "spread_s": float(np.max(values) - np.min(values)),
+                "dispatches": len(values)}
+         for mode, values in seconds.items()}
+  out["ratio"] = out["on"]["median_s"] / out["off"]["median_s"]
+  out["bar"] = LEDGER_COST_BAR
+  if out["ratio"] > LEDGER_COST_BAR:
+    raise AssertionError(f"the ledger slows a dispatch: {out}")
+  return out
+
+
+def check_attribution(attribution: dict, require, forbid, mfu_row: str,
+                      whole: bool = False) -> dict:
+  """A loop result's ``obs.attribution`` held to the checks above; returns
+  each row's dispatches, seconds, share, FLOPs and MFU."""
+  from tensor2robot_tpu_torch.obs.ledger import check_compile_ledger
+  rows = attribution["executables"]
+  check_compile_ledger({r["name"]: r["compiles"] for r in rows},
+                       require=require, forbid=forbid)
+  held = [r for r in rows if whole or not r["name"].startswith("cem_bucket_")]
+  share = sum(r["device_time_share"] for r in held)
+  timed = [r for r in rows if r["name"] == mfu_row]
+  if (any(r["dispatches"] < 1 for r in rows) or share > 1.0
+      or not timed or timed[0]["estimated_mfu"] is None):
+    raise AssertionError(f"the loop's ledger: {attribution}")
+  return {"wall_seconds": attribution["wall_seconds"],
+          "held_share": share, "whole": whole,
+          "attributed_share": attribution["attributed_share"],
+          "rows": {r["name"]: {key: r[key] for key in (
+              "dispatches", "seconds_total", "device_time_share",
+              "flops_per_dispatch", "estimated_mfu")} for r in rows}}
+
+
 def megastep_learner(torch, dev, flagship: bool, inner_steps: int,
-                     graphs: bool, seed: int = 0, precision: str = "f32"):
+                     graphs: bool, seed: int = 0, precision: str = "f32",
+                     ledger=None):
   """(state, ring, learner): a MegastepLearner with the health keys over a
   prioritized ring of DEVICE_RING synthetic transitions at batch 32;
   TinyQ at 16x16 (the smoke's CEM 16/4/2) or the production loop's 64x64
-  critic (CEM 64/6/3); its labels scored at `precision`."""
+  critic (CEM 64/6/3); its labels scored at `precision`, its builds and
+  dispatches in `ledger`."""
   from tensor2robot_tpu_torch.bin import run_qtopt_replay
   from tensor2robot_tpu_torch.replay import learner_bench
   from tensor2robot_tpu_torch.replay.device_buffer import (
@@ -2832,7 +2918,7 @@ def megastep_learner(torch, dev, flagship: bool, inner_steps: int,
       gamma=config.gamma, num_samples=config.cem_num_samples,
       num_elites=config.cem_num_elites, iterations=config.cem_iterations,
       inner_steps=inner_steps, seed=seed + 13, health=True, graphs=graphs,
-      precision=precision)
+      precision=precision, ledger=ledger)
   learner.refresh(state.variables(use_ema=True), step=0)
   return state, ring, learner
 
@@ -2854,15 +2940,21 @@ def dispatch_device_ms(torch, learner, state, reps: int = 3) -> float:
 
 
 def megastep_graph_vs_eager(torch, dev, flagship: bool, inner_steps: int,
-                            seed: int, precision: str = "f32") -> dict:
+                            seed: int, precision: str = "f32",
+                            cost: bool = False) -> dict:
   """Three dispatches of a graphed learner (the first eager, the second
   captures) against three of an eager one, compared after each; then the
-  capture's seconds and memory and a graphed dispatch's device time."""
+  capture's seconds and memory and a graphed dispatch's device time. The
+  graphed learner keeps an executable ledger (its first dispatch counts
+  the FLOPs, so the bit-for-bit check also holds the counting harmless);
+  with `cost` the ledger's cost is measured after (``ledger_cost``)."""
+  from tensor2robot_tpu_torch.obs.ledger import ExecutableLedger
+  book = ExecutableLedger()
   deterministic = torch.backends.cudnn.deterministic
   torch.backends.cudnn.deterministic = True
   try:
     graphed = list(megastep_learner(torch, dev, flagship, inner_steps, True,
-                                    seed, precision))
+                                    seed, precision, ledger=book))
     eager = list(megastep_learner(torch, dev, flagship, inner_steps, False,
                                   seed, precision))
     walls = {"graphed": [], "eager": []}
@@ -2892,9 +2984,14 @@ def megastep_graph_vs_eager(torch, dev, flagship: bool, inner_steps: int,
     torch.backends.cudnn.deterministic = deterministic
   device_ms = dispatch_device_ms(torch, graphed[2], graphed[0])
   eager_ms = dispatch_device_ms(torch, eager[2], eager[0], reps=1)
+  row = ledger_row(torch, book, "megastep", device_ms)
+  if cost:
+    row["ledger_cost"] = ledger_cost(
+        graphed[2].step, graphed[0],
+        lambda on: setattr(graphed[2], "_ledger", book if on else None))
   return {
       "model": "flagship_64x64" if flagship else "tinyq_16x16",
-      "precision": precision, "inner_steps": inner_steps,
+      "precision": precision, "inner_steps": inner_steps, **row,
       "bit_equal": bool(metrics_equal and ring_equal
                         and not any(diff.values())),
       "metrics_equal": bool(metrics_equal), "ring_equal": bool(ring_equal),
@@ -2995,7 +3092,8 @@ def run_device_production(torch, gl, dev, seed: int, root: str, alone: bool
       "eval_td_first": run["eval_history"][0]["eval_td_error"],
       "eval_td_last": run["eval_history"][-1]["eval_td_error"],
       "breach_count": run["health"]["breach_count"],
-      "device_resident": run["device_resident"]}
+      "device_resident": run["device_resident"],
+      "attribution": run["obs"]["attribution"]}
 
 
 def run_qtopt_device(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
@@ -3008,14 +3106,18 @@ def run_qtopt_device(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
   # (a) Graphs against eager iterations.
   result["graphs"] = []
   for flagship, k in ((False, DEVICE_TINY_K), (True, DEVICE_FLAGSHIP_K)):
-    line = megastep_graph_vs_eager(torch, dev, flagship, k, seed)
+    line = megastep_graph_vs_eager(torch, dev, flagship, k, seed,
+                                   cost=flagship)
     emit("qtopt_device_graph", card=smi, **line)
     if not (line["bit_equal"]
-            and line["compile_counts"] == {"megastep": 1}):
+            and line["compile_counts"] == {"megastep": 1}
+            and line["ledger_row"]["compiles"] == 1
+            and line["flops_per_dispatch"]):
       raise AssertionError(f"megastep graph vs eager: {line}")
     result["graphs"].append({key: line[key] for key in (
         "model", "inner_steps", "capture_s", "dispatch_device_ms",
-        "device_ms_per_step")})
+        "device_ms_per_step", "flops_per_dispatch", "device_mfu")
+        + (("ledger_cost",) if flagship else ())})
 
   # (b) The smoke through the CLI's run, and (c) the learner bench.
   result["smoke"] = {}
@@ -3064,6 +3166,13 @@ def run_qtopt_device(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
             and line["device_resident"]
             and np.isfinite(line["eval_td_last"])):
       raise AssertionError(f"device-resident production ({name}): {line}")
+    # The JAX smoke's sets (tests/test_device_replay.py).
+    line["attribution_checked"] = check_attribution(
+        line["attribution"], require=("megastep", "device_extend",
+                                      "cem_bucket_*"),
+        forbid=("train_step",), mfu_row="megastep")
+    emit(f"qtopt_device_attribution_{name}", card=smi,
+         **line["attribution_checked"])
     production[name] = line
   idle = production["alone"]["profiled_dispatch"]["idle_share"]
   rates = {f"{key}_{name}": line[key] for name, line in production.items()
@@ -3081,7 +3190,9 @@ def run_qtopt_device(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
       "idle_share_alone": idle,
       "idle_bar": DEVICE_IDLE_BAR, "idle_bar_met": idle < DEVICE_IDLE_BAR,
       "peak_memory_gb": {name: line["peak_memory_gb"]
-                         for name, line in production.items()}}
+                         for name, line in production.items()},
+      "attribution": {name: line["attribution_checked"]
+                      for name, line in production.items()}}
 
   # (d) Fused resume parity.
   for flagship in (False, True):
@@ -3211,7 +3322,7 @@ def anakin_env_on_card(torch, dev, seed: int) -> dict:
 
 def anakin_loop(torch, dev, flagship: bool, inner: int, train_every: int,
                 min_fill: int, graphs: bool, seed: int,
-                precision: str = "f32"):
+                precision: str = "f32", ledger=None):
   """(state, ring, loop): an AnakinLoop of 32 envs over a bank of 256
   scenes and a prioritized ring of ANAKIN_GRAPH_RING, the health keys on;
   TinyQ at 16x16 (CEM 16/4/2) or the production loop's 64x64 critic (CEM
@@ -3250,25 +3361,30 @@ def anakin_loop(torch, dev, flagship: bool, inner: int, train_every: int,
       train_every=train_every, min_fill=min_fill,
       exploration_epsilon=c.exploration_epsilon,
       scripted_fraction=c.scripted_fraction, seed=seed + 13, health=True,
-      graphs=graphs, precision=precision)
+      graphs=graphs, precision=precision, ledger=ledger)
   loop.refresh(state.variables(use_ema=True), step=0)
   return state, ring, loop
 
 
 def anakin_graph_vs_eager(torch, dev, case, seed: int,
-                          precision: str = "f32") -> dict:
+                          precision: str = "f32", cost: bool = False) -> dict:
   """Three dispatches of a graphed loop (the first eager across min_fill,
   the second captures the period, the third replays it; a refresh after
   the second) against three eager ones, with cuDNN deterministic; then the
-  capture's seconds and memory and a period's device time."""
+  capture's seconds and memory and a period's device time. The graphed
+  loop keeps an executable ledger (the eager dispatch's learning period
+  counts the FLOPs); with `cost` the ledger's cost is measured after."""
+  from tensor2robot_tpu_torch.obs.ledger import ExecutableLedger
   name, inner, train_every, min_fill = case
   flagship = name == "flagship"
+  book = ExecutableLedger()
   deterministic = torch.backends.cudnn.deterministic
   torch.backends.cudnn.deterministic = True
   try:
     runs = {graphs: list(anakin_loop(torch, dev, flagship, inner,
                                      train_every, min_fill, graphs, seed,
-                                     precision))
+                                     precision,
+                                     ledger=book if graphs else None))
             for graphs in (True, False)}
     walls = {True: [], False: []}
     metrics_equal, capture_bytes, trained = True, None, []
@@ -3314,9 +3430,14 @@ def anakin_graph_vs_eager(torch, dev, case, seed: int,
     end_event.synchronize()
     times.append(start_event.elapsed_time(end_event))
   dispatch_ms = float(np.median(times))
+  row = ledger_row(torch, book, "anakin_step", dispatch_ms)
+  if cost:
+    row["ledger_cost"] = ledger_cost(
+        gloop.step, gstate, lambda on: setattr(gloop, "_ledger",
+                                               book if on else None))
   return {
       "model": "flagship_64x64" if flagship else "tinyq_16x16",
-      "precision": precision, "dtype": gloop.dtype,
+      "precision": precision, "dtype": gloop.dtype, **row,
       "envs": ANAKIN_ENVS, "inner_steps": inner, "train_every": train_every,
       "min_fill": min_fill, "trained_steps": trained,
       "bit_equal": bool(metrics_equal and carried_equal
@@ -3442,7 +3563,8 @@ def run_anakin_production(torch, dev, seed: int, root: str,
       "queue_enqueued": run["queue"]["enqueued"],
       "eval_td_first": run["eval_history"][0]["eval_td_error"],
       "eval_td_last": run["eval_history"][-1]["eval_td_error"],
-      "breach_count": run["health"]["breach_count"]}
+      "breach_count": run["health"]["breach_count"],
+      "attribution": run["obs"]["attribution"]}
 
 
 def run_qtopt_anakin(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
@@ -3469,15 +3591,19 @@ def run_qtopt_anakin(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
   # (b) Graphs against eager periods.
   result["graphs"] = []
   for case in ANAKIN_GRAPH_CASES:
-    line = anakin_graph_vs_eager(torch, dev, case, seed)
+    flagship = case[0] == "flagship"
+    line = anakin_graph_vs_eager(torch, dev, case, seed, cost=flagship)
     emit("qtopt_anakin_graph", card=smi, **line)
     if not (line["bit_equal"] and line["trained_steps"][0] > 0
             and line["compile_counts"] == line["compile_counts_eager"]
-            == {"anakin_step": 1}):
+            == {"anakin_step": 1}
+            and line["ledger_row"]["compiles"] == 1
+            and line["flops_per_dispatch"]):
       raise AssertionError(f"Anakin graph vs eager: {line}")
     result["graphs"].append({key: line[key] for key in (
         "model", "capture_s", "dispatch_device_ms",
-        "device_ms_per_control_step")})
+        "device_ms_per_control_step", "flops_per_dispatch", "device_mfu")
+        + (("ledger_cost",) if flagship else ())})
 
   # (c) The smoke through the CLI's run, with the bench at the first seed.
   result["smoke"] = {}
@@ -3532,10 +3658,20 @@ def run_qtopt_anakin(torch, gl, dev, seed: int, root: str, smi: str) -> dict:
           and line["queue_enqueued"] == 0 and line["breach_count"] == 0
           and np.isfinite(line["eval_td_last"])):
     raise AssertionError(f"Anakin production: {line}")
+  # The JAX smoke's sets (tests/test_anakin.py); one thread, so the whole
+  # window.
+  attribution = check_attribution(
+      line["attribution"], require=("anakin_step",),
+      forbid=("megastep", "train_step", "device_extend"),
+      mfu_row="anakin_step", whole=True)
+  if any(name.startswith("cem_bucket_") for name in attribution["rows"]):
+    raise AssertionError(f"Anakin production's ledger: {attribution}")
+  emit("qtopt_anakin_attribution", card=smi, **attribution)
   result["production"] = {key: line[key] for key in (
       "steps", "env_steps_per_s", "train_steps_per_s",
       "steady_env_steps_per_s", "steady_train_steps_per_s",
       "first_dispatch_s", "capture_s", "peak_memory_gb")}
+  result["production"]["attribution"] = attribution
   result["production"]["idle_share"] = line["profiled_dispatch"][
       "idle_share"]
 
@@ -3765,6 +3901,22 @@ def run_qtopt_precision(torch, dev, seed: int, root: str, smi: str,
   quant = tpquant_bench.measure_tpquant(seed=seed, device=dev)
   quant["seconds"] = time.perf_counter() - start
   emit("qtopt_precision_int8", card=smi, **quant)
+  # The tier ledgers: every bucket built once at f32 and at each tier
+  # (the benches raise on this bar too; held here by name).
+  from tensor2robot_tpu_torch.obs.ledger import check_compile_ledger
+  result["tier_ledger"] = {}
+  for tier, run, buckets in (("bf16", bench, precision_bench.R14_BUCKETS),
+                             ("int8", quant, tpquant_bench.R17_BUCKETS)):
+    book = run["tier_ledger"]
+    check_compile_ledger(
+        book["compile_counts"],
+        require=[f"cem_bucket_{b}{suffix}" for b in buckets
+                 for suffix in ("", f"_{tier}")])
+    if not (book["per_tier_exactly_once"]
+            and set(book["tier_shares"]) == {"f32", tier}):
+      raise AssertionError(f"the {tier} tier ledger: {book}")
+    result["tier_ledger"][tier] = book
+  emit("qtopt_precision_tier_ledger", card=smi, **result["tier_ledger"])
   result["bf16_agreement"] = bench["agreement"]["overall_rate"]
   result["int8_agreement"] = quant["int8_agreement"]["overall_rate"]
   result["int8_bytes_reduction"] = quant["int8_bytes_reduction"]
@@ -3970,7 +4122,17 @@ def run_obs_loop(torch, dev, seed: int, root: str, smi: str) -> dict:
         "span_cost_share_of_window": (
             in_window * result["span_cost_us"]["inside_window"] / 1e3
             / spans["window_ms"]),
-        "compile_counts": run["compile_counts"]}
+        "compile_counts": run["compile_counts"],
+        # The JAX host loop's programs (tests/test_obs.py), and the health
+        # reductions where the monitor runs; the fused path's as in
+        # qtopt_device.
+        "attribution": check_attribution(
+            run["obs"]["attribution"],
+            require=(("train_step", "bellman_targets", "td_error",
+                      "health_summary") if path == "host"
+                     else ("megastep", "device_extend", "cem_bucket_*")),
+            forbid=() if path == "host" else ("train_step",),
+            mfu_row="train_step" if path == "host" else "megastep")}
     emit("obs_loop_path", card=smi, **line)
     learner_beats = (run["steps"] if path == "host"
                      else run["steps"] // run["megastep_inner"])

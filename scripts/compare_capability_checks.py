@@ -4,6 +4,8 @@
     python3 scripts/compare_capability_checks.py --side port --check vrgripper
     python3 scripts/compare_capability_checks.py --side jax --check qtopt \
         --knobs grasps=1500,steps=600,image=64
+    python3 scripts/compare_capability_checks.py --side port --check qtopt \
+        --knobs grasps=1500,steps=600,image=64 --device cuda
 
 Runs ``check_<check>`` of ``tensor2robot_tpu_torch/bin/
 run_capability_checks.py`` (``--side port``) or of
@@ -15,8 +17,10 @@ override on both sides); ``--seed-offset`` moves vrgripper's training
 randomness as the JAX check's argument of that name does;
 ``--port-init-from-jax`` starts the port's check from the JAX check's
 initial variables (grasp2vec, vrgripper), so that only the training
-differs. It compares the two packages' checks where a bar is in doubt;
-it times nothing on a device.
+differs. ``--device cuda`` runs the port's check on the GPU (the same
+records and draws as on the CPU; the default is the CPU). It compares the
+two packages' checks where a bar is in doubt; it times nothing on a
+device.
 """
 
 from __future__ import annotations
@@ -76,6 +80,8 @@ def main(argv=None) -> int:
   parser.add_argument("--port-init-from-jax", action="store_true")
   parser.add_argument("--threads", type=int, default=4,
                       help="the port's CPU threads")
+  parser.add_argument("--device", default="cpu",
+                      help="where the port's check runs: cpu or cuda")
   args = parser.parse_args(argv)
   kwargs = {"seed_offset": args.seed_offset} if args.seed_offset else {}
   start = time.perf_counter()
@@ -96,10 +102,11 @@ def main(argv=None) -> int:
         create = Trainer.create_train_state
         Trainer.create_train_state = (
             lambda self, v=None: create(self, variables))
-      result = checks._CHECKS[args.check](args.scale, workdir, "cpu",
-                                          **kwargs)
+      result = checks._CHECKS[args.check](args.scale, workdir,
+                                          args.device, **kwargs)
   print(json.dumps({
       "side": args.side, "check": args.check, "scale": args.scale,
+      "device": args.device if args.side == "port" else "cpu",
       "knobs": checks._SCALES[args.check][args.scale],
       "seed_offset": args.seed_offset,
       "port_init_from_jax": args.port_init_from_jax,

@@ -14,12 +14,12 @@ Counterpart of ``tensor2robot_tpu/obs``'s host spine:
   straggler detection;
 - ``health``: the training-health sentinel, escalating through the
   registry and the recorder, and the fleet's Q-drift report;
-- ``ledger``: the executable ledger (build counts, dispatches and their
-  time a program) and the shared exactly-once assertion.
+- ``ledger``: the executable ledger (build counts, dispatches, their time
+  and FLOPs a program; the replay loop's ``obs.attribution``) and the
+  shared exactly-once assertion.
 
 Fault injection, the fleet aggregator and the benches wait for
-``ROADMAP.md``'s flagship item 15c, the ledger's attribution through the
-loops for item 15b.
+``ROADMAP.md``'s flagship item 15c.
 """
 
 from tensor2robot_tpu_torch.obs.context import (

@@ -2,20 +2,41 @@
 
 Counterpart of ``tensor2robot_tpu/obs/ledger.py``. Every built program of
 the port (a CUDA graph a bucket of the fleet policy, the megastep, the
-Anakin period) keeps a ``compile_counts`` dict whose values the tests
-hold at exactly 1: built once, never rebuilt. The ledger gathers such
-counts in one place and joins them with dispatch counts and measured
-seconds into each program's share of the time.
+Anakin period, the device ring's functions, the Bellman label and TD
+closures, the host train step) keeps a ``compile_counts`` dict whose
+values the tests hold at exactly 1: built once, never rebuilt. The ledger
+gathers such counts in one place and joins them with dispatch counts and
+measured seconds into each program's share of the time; the replay loop
+owns one and hands it to every program it builds.
 
 A program registers with a name, a device label, its shapes and its
 scoring tier. A CUDA graph has no ``cost_analysis``, so ``register`` takes
 ``flops=`` and ``bytes=`` where the caller knows them and leaves them
-``None`` otherwise, as the JAX ledger does without a chip; the estimated
-MFU is then null.
+``None`` otherwise; the estimated MFU is then null. The loops count a
+dispatch's operations once, at build time, with
+``torch.utils.flop_counter.FlopCounterMode`` over one eager run of the
+body the graph captures, outside any capture (the mode counts this
+thread's operations, and runs them unchanged). Two differences from the
+JAX ledger's XLA ``cost_analysis``:
+
+- the port counts a whole dispatch: the megastep's count is K times one
+  learn iteration's, the Anakin period's the periods of a dispatch that
+  learns, so ``estimated_mfu`` is the dispatch's rate over the peak. XLA
+  counts a scanned body once, so the JAX figure is one iteration's;
+- ``FlopCounterMode`` counts matrix products and convolutions (forward
+  and backward); XLA's count adds the elementwise work, so the JAX figure
+  of a program is the larger. ``bytes`` stays ``None``.
 
 Timing: ``record_dispatch`` seconds are host seconds around the dispatch.
-The fleet policy's replay ends in a wait on its result, so its seconds are
-the replay and the copies through it.
+A call site that ends in a wait it already has (the fleet policy's copy
+out, the megastep's and the Anakin period's metrics readback, the Bellman
+closures' numpy readback, the health reductions' floats) records the
+device work and the copy back. A call site that fires and forgets (the
+device ring's host extend and priority write, the host train step)
+records its launches only, a lower bound. No call site adds a wait for
+the ledger. Shares are taken of the run's window; where threads overlap
+(collectors replaying ``cem_bucket_*`` while the learner dispatches) they
+can sum past 1.0, and nothing clips them.
 
 ``check_compile_ledger`` is the one shared assertion the smokes use: every
 program built exactly once.
@@ -189,9 +210,13 @@ class ExecutableLedger:
         "note": (
             "device_time_share = measured dispatch seconds / "
             "wall_seconds (host clock around each dispatch and the wait "
-            "on its result). estimated_mfu is null without a dispatch's "
-            "flops or a known peak; the H100's peak is its published "
-            "bf16 dense figure, not a measurement."),
+            "on its result; launches only where the call site waits for "
+            "nothing, a lower bound). Threads overlap, so shares can sum "
+            "past 1.0. flops_per_dispatch counts a whole dispatch's "
+            "matrix products and convolutions (FlopCounterMode); "
+            "estimated_mfu is null without them or a known peak; the "
+            "H100's peak is its published bf16 dense figure, not a "
+            "measurement."),
     }
 
 

@@ -62,8 +62,15 @@ graph; the env step, the extend, the gradients and the TD errors stay
 float32, and the loop still captures once. ``dtype`` names the scoring
 dtype.
 
-Refused by name: ``ledger=`` (the executable ledger, ``ROADMAP.md``'s
-flagship item 15b).
+**The ledger.** With ``ledger=`` (``obs/ledger.py``) the period's
+program registers as ``anakin_step`` (shapes ``{inner_steps, fleet,
+batch}``, the scoring tier) with the FLOPs of a dispatch whose periods all
+learn: the periods times what ``FlopCounterMode`` counted over the first
+eager period that learned. The card's graph is built after such a period
+(the capture needs one), so it registers at its build; the eager path
+builds at its first dispatch and registers once a period has learned.
+Each dispatch records its host seconds from its launch through the
+metrics readback, its one wait.
 """
 
 from __future__ import annotations
@@ -75,6 +82,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from tensor2robot_tpu_torch.obs import health as health_lib
 from tensor2robot_tpu_torch.obs import trace as trace_lib
@@ -169,7 +177,8 @@ class AnakinLoop(TargetNetwork):
     seed: keys every draw (see the module's docstring).
     polyak_tau: None copies the online variables on ``refresh``.
     precision: the scoring tier of acting and labels.
-    ledger: item 15b's executable ledger; refused.
+    ledger: an ``obs.ledger.ExecutableLedger``: ``anakin_step``'s build,
+      FLOPs and dispatch seconds (see the module's docstring).
     health: the learn adds ``health.SUMMARY_KEYS`` to the metrics, the
       spike keys reduced by their running max over the dispatch.
     graphs: on the card, replay the period's graph (False runs every
@@ -199,11 +208,6 @@ class AnakinLoop(TargetNetwork):
       health: bool = False,
       graphs: bool = True,
   ):
-    if ledger is not None:
-      raise NotImplementedError(
-          "AnakinLoop(ledger=) attributes the Anakin period's time in the "
-          "executable ledger (obs/ledger.py); the ledger's attribution "
-          "through the loops waits for ROADMAP.md's flagship item 15b.")
     if inner_steps < 1 or train_every < 1 or inner_steps % train_every:
       raise ValueError(
           f"inner_steps {inner_steps} must be a positive multiple of "
@@ -252,6 +256,9 @@ class AnakinLoop(TargetNetwork):
     self._warmed = False
     self._side_stream = None
     self.compile_counts: Dict[str, int] = {}
+    self._ledger = ledger
+    self._period_flops: Optional[float] = None  # a learning period's
+    self._unregistered = False  # a build the ledger has not seen yet
 
     n, steps, batch = env.num_envs, train_every, buffer.sample_batch_size
     self._noise_shape = (iterations, num_samples, action_size)
@@ -457,6 +464,33 @@ class AnakinLoop(TargetNetwork):
   def _count_build(self) -> None:
     self.compile_counts["anakin_step"] = (
         self.compile_counts.get("anakin_step", 0) + 1)
+    self._unregistered = True
+    self._register()
+
+  def _register(self) -> None:
+    """Enters a build in the ledger once a learning period's FLOPs are
+    known."""
+    if (self._ledger is None or not self._unregistered
+        or self._period_flops is None):
+      return
+    self._unregistered = False
+    self._ledger.register(
+        "anakin_step", device=self.device, dtype=self.precision,
+        shapes={"inner_steps": self.inner_steps,
+                "fleet": self._env.num_envs,
+                "batch": self._buffer.sample_batch_size},
+        flops=self.periods * self._period_flops)
+
+  def _eager_period(self, state, row: torch.Tensor, learn: bool) -> None:
+    """One period run eagerly; with a ledger, the first that learns
+    counts its FLOPs (outside any capture)."""
+    if not learn or self._ledger is None or self._period_flops is not None:
+      self._period(state, row, learn)
+      return
+    with FlopCounterMode(display=False) as flops:
+      self._period(state, row, learn)
+    self._period_flops = flops.get_total_flops()
+    self._register()
 
   def compiled(self, train_state):
     """Builds the dispatch program once and returns it: on the card the
@@ -489,9 +523,9 @@ class AnakinLoop(TargetNetwork):
         graph.replay()
       return
     if not self._graphs:
-      body = self.compiled(state)
+      self.compiled(state)
       for p, gate in enumerate(gates):
-        body(state, self._draws[p], gate)
+        self._eager_period(state, self._draws[p], gate)
       return
     # The card's eager dispatches run on a side stream, as the megastep's
     # first: the capture then finds cuDNN, cuBLAS and Adam's state warm.
@@ -502,7 +536,7 @@ class AnakinLoop(TargetNetwork):
     self._side_stream.wait_stream(current)
     with torch.cuda.stream(self._side_stream):
       for p, gate in enumerate(gates):
-        self._period(state, self._draws[p], gate)
+        self._eager_period(state, self._draws[p], gate)
     current.wait_stream(self._side_stream)
     self._warmed |= any(gates)
 
@@ -536,7 +570,10 @@ class AnakinLoop(TargetNetwork):
           torch.stack([self._carry[key] for key in self._keys]).double(),
           torch.stack([self.env_state.episodes,
                        self.env_state.successes]).double()]).cpu().tolist()
-    self.exec_seconds += time.perf_counter() - start
+    seconds = time.perf_counter() - start
+    self.exec_seconds += seconds
+    if self._ledger is not None:
+      self._ledger.record_dispatch("anakin_step", seconds)
     self._buffer.advance_host_counts(n * k)
     trained = sum(gates)
     self._outer += 1

@@ -31,17 +31,24 @@ the JAX package's names; each stays 1 for the updater's life.
 the CEM max. Targets, TD errors (priorities and the eval metric against
 Q*) and everything after the max stay float32 under every tier.
 
-The JAX updater's executable ledger and its multi-process target
-placement (``ROADMAP.md`` item 15b) are not ported; asking for them raises
-by name.
+**The ledger.** With ``ledger=`` (``obs/ledger.py``) the label closure
+registers as ``bellman_targets`` at the scoring tier and the TD closure
+as ``td_error`` at "f32", each with the FLOPs its first call counted
+(``FlopCounterMode``), and every call records its host seconds through its
+numpy readback, the wait the call already has.
+
+The JAX updater's multi-process target placement (``ROADMAP.md`` item
+15b-ii) is not ported; asking for it raises by name.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from tensor2robot_tpu_torch import Device, resolve_device
 from tensor2robot_tpu_torch.research.qtopt import cem
@@ -141,7 +148,7 @@ class TargetNetwork:
     polyak_tau: None copies on refresh; else target <- tau * online +
       (1 - tau) * target per refresh.
     sharding: the JAX package's mesh placement of the target; it waits
-      for ``ROADMAP.md``'s flagship item 15b and raises when given.
+      for ``ROADMAP.md``'s flagship item 15b-ii and raises when given.
     device: where the target lives; the GPU unless 'cpu' is asked for.
   """
 
@@ -150,7 +157,8 @@ class TargetNetwork:
     if sharding is not None:
       raise NotImplementedError(
           "TargetNetwork(sharding=) places the target over a mesh, which "
-          "waits for ROADMAP.md's flagship item 15b (the parallel tier).")
+          "waits for ROADMAP.md's flagship item 15b-ii (the loop over a "
+          "mesh).")
     self.device = resolve_device(device)
     self._polyak_tau = polyak_tau
     self._target_variables = (None if variables is None
@@ -222,7 +230,8 @@ class BellmanUpdater(TargetNetwork):
       of the max.
     seed: with the label seed, fixes each state's CEM draws.
     polyak_tau: None = hard copy on refresh().
-    ledger: the JAX package's executable ledger; waits for item 15b.
+    ledger: an ``obs.ledger.ExecutableLedger`` the label and TD closures
+      register into and record their calls in.
     precision: the CEM scoring tier of the labels (TD errors stay
       float32).
     device: where labels and TD errors are computed; the GPU unless
@@ -234,11 +243,6 @@ class BellmanUpdater(TargetNetwork):
                num_elites: int = 4, iterations: int = 2, seed: int = 0,
                polyak_tau: Optional[float] = None, ledger=None,
                precision: str = "f32", device: Device = None):
-    if ledger is not None:
-      raise NotImplementedError(
-          "BellmanUpdater(ledger=) attributes the label programs' time in "
-          "the executable ledger (obs/ledger.py); the ledger's attribution "
-          "through the loops waits for ROADMAP.md's flagship item 15b.")
     super().__init__(variables, polyak_tau=polyak_tau, device=device)
     self.precision = cem.validate_precision(precision)
     self._model = model
@@ -252,6 +256,8 @@ class BellmanUpdater(TargetNetwork):
                                  "cross_entropy") == "cross_entropy"
     # closure name -> builds; every value stays 1 for the updater's life.
     self.compile_counts: Dict[str, int] = {}
+    self._ledger = ledger
+    self._registered = set()  # the closures the ledger holds
     self._targets_fn = None
     self._td_fn = None
     self._next_label_seed = 0
@@ -259,6 +265,30 @@ class BellmanUpdater(TargetNetwork):
   def _build(self, name: str, fn):
     self.compile_counts[name] = self.compile_counts.get(name, 0) + 1
     return fn
+
+  def _call(self, name: str, dtype: str, fn, *args) -> Tuple[np.ndarray,
+                                                             ...]:
+    """Runs closure `name` on `args` and reads its outputs back as numpy.
+    With a ledger, its first call counts its FLOPs and registers it (the
+    closure's one build), and every call records its seconds through the
+    readback."""
+    ledger = self._ledger
+    first = ledger is not None and name not in self._registered
+    start = time.perf_counter()
+    with torch.inference_mode():
+      if first:
+        with FlopCounterMode(display=False) as flops:
+          outputs = fn(*args)
+      else:
+        outputs = fn(*args)
+      outputs = tuple(t.cpu().numpy() for t in outputs)
+    if ledger is not None:
+      if first:
+        self._registered.add(name)
+        ledger.register(name, device=self.device, dtype=dtype,
+                        flops=flops.get_total_flops())
+      ledger.record_dispatch(name, time.perf_counter() - start)
+    return outputs
 
   def _tensor(self, array, dtype: Optional[torch.dtype] = None
               ) -> torch.Tensor:
@@ -304,10 +334,9 @@ class BellmanUpdater(TargetNetwork):
                                          self._num_elites, self._iterations,
                                          self._clip_targets,
                                          precision=self.precision))
-    with torch.inference_mode():
-      targets, q_next = self._targets_fn(self._target_variables, next_images,
-                                         rewards, dones, noise)
-    return targets.cpu().numpy(), q_next.cpu().numpy()
+    return self._call("bellman_targets", self.precision, self._targets_fn,
+                      self._target_variables, next_images, rewards, dones,
+                      noise)
 
   @property
   def next_label_seed(self) -> int:
@@ -326,7 +355,7 @@ class BellmanUpdater(TargetNetwork):
                                              "action": actions.float()})
       q = q_value_from_logits(outputs["q_predicted"].reshape(-1),
                               self._clip_targets)
-      return torch.abs(q - targets.float())
+      return (torch.abs(q - targets.float()),)
 
     return td_fn
 
@@ -337,8 +366,7 @@ class BellmanUpdater(TargetNetwork):
     eval metric (held-out batch)."""
     if self._td_fn is None:
       self._td_fn = self._build("td_error", self._build_td_fn())
-    with torch.inference_mode():
-      td = self._td_fn(variables, self._tensor(batch["image"]),
-                       self._tensor(batch["action"]),
-                       self._tensor(targets))
-    return td.cpu().numpy()
+    td, = self._call("td_error", "f32", self._td_fn, variables,
+                     self._tensor(batch["image"]),
+                     self._tensor(batch["action"]), self._tensor(targets))
+    return td

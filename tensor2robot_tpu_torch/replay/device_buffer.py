@@ -43,18 +43,33 @@ stage's CEM at the tier (``research/qtopt/cem.py``), its casts inside the
 captured graph over the target net's float32 tensors; the train step, the
 TD errors and the priorities stay float32.
 
-Not ported, and refused by name: a mesh with capacity sharding and the
-executable ledger (``ROADMAP.md``'s flagship item 15b).
+**The ledger.** ``DeviceReplayBuffer(ledger=)`` registers each ring
+function at its first use (``device_extend``, ``device_sample``,
+``device_update_priorities_n<N>``, shapes ``{capacity, chunk, batch}``)
+and records each host call's seconds: ``sample`` through its readback,
+``extend`` and ``update_priorities`` their launches only, a lower bound
+(they fire and forget). ``MegastepLearner(ledger=)`` registers
+``megastep`` at each build (shapes ``{inner_steps, batch}``, the scoring
+tier, the FLOPs of a dispatch: K times those of the first learn
+iteration of one eager dispatch, the graphed path's warm-up or the eager
+path's first) and records each dispatch from its launch through the
+metrics readback, its one wait.
+
+Not ported, and refused by name: a mesh with capacity sharding
+(``ROADMAP.md``'s flagship item 15b-ii).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
+import time
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from tensor2robot_tpu_torch import Device, resolve_device
 from tensor2robot_tpu_torch.obs import health as health_lib
@@ -190,10 +205,13 @@ class DeviceReplayBuffer:
   reading them never waits on the card.
 
   Args:
-    mesh / data_axis / ledger: the JAX buffer's capacity sharding over a
-      mesh and its executable ledger; they wait for ``ROADMAP.md``'s
-      flagship item 15b and raise when given. ``shard_capacity`` has
-      nothing to shard on one device.
+    mesh / data_axis: the JAX buffer's capacity sharding over a mesh; they
+      wait for ``ROADMAP.md``'s flagship item 15b-ii and raise when given.
+      ``shard_capacity`` has nothing to shard on one device.
+    ledger: an ``obs.ledger.ExecutableLedger`` each ring function
+      registers into at its first use; each host call records its seconds
+      (``extend`` and ``update_priorities`` their launches only, a lower
+      bound: they do not wait for the card).
     device: where the ring lives; the GPU unless 'cpu' is asked for.
   """
 
@@ -214,13 +232,11 @@ class DeviceReplayBuffer:
       device: Device = None,
   ):
     del shard_capacity  # one device holds the whole ring
-    if mesh is not None or data_axis != "data" or ledger is not None:
+    if mesh is not None or data_axis != "data":
       raise NotImplementedError(
-          "DeviceReplayBuffer(mesh=, data_axis=, ledger=) shards the ring "
-          "over a mesh and attributes its programs' time in the executable "
-          "ledger (obs/ledger.py) through the loops, which wait for "
-          "ROADMAP.md's flagship item 15b (the parallel tier and the "
-          "ledger's attribution through the loops).")
+          "DeviceReplayBuffer(mesh=, data_axis=) shards the ring over a "
+          "mesh, which waits for ROADMAP.md's flagship item 15b-ii (the "
+          "loop over a mesh).")
     if capacity < 1:
       raise ValueError(f"capacity must be >= 1, got {capacity}")
     if sample_batch_size < 1:
@@ -247,6 +263,7 @@ class DeviceReplayBuffer:
     # ring function -> first uses; tests assert every value is 1.
     self.compile_counts: Dict[str, int] = {}
     self._fns: Dict[str, Callable] = {}
+    self._ledger = ledger
     self._state = self._init_state()
 
   def _init_state(self) -> DeviceReplayState:
@@ -306,7 +323,16 @@ class DeviceReplayBuffer:
     if name not in self._fns:
       self._fns[name] = build()
       self.compile_counts[name] = self.compile_counts.get(name, 0) + 1
+      if self._ledger is not None:
+        self._ledger.register(
+            name, device=self.device,
+            shapes={"capacity": self.capacity, "chunk": self.ingest_chunk,
+                    "batch": self.sample_batch_size})
     return self._fns[name]
+
+  def _record(self, name: str, start: float) -> None:
+    if self._ledger is not None:
+      self._ledger.record_dispatch(name, time.perf_counter() - start)
 
   def extend_fn(self) -> Callable:
     """(state, {key: (chunk, *shape) tensor}) -> state: one fixed-chunk
@@ -445,7 +471,9 @@ class DeviceReplayBuffer:
   def _write_chunk_locked(self, chunk) -> None:
     with trace_lib.span("extend/device_chunk", chunk=self.ingest_chunk), \
         torch.no_grad():
+      start = time.perf_counter()
       self._fn("device_extend", self.extend_fn)(self._state, chunk)
+      self._record("device_extend", start)
     self._next = (self._next + self.ingest_chunk) % self.capacity
     self._size = min(self._size + self.ingest_chunk, self.capacity)
     self._appended += self.ingest_chunk
@@ -507,14 +535,17 @@ class DeviceReplayBuffer:
                                  device=self.device)
       uniforms = torch.tensor(np.asarray(draws[1], np.float32),
                               device=self.device)
+      start = time.perf_counter()
       with torch.no_grad():
         batch, indices, probabilities, staleness = self._fn(
             "device_sample", self.sample_fn)(self._state, uniform_idx,
                                              uniforms)
       batch = {key: value.cpu().numpy() for key, value in batch.items()}
-    return ts.TensorSpecStruct(batch), SampleInfo(
-        indices=indices.cpu().numpy(), staleness=staleness.cpu().numpy(),
-        probabilities=probabilities.cpu().numpy())
+      info = SampleInfo(indices=indices.cpu().numpy(),
+                        staleness=staleness.cpu().numpy(),
+                        probabilities=probabilities.cpu().numpy())
+      self._record("device_sample", start)
+    return ts.TensorSpecStruct(batch), info
 
   def update_priorities(self, indices, td_errors) -> None:
     """The host surface of ``update_priorities_fn`` (one ring function per
@@ -525,9 +556,11 @@ class DeviceReplayBuffer:
                               device=self.device)
     td = torch.as_tensor(np.asarray(td_errors, np.float32).reshape(-1),
                          device=self.device)
+    name = f"device_update_priorities_n{indices.shape[0]}"
     with self._lock, torch.no_grad():
-      self._fn(f"device_update_priorities_n{indices.shape[0]}",
-               self.update_priorities_fn)(self._state, indices, td)
+      start = time.perf_counter()
+      self._fn(name, self.update_priorities_fn)(self._state, indices, td)
+      self._record(name, start)
 
   def priorities(self, indices) -> np.ndarray:
     """Leaf priorities at `indices`, host float32."""
@@ -596,12 +629,12 @@ def make_learn_iteration_fn(model, step_fn, sample, update_priorities,
   ``health.SUMMARY_KEYS``; `step_fn` must then add ``grad_norm`` and
   ``grads_nonfinite`` (``train_step(with_health=True)``).
   `constrain_batch` re-shards the batch over a mesh, which waits for
-  ``ROADMAP.md``'s flagship item 15b.
+  ``ROADMAP.md``'s flagship item 15b-ii.
   """
   if constrain_batch is not None:
     raise NotImplementedError(
         "make_learn_iteration_fn(constrain_batch=) lays the batch over a "
-        "mesh, which waits for ROADMAP.md's flagship item 15b.")
+        "mesh, which waits for ROADMAP.md's flagship item 15b-ii.")
 
   def learn(train_state, buffer_state, target_variables, sample_draws,
             label_noise):
@@ -705,8 +738,11 @@ class MegastepLearner(TargetNetwork):
 
   The train state must live on the learner's device, its optimizer
   graphable (``trainer.check_graphable``: Adam needs ``capturable=True``).
-  `precision` is the label stage's scoring tier; `ledger` waits for
-  item 15b.
+  `precision` is the label stage's scoring tier. `ledger` (an
+  ``obs.ledger.ExecutableLedger``) gets ``megastep`` at each build, with
+  a dispatch's FLOPs (K times one eager iteration's, counted in the
+  warm-up on the card), and each dispatch's host seconds from its launch
+  through the metrics readback.
   """
 
   def __init__(
@@ -727,11 +763,6 @@ class MegastepLearner(TargetNetwork):
       health: bool = False,
       graphs: bool = True,
   ):
-    if ledger is not None:
-      raise NotImplementedError(
-          "MegastepLearner(ledger=) attributes the megastep's time in the "
-          "executable ledger (obs/ledger.py); the ledger's attribution "
-          "through the loops waits for ROADMAP.md's flagship item 15b.")
     if inner_steps < 1:
       raise ValueError(f"inner_steps must be >= 1, got {inner_steps}")
     if trainer.device != buffer.device:
@@ -759,6 +790,9 @@ class MegastepLearner(TargetNetwork):
                                  "cross_entropy") == "cross_entropy"
     self.health = bool(health)
     self.compile_counts: Dict[str, int] = {}
+    self._ledger = ledger
+    self._flops: Optional[float] = None  # one dispatch's, once counted
+    self._unregistered = False  # a build the ledger has not seen yet
     self._learn = None
     self._keys: List[str] = []
     self._graph: Optional[_MegastepGraph] = None
@@ -823,19 +857,26 @@ class MegastepLearner(TargetNetwork):
         getattr(self._model, "target_key", "target_q"), self._clip_targets,
         health_entropy_fn=buffer.priority_entropy_fn() if health else None)
 
-  def _iterations(self, state, draws: torch.Tensor):
+  def _iterations(self, state, draws: torch.Tensor, count: bool = False):
     """One learn iteration for each row of `draws` (steps, B, W); returns
-    the state and the metrics vector (``_keys`` order) reduced over them."""
+    the state and the metrics vector (``_keys`` order) reduced over them.
+    With `count`, the first iteration's FLOPs times the rows (every
+    iteration runs the same operations at the same shapes) become the
+    dispatch's."""
     if self._learn is None:
       self._learn = self._build_learn()
     batch = self._buffer.sample_batch_size
     noise_shape = (batch, self._iterations_cem, self._num_samples,
                    self._action_size)
     per_step = []
-    for row in draws:
-      state, _, metrics = self._learn(
-          state, self._buffer.state, self._target_variables,
-          (row[:, 0].long(), row[:, 1]), row[:, 2:].reshape(noise_shape))
+    for i, row in enumerate(draws):
+      with (FlopCounterMode(display=False) if count and i == 0
+            else contextlib.nullcontext()) as flops:
+        state, _, metrics = self._learn(
+            state, self._buffer.state, self._target_variables,
+            (row[:, 0].long(), row[:, 1]), row[:, 2:].reshape(noise_shape))
+      if flops is not None:
+        self._flops = len(draws) * flops.get_total_flops()
       per_step.append(metrics)
     self._keys = list(per_step[0])
     reduced = health_lib.reduce_scanned_metrics(
@@ -873,6 +914,30 @@ class MegastepLearner(TargetNetwork):
   def _count_build(self) -> None:
     self.compile_counts["megastep"] = (
         self.compile_counts.get("megastep", 0) + 1)
+    self._unregistered = True
+    self._register()
+
+  def _register(self) -> None:
+    """Enters a build in the ledger once its dispatch's FLOPs are known
+    (the eager path builds before its first dispatch counts them)."""
+    if (self._ledger is None or not self._unregistered
+        or self._flops is None):
+      return
+    self._unregistered = False
+    self._ledger.register(
+        "megastep", device=self.device, dtype=self.precision,
+        shapes={"inner_steps": self.inner_steps,
+                "batch": self._buffer.sample_batch_size},
+        flops=self._flops)
+
+  def _eager_dispatch(self, state) -> torch.Tensor:
+    """The K iterations run eagerly; the first such dispatch with a ledger
+    counts its FLOPs (outside any capture)."""
+    count = self._ledger is not None and self._flops is None
+    vector = self._iterations(state, self._draws, count=count)[1]
+    if count:
+      self._register()
+    return vector
 
   def compiled(self, train_state):
     """Builds the dispatch program once and returns it: on the card the
@@ -898,7 +963,7 @@ class MegastepLearner(TargetNetwork):
     """K iterations on the staged draws; returns the metrics vector."""
     if not self._graphs:
       self.compiled(state)
-      return self._iterations(state, self._draws)[1]
+      return self._eager_dispatch(state)
     trainer_lib.check_graphable(state.opt_state)
     if self._side_stream is None:
       self._side_stream = torch.cuda.Stream(self.device)
@@ -906,7 +971,7 @@ class MegastepLearner(TargetNetwork):
     if not self._warmed:
       self._side_stream.wait_stream(current)
       with torch.cuda.stream(self._side_stream):
-        vector = self._iterations(state, self._draws)[1]
+        vector = self._eager_dispatch(state)
       current.wait_stream(self._side_stream)
       self._warmed = True
       return vector
@@ -920,6 +985,7 @@ class MegastepLearner(TargetNetwork):
     slot = self._outer % 2
     with trace_lib.span("learn/megastep", k=self.inner_steps):
       self._stage_draws(slot)
+      start = time.perf_counter()
       vector = self._dispatch(state)
     k, batch = self.inner_steps, self._buffer.sample_batch_size
     self._outer += 1
@@ -927,5 +993,7 @@ class MegastepLearner(TargetNetwork):
     # While the card works: the next dispatch's CEM noise.
     self._fill_noise(1 - slot, self._label_seed)
     values = vector.cpu().tolist()
+    if self._ledger is not None:
+      self._ledger.record_dispatch("megastep", time.perf_counter() - start)
     state = dataclasses.replace(state, step=state.step + k)
     return state, dict(zip(self._keys, values))

@@ -24,13 +24,26 @@ a snapshot of the EMA variables:
   graphs on the card), or, with ``anakin``, the fused loop
   (``anakin.AnakinLoop``: the env, acting, the extend and the learner all
   on the card, no collector threads), and returns the JAX result's keys;
-  its ``obs`` block carries the spans' ``trace_stage_counts`` (the JAX
-  block's executable attribution waits for item 15b's ledger).
+  its ``obs`` block carries the executable ledger's ``attribution`` and
+  the spans' ``trace_stage_counts``.
   With ``vector_actors`` one ``actor.VectorActor`` steps every env through
   one bucket pinned to the fleet; with ``checkpoint_every`` it saves the
   train state with a sidecar (target net, ring, counters, eval history,
   health baselines) and with ``resume`` continues from the newest valid
   one at its exact step; ``profile_window`` traces a range of steps.
+
+**The executable ledger.** Each loop owns one ``obs_ledger``
+(``obs/ledger.py``) and hands it to every program it builds: the host
+train step (``train_step``, its seconds the train stage of
+``learner_bench.host_learner_step``) and the parameters' health
+reductions (``health_summary``), the Bellman updater's closures, the
+device ring's functions, the megastep, the Anakin period and the acting
+buckets. Each registers once a build with its FLOPs and records its
+dispatches; the result's ``compile_counts`` (the JAX keys) and
+``obs.attribution`` (each program's dispatches, seconds, share of the
+run's window from the start of ``run``, FLOPs, estimated MFU, and the
+shares by scoring tier) both read it. The ledger is per run and is not
+checkpointed.
 
 **The obs spine.** Each loop owns a flight recorder dumping into its
 logdir (attached to the process tracer for the run) and takes the process
@@ -52,25 +65,29 @@ copy-out. The collectors' bucket is captured before their threads start,
 so no capture ever runs beside another thread's launches.
 
 Not ported, and named where asked for: the mesh and the checkpoints'
-mesh stamp (item 15b), and the fault seam (``fault_plan=``; item 15c).
+mesh stamp (item 15b-ii), and the fault seam (``fault_plan=``; item 15c).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import shutil
 import threading
+import time
 import types
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from tensor2robot_tpu_torch import Device, modes
 from tensor2robot_tpu_torch.obs import flight_recorder as flight_lib
 from tensor2robot_tpu_torch.obs import health as health_lib
+from tensor2robot_tpu_torch.obs import ledger as ledger_lib
 from tensor2robot_tpu_torch.obs import registry as registry_lib
 from tensor2robot_tpu_torch.obs import trace as trace_lib
 from tensor2robot_tpu_torch.obs import watchdog as watchdog_lib
@@ -250,9 +267,9 @@ class CollectorWorker:
 # Options whose paths wait for a later ROADMAP.md item, with their defaults:
 # a config that asks for one raises by name.
 _WAITING = {
-    "mesh_dp": (0, "item 15b (the loop's parallel tier)"),
-    "mesh_tp": (1, "item 15b (the loop's parallel tier)"),
-    "zero1": (None, "item 15b (the loop's parallel tier)"),
+    "mesh_dp": (0, "item 15b-ii (the loop over a mesh)"),
+    "mesh_tp": (1, "item 15b-ii (the loop over a mesh)"),
+    "zero1": (None, "item 15b-ii (the loop over a mesh)"),
 }
 
 
@@ -484,6 +501,10 @@ class ReplayTrainLoop:
     self.config = config
     self.logdir = logdir
     self.model = model if model is not None else self._default_model()
+    # Every program the loop builds registers here (see the docstring).
+    self.obs_ledger = ledger_lib.ExecutableLedger()
+    self._run_started = None
+    self._health_registered = False
     self.registry = registry_lib.get_registry()
     self.recorder = flight_recorder or flight_lib.FlightRecorder(
         dump_dir=logdir)
@@ -519,7 +540,7 @@ class ReplayTrainLoop:
       self.buffer = DeviceReplayBuffer(
           spec, config.capacity, config.batch_size, seed=config.seed,
           prioritized=config.prioritized, ingest_chunk=chunk,
-          device=self.trainer.device)
+          ledger=self.obs_ledger, device=self.trainer.device)
     elif config.num_buffer_shards > 1:
       self.buffer = ShardedReplayBuffer(
           spec, config.capacity, config.batch_size,
@@ -533,8 +554,6 @@ class ReplayTrainLoop:
                                  registry=self.registry,
                                  flight_recorder=self.recorder)
     self.feeder = ReplayFeeder(self.queue, self.buffer, config.min_fill)
-    # name -> builds of the loop's own programs; each stays 1.
-    self.compile_counts: Dict[str, int] = {}
     self._collectors: List = []
     self._ckpt_manager = None
     self._saved_step = None
@@ -562,9 +581,6 @@ class ReplayTrainLoop:
         optimizer_fn=optimizers.create_adam_optimizer(c.learning_rate),
         **c.model_kwargs)
 
-  def _built(self, name: str) -> None:
-    self.compile_counts[name] = self.compile_counts.get(name, 0) + 1
-
   @staticmethod
   def _host_variables(state) -> Dict[str, torch.Tensor]:
     """A detached clone of the EMA variables on their device: the learner
@@ -588,7 +604,7 @@ class ReplayTrainLoop:
         predictor, action_size=c.action_size,
         num_samples=c.cem_num_samples, num_elites=c.cem_num_elites,
         iterations=c.cem_iterations, seed=c.seed + 7, ladder=ladder,
-        precision=c.precision)
+        ledger=self.obs_ledger, precision=c.precision)
 
   def _eval(self, updater: BellmanUpdater, variables, eval_batches,
             eval_q_stars) -> Dict[str, float]:
@@ -663,19 +679,48 @@ class ReplayTrainLoop:
       errors = self._shutdown_collectors()
     return errors
 
-  def _ledger(self, updater, policy, *builds) -> Dict[str, int]:
-    """Every program's builds: the loop's, `builds`' (the megastep's or
-    the Anakin loop's, and the device ring's), the updater's under the JAX
-    names and the acting buckets' (the Anakin path has no `policy`)."""
-    ledger = dict(self.compile_counts)
-    for counts in builds:
-      ledger.update(counts)
-    ledger.update({k if k.startswith("bellman") else f"bellman_{k}": v
-                   for k, v in updater.compile_counts.items()})
-    if policy is not None:
-      ledger.update({f"cem_bucket_{k}": v
-                     for k, v in sorted(policy.compile_counts.items())})
-    return ledger
+  def _compile_counts(self) -> Dict[str, int]:
+    """The result's ``compile_counts``: every program's builds, read from
+    the one ledger under the JAX loop's keys (the TD closure as
+    ``bellman_td_error``, an acting bucket as ``cem_bucket_<b>`` at every
+    tier)."""
+    counts = {}
+    for name, builds in self.obs_ledger.compile_counts.items():
+      if name == "td_error":
+        name = "bellman_td_error"
+      elif name.startswith("cem_bucket_"):
+        name = "cem_bucket_" + name.split("_")[2]
+      counts[name] = builds
+    return counts
+
+  def _train_clock(self):
+    """``host_learner_step``'s clock: its train stage is the ledger's
+    ``train_step``, registered at the run's first (whose FLOPs it counts)
+    and recorded at each. On the card the stage returns once the step is
+    launched, so its seconds are a lower bound."""
+    ledger, batch = self.obs_ledger, self.config.batch_size
+    device = self.trainer.device
+    registered = False
+
+    @contextlib.contextmanager
+    def clock(stage: str):
+      nonlocal registered
+      if stage != "train":
+        yield
+        return
+      start = time.perf_counter()
+      if registered:
+        yield
+      else:
+        with FlopCounterMode(display=False) as flops:
+          yield
+        registered = True
+        ledger.register("train_step", device=device,
+                        shapes={"batch": batch},
+                        flops=flops.get_total_flops())
+      ledger.record_dispatch("train_step", time.perf_counter() - start)
+
+    return clock
 
   def _emit(self, step: int, scalars: Dict[str, float]) -> None:
     """One metric record through the registry: the block's gauges are
@@ -706,14 +751,21 @@ class ReplayTrainLoop:
       hook.after_step(shim, {})
 
   def _host_param_health(self, state) -> Dict[str, float]:
-    """The parameters' non-finite count and global norm."""
-    if "health_summary" not in self.compile_counts:
-      self._built("health_summary")
+    """The parameters' non-finite count and global norm
+    (``health_summary`` in the ledger, its seconds through the readback
+    of the two floats)."""
+    if not self._health_registered:
+      self._health_registered = True
+      self.obs_ledger.register("health_summary", device=self.trainer.device)
+    start = time.perf_counter()
     with torch.no_grad():
-      nonfinite = health_lib.tree_nonfinite_count(state.params)
-      norm = health_lib.tree_global_norm(state.params)
-    return {"health/nonfinite_params": float(nonfinite),
-            "health/param_norm": float(norm)}
+      summary = {"health/nonfinite_params": float(
+                     health_lib.tree_nonfinite_count(state.params)),
+                 "health/param_norm": float(
+                     health_lib.tree_global_norm(state.params))}
+    self.obs_ledger.record_dispatch("health_summary",
+                                    time.perf_counter() - start)
+    return summary
 
   def _wait_for_min_fill(self) -> None:
     """Gates the first optimizer step on the ring's min_fill, polling
@@ -741,18 +793,27 @@ class ReplayTrainLoop:
           f"{e.description} (reached size={self.buffer.size})",
           e.waited_s, e.attempts) from None
 
+  def _obs_block(self) -> Dict:
+    """Each program's share of the run's window, from the start of
+    ``run``, and the spans' stage counts."""
+    device = self.trainer.device
+    return {
+        "attribution": self.obs_ledger.attribution(
+            wall_seconds=time.perf_counter() - self._run_started,
+            device_kind=(torch.cuda.get_device_name(device)
+                         if device.type == "cuda" else "cpu")),
+        "trace_stage_counts": trace_lib.get_tracer().stage_counts(),
+    }
+
   def _assemble_result(self, steps: int, initial_eval, eval_history,
-                       ledger, param_refreshes: int, **extra) -> Dict:
-    """The JAX loop's result schema, every path's; its ``obs`` block
-    carries the spans' stage counts (the JAX block's executable
-    attribution waits for item 15b's ledger)."""
+                       param_refreshes: int, **extra) -> Dict:
+    """The JAX loop's result schema, every path's."""
     final_eval = eval_history[-1]
     reduction = 1.0 - (final_eval["eval_td_error"]
                        / max(initial_eval["eval_td_error"], 1e-9))
     episodes = sum(c_.episodes for c_ in self._collectors)
     return {
-        "obs": {"trace_stage_counts":
-                    trace_lib.get_tracer().stage_counts()},
+        "obs": self._obs_block(),
         "health": (self.health_monitor.snapshot()
                    if self.health_monitor is not None else None),
         "steps": steps,
@@ -761,7 +822,7 @@ class ReplayTrainLoop:
                        if key != "step"},
         "eval_history": eval_history,
         "eval_td_reduction": round(reduction, 4),
-        "compile_counts": ledger,
+        "compile_counts": self._compile_counts(),
         "queue": self.queue.stats(),
         "buffer": self.buffer.metrics(),
         "episodes_collected": episodes,
@@ -946,6 +1007,7 @@ class ReplayTrainLoop:
     host path, once a dispatch on the fused paths); all are taken off on
     the way out, so a finished loop never reads as stalled. An exception
     triggers the recorder, then propagates."""
+    self._run_started = time.perf_counter()
     tracer = trace_lib.get_tracer()
     self.recorder.attach(tracer)
     self._learner_hb = self.watchdog.register("replay/learner")
@@ -993,7 +1055,7 @@ class ReplayTrainLoop:
         gamma=c.gamma, num_samples=c.cem_num_samples,
         num_elites=c.cem_num_elites, iterations=c.cem_iterations,
         seed=c.seed + 13, polyak_tau=c.polyak_tau, precision=c.precision,
-        device=self.trainer.device)
+        ledger=self.obs_ledger, device=self.trainer.device)
     if resume_meta is not None:
       # The constructor seeded the target with the restored online
       # variables: re-seat the lagged target and the label-seed counter,
@@ -1015,16 +1077,15 @@ class ReplayTrainLoop:
       initial_eval, eval_history = self._eval_baseline(
           updater, state, eval_batches, eval_q_stars, resume_meta)
       with_health = self.health_monitor is not None
+      clock = self._train_clock()
       for step in range(start_step + 1, num_steps + 1):
         with trace_lib.span("extend/drain"):
           self.feeder.drain()
         self._feeder_hb.beat()
         state, metrics, td, targets, q_next, info = host_learner_step(
-            self.trainer, updater, self.buffer, state,
+            self.trainer, updater, self.buffer, state, clock=clock,
             with_health=with_health)
         self._learner_hb.beat()
-        if step == start_step + 1:
-          self._built("train_step")
         self._profile_step(profile_hook, step)
         if with_health:
           snapshot_fn = None
@@ -1084,7 +1145,6 @@ class ReplayTrainLoop:
       collector_errors = self._stop(profile_hook, num_steps)
     _raise_first(collector_errors)
     return self._assemble_result(num_steps, initial_eval, eval_history,
-                                 self._ledger(updater, policy),
                                  param_refreshes=updater.refresh_count)
 
   def _megastep_learner(self):
@@ -1097,8 +1157,8 @@ class ReplayTrainLoop:
         gamma=c.gamma, num_samples=c.cem_num_samples,
         num_elites=c.cem_num_elites, iterations=c.cem_iterations,
         inner_steps=c.megastep_inner, seed=c.seed + 13,
-        polyak_tau=c.polyak_tau, precision=c.precision,
-        health=self.health_monitor is not None)
+        polyak_tau=c.polyak_tau, ledger=self.obs_ledger,
+        precision=c.precision, health=self.health_monitor is not None)
 
   @staticmethod
   def _fused_health_summary(metrics: Dict[str, float]) -> Dict[str, float]:
@@ -1131,7 +1191,8 @@ class ReplayTrainLoop:
         self.model, None, action_size=c.action_size, gamma=c.gamma,
         num_samples=c.cem_num_samples, num_elites=c.cem_num_elites,
         iterations=c.cem_iterations, seed=c.seed + 13,
-        precision=c.precision, device=self.trainer.device)
+        precision=c.precision, ledger=self.obs_ledger,
+        device=self.trainer.device)
     learner = self._megastep_learner()
     # The cold start's target is the initial online copy: refresh 0, not a
     # loop refresh.
@@ -1205,8 +1266,6 @@ class ReplayTrainLoop:
     _raise_first(collector_errors)
     return self._assemble_result(
         num_outer * k, initial_eval, eval_history,
-        self._ledger(updater, policy, learner.compile_counts,
-                     self.buffer.compile_counts),
         param_refreshes=learner.refresh_count - 1,  # less the cold start
         device_resident=True, megastep_inner=k)
 
@@ -1237,8 +1296,8 @@ class ReplayTrainLoop:
         train_every=c.anakin_train_every, min_fill=c.min_fill,
         exploration_epsilon=c.exploration_epsilon,
         scripted_fraction=c.scripted_fraction, seed=c.seed + 13,
-        polyak_tau=c.polyak_tau, precision=c.precision,
-        health=self.health_monitor is not None)
+        polyak_tau=c.polyak_tau, ledger=self.obs_ledger,
+        precision=c.precision, health=self.health_monitor is not None)
 
   def _run_anakin(self, num_steps: int) -> Dict:
     """The Anakin path: the env, acting, the extend and the learner on the
@@ -1249,7 +1308,7 @@ class ReplayTrainLoop:
     multiple. It stops once `num_steps` optimizer steps have run: the
     dispatches before ``min_fill`` collect without training, so their
     number adapts. The JAX result's ``param_sharding`` belongs to the mesh
-    (item 15b) and is left out."""
+    (item 15b-ii) and is left out."""
     c = self.config
     total_envs = c.num_collectors * c.envs_per_collector
     state = self.trainer.create_train_state()
@@ -1260,7 +1319,8 @@ class ReplayTrainLoop:
         self.model, None, action_size=c.action_size, gamma=c.gamma,
         num_samples=c.cem_num_samples, num_elites=c.cem_num_elites,
         iterations=c.cem_iterations, seed=c.seed + 13,
-        precision=c.precision, device=self.trainer.device)
+        precision=c.precision, ledger=self.obs_ledger,
+        device=self.trainer.device)
     loop = self._anakin_loop()
     loop.refresh(host_variables, step=0)  # the cold start, not a refresh
     resume_step, resume_meta = 0, None
@@ -1333,8 +1393,6 @@ class ReplayTrainLoop:
       self.writer.close()
     return self._assemble_result(
         loop.trained_steps, initial_eval, eval_history,
-        self._ledger(updater, None, loop.compile_counts,
-                     self.buffer.compile_counts),
         param_refreshes=loop.refresh_count - 1,  # less the cold start
         device_resident=True, anakin=True, anakin_inner=c.anakin_inner,
         anakin_train_every=c.anakin_train_every, mesh_shape=loop.mesh_shape,

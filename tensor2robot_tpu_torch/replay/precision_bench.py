@@ -28,10 +28,14 @@ Its phases:
    and the fleet serves it, with one build a bucket a replica a tier in
    the router's ledger. ``tpquant_bench`` runs the same cycle at int8.
 
-The JAX bench's per-tier ledger phase (its attribution of time by tier
-through the loops) waits for ``ROADMAP.md``'s flagship item 15b: asking
-for it (``measure_precision(skip_waiting=False)``) raises by name. The
-default runs phases 1 and 2.
+**The tier ledger.** Phase 1's paired policies share one executable
+ledger (``obs/ledger.py``; the seed-noise control stays off it, or it
+would register the f32 bucket twice): ``tier_ledger`` holds its build
+counts, whether each bucket was built exactly once at each tier
+(``cem_bucket_<b>`` and ``cem_bucket_<b>_<tier>``), and the attribution's
+``tier_shares``.
+
+``measure_precision`` runs phases 1 and 2 and the tier ledger.
 """
 
 from __future__ import annotations
@@ -103,12 +107,14 @@ def _paired_agreement(model, variables, candidate: str,
                       q_tolerance: float, cem_num_samples: int,
                       cem_num_elites: int, cem_iterations: int,
                       action_size: int, image_size: int, seed: int,
-                      geo_tolerance=None, timed: bool = False) -> Dict:
+                      geo_tolerance=None, timed: bool = False,
+                      ledger=None) -> Dict:
   """f32 against `candidate` selected actions, bucket by bucket, over a
   bank of oracle scenes; each pair shares the predictor, the CEM budget
   and the request's draws, so every delta is the tier's numerics. With
   `geo_tolerance` the geometric deltas and the seed-noise control (first
-  bucket) are reported too; with `timed` each tier's warmed actions/s."""
+  bucket) are reported too; with `timed` each tier's warmed actions/s.
+  The paired policies register into `ledger`, the control does not."""
   from tensor2robot_tpu_torch.replay.loop import _HotReloadPredictor
   from tensor2robot_tpu_torch.research.qtopt.device_grasping import (
       make_scene_bank,
@@ -129,20 +135,21 @@ def _paired_agreement(model, variables, candidate: str,
               np.asarray(actions, np.float32)).to(device)}))
     return q.reshape(-1).cpu().numpy()
 
-  def make_policy(precision, policy_seed, bucket):
+  def make_policy(precision, policy_seed, bucket, policy_ledger=None):
     return CEMFleetPolicy(
         predictor, action_size=action_size, num_samples=cem_num_samples,
         num_elites=cem_num_elites, iterations=cem_iterations,
         seed=policy_seed, ladder=BucketLadder((bucket,)),
-        precision=precision)
+        ledger=policy_ledger, precision=precision)
 
   tiers = ("f32", candidate)
-  per_bucket, builds = {}, {}
+  per_bucket = {}
   rates = {tier: [] for tier in tiers}
   agree_total = pairs_total = 0
   control_geo, control_qd = [], []
   for bucket in buckets:
-    policies = {tier: make_policy(tier, seed + 7, bucket) for tier in tiers}
+    policies = {tier: make_policy(tier, seed + 7, bucket, ledger)
+                for tier in tiers}
     control = (make_policy("f32", seed + 8, bucket)
                if geo_tolerance is not None and bucket == buckets[0]
                else None)
@@ -168,10 +175,6 @@ def _paired_agreement(model, variables, candidate: str,
         control_geo.append(np.max(np.abs(actions["f32"] - control_actions),
                                   axis=1))
         control_qd.append(q_f32 - oracle_values(frames, control_actions))
-    for tier, policy in policies.items():
-      builds[f"cem_bucket_{bucket}" + ("" if tier == "f32"
-                                       else f"_{tier}")] = dict(
-                                           policy.compile_counts)[bucket]
     geo_diffs = np.concatenate(geo_diffs)
     q_deltas = np.concatenate(q_deltas)
     agree = int(np.sum(q_deltas <= q_tolerance))
@@ -199,9 +202,6 @@ def _paired_agreement(model, variables, candidate: str,
       "per_bucket": per_bucket,
       "pairs": pairs_total,
       "overall_rate": agree_total / max(pairs_total, 1),
-      # Each tier's bucket built once: the per-tier exactly-once count
-      # (the JAX ledger's keys).
-      "builds": builds,
   }
   if geo_tolerance is not None:
     control_geo = np.concatenate(control_geo)
@@ -230,13 +230,16 @@ def _measure_agreement(model, variables, buckets: Sequence[int],
                        corpus_scenes: int, q_tolerance: float,
                        geo_tolerance: float, cem_num_samples: int,
                        cem_num_elites: int, cem_iterations: int,
-                       action_size: int, image_size: int, seed: int) -> Dict:
+                       action_size: int, image_size: int, seed: int,
+                       ledger=None) -> Dict:
   """Phase 1: f32 against bf16 selected actions at every bucket, with the
-  geometric diagnostics, the seed-noise control and each tier's rate."""
+  geometric diagnostics, the seed-noise control and each tier's rate; the
+  paired policies register into `ledger`."""
   return _paired_agreement(
       model, variables, "bf16", buckets, corpus_scenes, q_tolerance,
       cem_num_samples, cem_num_elites, cem_iterations, action_size,
-      image_size, seed, geo_tolerance=geo_tolerance, timed=True)
+      image_size, seed, geo_tolerance=geo_tolerance, timed=True,
+      ledger=ledger)
 
 
 def _measure_fused_loop(steps: int, seed: int, device: Device = None,
@@ -285,11 +288,19 @@ def _measure_fused_loop(steps: int, seed: int, device: Device = None,
   return out
 
 
-def _measure_tier_ledger(*_args, **_kwargs):
-  raise NotImplementedError(
-      "the precision bench's per-tier ledger phase (the executable "
-      "ledger's attribution of time by tier through the megastep and the "
-      "Anakin loop) waits for ROADMAP.md's flagship item 15b.")
+def _measure_tier_ledger(ledger, buckets: Sequence[int],
+                         candidate: str) -> Dict:
+  """The agreement phase's shared ledger: its build counts, whether every
+  bucket was built exactly once at f32 (``cem_bucket_<b>``) and at
+  `candidate` (``cem_bucket_<b>_<candidate>``), and its time by tier."""
+  counts = ledger.compile_counts
+  exactly_once = (
+      all(v == 1 for v in counts.values())
+      and all(f"cem_bucket_{b}" in counts for b in buckets)
+      and all(f"cem_bucket_{b}_{candidate}" in counts for b in buckets))
+  return {"compile_counts": counts,
+          "per_tier_exactly_once": bool(exactly_once),
+          "tier_shares": ledger.attribution()["tier_shares"]}
 
 
 def _measure_tier_rollout(tier: str, n_devices: int = 2,
@@ -395,25 +406,25 @@ def measure_precision(
     gamma: float = 0.8,
     grasp_radius: float = 0.4,
     seed: int = 0,
-    skip_waiting: bool = True,
     fused_loop: bool = True,
     device: Device = None,
 ) -> Dict:
   """The precision protocol's ported phases; returns the JAX artifact's
-  fields and raises if a bar of the phases run fails.
-  ``skip_waiting=False`` asks for the per-tier ledger phase, which
-  raises by name; ``fused_loop=False`` skips phase 2; phase 3 runs on
-  its own (``_measure_rollout``)."""
-  if not skip_waiting:
-    _measure_tier_ledger()
+  fields and raises if a bar of the phases run fails. Phase 1's shared
+  ledger gives ``tier_ledger``; ``fused_loop=False`` skips phase 2;
+  phase 3 runs on its own (``_measure_rollout``)."""
+  from tensor2robot_tpu_torch.obs.ledger import ExecutableLedger
+
   device = resolve_device(device)
   model, variables, pretrain_loss = _pretrain_critic(
       image_size, action_size, gamma, grasp_radius, pretrain_steps,
       batch_size=64, seed=seed, device=device)
+  agreement_ledger = ExecutableLedger()
   agreement = _measure_agreement(
       model, variables, buckets, corpus_scenes, q_tolerance, geo_tolerance,
       cem_num_samples, cem_num_elites, cem_iterations, action_size,
-      image_size, seed)
+      image_size, seed, ledger=agreement_ledger)
+  tier_ledger = _measure_tier_ledger(agreement_ledger, buckets, "bf16")
   fused = (_measure_fused_loop(loop_steps, seed, device=device)
            if fused_loop else None)
   result = {
@@ -429,15 +440,16 @@ def measure_precision(
       "agreement_bar": R14_AGREEMENT_BAR,
       "fused_loop": fused,
       "td_delta_bar": R14_TD_DELTA_BAR,
+      "tier_ledger": tier_ledger,
       "cem_bf16_action_agreement": agreement["overall_rate"],
-      "waiting": {"tier_ledger": "item 15b"},
   }
   failures = []
   if agreement["overall_rate"] < R14_AGREEMENT_BAR:
     failures.append(
         f"agreement {agreement['overall_rate']} < {R14_AGREEMENT_BAR}")
-  if set(agreement["builds"].values()) != {1}:
-    failures.append(f"builds not exactly once: {agreement['builds']}")
+  if not tier_ledger["per_tier_exactly_once"]:
+    failures.append(
+        f"tier ledger not exactly-once: {tier_ledger['compile_counts']}")
   if fused is not None:
     if fused["td_delta"] > R14_TD_DELTA_BAR:
       failures.append(f"td_delta {fused['td_delta']} > {R14_TD_DELTA_BAR}")
@@ -451,7 +463,8 @@ def measure_precision(
 
 
 def main(argv=None) -> None:
-  """CLI: runs phases 1 and 2 and prints one JSON line."""
+  """CLI: runs phases 1 and 2 and the tier ledger and prints one JSON
+  line."""
   import argparse
   import json
 

@@ -17,14 +17,18 @@ selection). Two claims:
   the bytes the policy holds, not the traffic of a score: the graph
   expands every int8 weight to a bf16 copy on each replay.
 
+- **Tier ledger.** The paired policies share one executable ledger:
+  every bucket built exactly once at f32 and at int8
+  (``cem_bucket_<b>_int8``), and the attribution's ``tier_shares``.
+
 - **Rollout.** ``_measure_rollout_int8``, run on its own: the int8 tier
   through the routed fleet's promotion gate (``precision_bench.
   _measure_tier_rollout``): a jittered tree scored at int8 rolled back in
   shadow, then int8 promoted, one build a bucket a replica a tier.
 
 The JAX bench's tensor-parallel ladder waits for ``ROADMAP.md``'s flagship
-item 15b (the flagship loop's parallel tier): ``_measure_tp_ladder``
-raises by name.
+item 15b-ii (the loop over a mesh): ``_measure_tp_ladder`` raises by
+name.
 """
 
 from __future__ import annotations
@@ -77,19 +81,21 @@ def _measure_int8_agreement(model, variables, buckets: Sequence[int],
                             corpus_scenes: int, q_tolerance: float,
                             cem_num_samples: int, cem_num_elites: int,
                             cem_iterations: int, action_size: int,
-                            image_size: int, seed: int) -> Dict:
+                            image_size: int, seed: int,
+                            ledger=None) -> Dict:
   """f32 against int8 paired policies over the scene bank: the precision
-  bench's agreement protocol with int8 in the candidate's seat."""
+  bench's agreement protocol with int8 in the candidate's seat, the pairs
+  registered into `ledger`."""
   return precision_bench._paired_agreement(
       model, variables, "int8", buckets, corpus_scenes, q_tolerance,
       cem_num_samples, cem_num_elites, cem_iterations, action_size,
-      image_size, seed)
+      image_size, seed, ledger=ledger)
 
 
 def _measure_tp_ladder(*_args, **_kwargs):
   raise NotImplementedError(
       "tpquant's tensor-parallel ladder waits for ROADMAP.md's flagship "
-      "item 15b (the flagship loop's parallel tier).")
+      "item 15b-ii (the loop over a mesh).")
 
 
 def _measure_rollout_int8(**kwargs) -> Dict:
@@ -113,16 +119,21 @@ def measure_tpquant(
     seed: int = 0,
     device: Device = None,
 ) -> Dict:
-  """The int8 half of the JAX protocol: agreement and bytes. Raises if
-  a bar fails."""
+  """The int8 half of the JAX protocol: agreement, its tier ledger and
+  bytes. Raises if a bar fails."""
+  from tensor2robot_tpu_torch.obs.ledger import ExecutableLedger
+
   device = resolve_device(device)
   model, variables, pretrain_loss = precision_bench._pretrain_critic(
       image_size, action_size, gamma, grasp_radius, pretrain_steps,
       batch_size=64, seed=seed, device=device)
+  agreement_ledger = ExecutableLedger()
   agreement = _measure_int8_agreement(
       model, variables, buckets, corpus_scenes, q_tolerance,
       cem_num_samples, cem_num_elites, cem_iterations, action_size,
-      image_size, seed)
+      image_size, seed, ledger=agreement_ledger)
+  tier_ledger = precision_bench._measure_tier_ledger(agreement_ledger,
+                                                     buckets, "int8")
   bytes_reduction = _flagship_bytes_reduction(flagship_image_size, seed)
   result = {
       "metric": "int8 served weights: agreement and bytes",
@@ -132,9 +143,10 @@ def measure_tpquant(
       "int8_agreement_bar": R17_INT8_AGREEMENT_BAR,
       "int8_bytes_reduction": bytes_reduction,
       "int8_bytes_reduction_bar": R17_INT8_BYTES_REDUCTION_BAR,
+      "tier_ledger": tier_ledger,
       "int8_q_agreement": agreement["overall_rate"],
       "int8_param_bytes_reduction": bytes_reduction["flagship"],
-      "waiting": {"tp_ladder": "item 15b"},
+      "waiting": {"tp_ladder": "item 15b-ii"},
   }
   failures = []
   if agreement["overall_rate"] < R17_INT8_AGREEMENT_BAR:
@@ -144,8 +156,9 @@ def measure_tpquant(
     failures.append(f"flagship bytes reduction "
                     f"{bytes_reduction['flagship']} < "
                     f"{R17_INT8_BYTES_REDUCTION_BAR}")
-  if set(agreement["builds"].values()) != {1}:
-    failures.append(f"builds not exactly once: {agreement['builds']}")
+  if not tier_ledger["per_tier_exactly_once"]:
+    failures.append(
+        f"tier ledger not exactly-once: {tier_ledger['compile_counts']}")
   if failures:
     raise AssertionError("tpquant bars failed: " + "; ".join(failures))
   return result

@@ -51,7 +51,9 @@ candidate is placed once on the device (a cache keyed on the tree's
 identity; quantized under int8), and under the policy's lock copied into
 the served copy, replayed, and the live variables copied back. A
 ``ledger`` (``obs/ledger.py``) gets one registration a build, keyed
-``cem_bucket_<b>[_<tier>]@<label>``, and one dispatch a call.
+``cem_bucket_<b>[_<tier>]@<label>``, with the FLOPs of the build's first
+eager control step (the capture's first warm-up on the GPU), and one
+dispatch a call.
 
 Waiting for a later ``ROADMAP.md`` item, and refused by name:
 ``param_specs=`` (a tensor-parallel replica group, item 15b).
@@ -66,6 +68,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from tensor2robot_tpu_torch.ops import graph_launches
 from tensor2robot_tpu_torch.research.qtopt import cem
@@ -330,7 +333,22 @@ class CEMFleetPolicy:
         num_samples=self._num_samples, num_elites=self._num_elites,
         iterations=self._iterations, precision=self.precision)
 
-  def _capture(self, fn, padded: torch.Tensor,
+  @contextlib.contextmanager
+  def _registering(self, bucket: int):
+    """A bucket's build: with a ledger, counts the FLOPs of the eager
+    control step run inside and registers the bucket with them."""
+    if self._ledger is None:
+      yield
+      return
+    with FlopCounterMode(display=False) as flops:
+      yield
+    self._ledger.register(
+        self.ledger_key(bucket), device=self.label, dtype=self.precision,
+        shapes={"bucket": bucket, "num_samples": self._num_samples,
+                "iterations": self._iterations},
+        flops=flops.get_total_flops())
+
+  def _capture(self, bucket: int, fn, padded: torch.Tensor,
                padded_noise: torch.Tensor) -> _Graph:
     """The bucket's graph: two eager warm-up steps (cuDNN's and cuBLAS's
     choices, the allocator), then the capture, into the policy's shared
@@ -343,8 +361,9 @@ class CEMFleetPolicy:
       self._pool = torch.cuda.graph_pool_handle()
     pool = self._pool if self.share_graph_pool else None
     with torch.inference_mode():
-      for _ in range(2):
+      with self._registering(bucket):
         self._control(fn, entry.images, entry.noise)
+      self._control(fn, entry.images, entry.noise)
       with graph_launches.capture(entry.graph, self._stream,
                                   pool=pool) as entry.tally:
         entry.best, entry.scores = self._control(fn, entry.images,
@@ -366,20 +385,16 @@ class CEMFleetPolicy:
               else first).device
     images = torch.from_numpy(padded)
     noise = torch.from_numpy(padded_noise)
-    if key not in self._buckets:
+    built = key not in self._buckets
+    if built:
       self.compile_counts[bucket] = self.compile_counts.get(bucket, 0) + 1
-      if self._ledger is not None:
-        self._ledger.register(
-            self.ledger_key(bucket), device=self.label,
-            dtype=self.precision,
-            shapes={"bucket": bucket, "num_samples": self._num_samples,
-                    "iterations": self._iterations})
-      self._buckets[key] = (self._capture(fn, images.to(device),
+      self._buckets[key] = (self._capture(bucket, fn, images.to(device),
                                           noise.to(device))
                             if device.type == "cuda" else None)
     entry = self._buckets[key]
     if entry is None:
-      with torch.inference_mode():
+      with torch.inference_mode(), (self._registering(bucket) if built
+                                    else contextlib.nullcontext()):
         best, scores = self._control(fn, images.to(device),
                                      noise.to(device))
       return best.cpu().numpy(), scores.cpu().numpy()

@@ -49,6 +49,7 @@ except ImportError:
 from tensor2robot_tpu_torch import bridge  # noqa: E402
 from tensor2robot_tpu_torch.bin import run_qtopt_replay  # noqa: E402
 from tensor2robot_tpu_torch.obs import health  # noqa: E402
+from tensor2robot_tpu_torch.obs.ledger import ExecutableLedger  # noqa: E402
 from tensor2robot_tpu_torch.research.pose_env import pose_env  # noqa: E402
 from tensor2robot_tpu_torch.replay import (  # noqa: E402
     anakin,
@@ -679,8 +680,10 @@ class TestAnakinLoop:
     with pytest.raises(ValueError, match="multiple"):
       anakin.AnakinLoop(model, trainer, ring, env, inner_steps=8,
                         train_every=3)
-    with pytest.raises(NotImplementedError, match="item 15"):
-      anakin.AnakinLoop(model, trainer, ring, env, ledger=object())
+    # ledger= is taken; the period registers at its first learning build.
+    book = ExecutableLedger()
+    anakin.AnakinLoop(model, trainer, ring, env, ledger=book)
+    assert book.names() == []
     # The bf16 tier, once item 11's refusal, builds with its dtype name.
     assert anakin.AnakinLoop(model, trainer, ring, env,
                              precision="bf16").dtype == "bfloat16"

@@ -46,6 +46,7 @@ except ImportError:
 from tensor2robot_tpu_torch import bridge  # noqa: E402
 from tensor2robot_tpu_torch.bin import run_qtopt_replay  # noqa: E402
 from tensor2robot_tpu_torch.obs import health  # noqa: E402
+from tensor2robot_tpu_torch.obs.ledger import ExecutableLedger  # noqa: E402
 from tensor2robot_tpu_torch.replay import (  # noqa: E402
     bellman,
     device_buffer,
@@ -293,10 +294,23 @@ class TestDeviceReplayBuffer:
                                 _transitions(4, 9).items()})
     with pytest.raises(ValueError, match="no priorities"):
       _ring(16, 4, 8, prioritized=False).priorities([0])
-    for kwargs in ({"mesh": object()}, {"ledger": object()},
-                   {"data_axis": "replica"}):
+    for kwargs in ({"mesh": object()}, {"data_axis": "replica"}):
       with pytest.raises(NotImplementedError, match="item 15"):
         _ring(16, 4, 8, **kwargs)
+    # ledger= registers each ring function at its first use, with the JAX
+    # shapes, and records each host call.
+    book = ExecutableLedger()
+    ring = _ring(16, 4, 8, ledger=book)
+    ring.extend(_transitions(8, 9))
+    _, info = ring.sample()
+    ring.update_priorities(info.indices, np.ones(4, np.float32))
+    shapes = {"capacity": 16, "chunk": 8, "batch": 4}
+    rows = {row["name"]: row for row in book.attribution()["executables"]}
+    assert sorted(rows) == ["device_extend", "device_sample",
+                            "device_update_priorities_n4"]
+    for row in rows.values():
+      assert (row["compiles"], row["dispatches"], row["shapes"]) == (
+          1, 1, shapes), row
 
 
 # --- one learn iteration and the megastep ------------------------------------
@@ -559,14 +573,23 @@ class TestMegastepLearner:
       _megastep(inner_steps=0)
     model, trainer, state, ring, _ = _megastep()
     with pytest.raises(NotImplementedError, match="item 15"):
-      device_buffer.MegastepLearner(model, trainer, ring, ledger=object())
-    with pytest.raises(NotImplementedError, match="item 15"):
       device_buffer.make_learn_iteration_fn(None, None, None, None, None,
                                             "target_q", True,
                                             constrain_batch=object())
     cold = device_buffer.MegastepLearner(model, trainer, ring)
     with pytest.raises(ValueError, match="refresh"):
       cold.step(state)
+    # ledger= registers the megastep at its build with the FLOPs of one
+    # dispatch, and records every dispatch.
+    book = ExecutableLedger()
+    _, _, state, _, learner = _megastep(inner_steps=2, ledger=book)
+    for _ in range(2):
+      state, _ = learner.step(state)
+    row, = book.attribution()["executables"]
+    assert (row["name"], row["compiles"], row["dispatches"], row["dtype"],
+            row["shapes"]) == ("megastep", 1, 2, "f32",
+                               {"inner_steps": 2, "batch": 16})
+    assert row["flops_per_dispatch"] > 0
 
 
 # --- the loop's device-resident path ------------------------------------------

@@ -367,10 +367,10 @@ class TestClosedLoopSmoke:
     evals = {"eval_td_error": 1.0, "eval_q_loss": 1.0}
     want = set(jax_loop.ReplayTrainLoop._assemble_result(
         fake, 1, evals, [dict(step=1, **evals)], {}, 0))
-    # Since the obs spine was ported the result carries the JAX "obs"
-    # block's trace_stage_counts; its attribution waits for the ledger.
+    # The result carries the JAX "obs" block: the executable ledger's
+    # attribution and the spans' trace_stage_counts.
     assert set(results) == want | {"mode", "metric"}
-    assert set(results["obs"]) == {"trace_stage_counts"}
+    assert set(results["obs"]) == {"attribution", "trace_stage_counts"}
     assert {"act", "extend", "learn", "replay"} <= set(
         results["obs"]["trace_stage_counts"])
     json.dumps(results)

@@ -68,6 +68,7 @@ except ImportError:
   jax = None
 
 from tensor2robot_tpu_torch import bridge  # noqa: E402
+from tensor2robot_tpu_torch.obs.ledger import ExecutableLedger  # noqa: E402
 from tensor2robot_tpu_torch.replay import (  # noqa: E402
     bellman,
     loop,
@@ -597,12 +598,15 @@ class TestBenches:
     model, variables, loss = precision_bench._pretrain_critic(
         16, 4, 0.8, 0.4, steps=80, batch_size=64, seed=0, device="cpu")
     assert np.isfinite(loss)
+    book = ExecutableLedger()
     agreement = precision_bench._measure_agreement(
         model, variables, (1, 2, 4), 16, precision_bench.R14_Q_TOL,
-        precision_bench.R14_GEO_TOL, 16, 4, 2, 4, 16, 0)
+        precision_bench.R14_GEO_TOL, 16, 4, 2, 4, 16, 0, ledger=book)
     assert agreement["pairs"] == 48
     assert agreement["overall_rate"] >= precision_bench.R14_AGREEMENT_BAR
-    assert agreement["builds"] == {
+    # The paired policies' builds, once a bucket a tier (the seed-noise
+    # control stays off the ledger).
+    assert book.compile_counts == {
         f"cem_bucket_{b}{t}": 1 for b in (1, 2, 4) for t in ("", "_bf16")}
     assert agreement["seed_noise_control"]["pairs"] == 16
     int8 = tpquant_bench._measure_int8_agreement(
@@ -617,11 +621,9 @@ class TestBenches:
     assert ours["flagship"] >= tpquant_bench.R17_INT8_BYTES_REDUCTION_BAR
 
   @pytest.mark.parametrize("call, item", [
-      (lambda: precision_bench.measure_precision(skip_waiting=False),
-       "item 15"),
       (tpquant_bench._measure_tp_ladder, "item 15"),
       (None, None),
-  ], ids=["tier_ledger", "tp_ladder", "cast_seam"])
+  ], ids=["tp_ladder", "cast_seam"])
   def test_refusals_that_stay(self, call, item):
     if call is None:
       self._cast_seam_installs_at_the_live_dtype()

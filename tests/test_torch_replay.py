@@ -49,6 +49,7 @@ from tensor2robot_tpu_torch import bridge  # noqa: E402
 from tensor2robot_tpu_torch.obs.flight_recorder import (  # noqa: E402
     FlightRecorder,
 )
+from tensor2robot_tpu_torch.obs.ledger import ExecutableLedger  # noqa: E402
 from tensor2robot_tpu_torch.obs.registry import MetricRegistry  # noqa: E402
 from tensor2robot_tpu_torch.obs.watchdog import Watchdog  # noqa: E402
 from tensor2robot_tpu_torch.replay import (  # noqa: E402
@@ -985,14 +986,18 @@ class TestBellmanUpdater:
     state = model.init_variables(torch.Generator().manual_seed(0),
                                  device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
-      bellman.BellmanUpdater(model, state, ledger=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
       bellman.TargetNetwork(state, sharding=object(), device="cpu")
     # The bf16 tier, once item 11's refusal: one label at the tier,
-    # float32 and clipped.
+    # float32 and clipped; ledger=, once item 15b-i's, takes the label
+    # closure at the tier with its FLOPs and the call.
+    book = ExecutableLedger()
     updater = bellman.BellmanUpdater(model, state, precision="bf16",
-                                     device="cpu", **CEM_KNOBS)
+                                     ledger=book, device="cpu", **CEM_KNOBS)
     targets, q_next = updater.compute_targets(_bellman_batch(3, 1))
+    row, = book.attribution()["executables"]
+    assert (row["name"], row["dtype"], row["compiles"],
+            row["dispatches"]) == ("bellman_targets", "bf16", 1, 1)
+    assert row["flops_per_dispatch"] > 0
     assert updater.precision == "bf16"
     assert targets.dtype == q_next.dtype == np.float32
     assert targets.min() >= 0.0 and targets.max() <= 1.0

@@ -183,11 +183,24 @@ tensor cores, float32 on the CUDA cores). Then it drives every slice:
   holds the bf16 and int8 tier ledgers exactly once a bucket a tier; and
   ``obs_loop`` holds the host path's attribution (``train_step``,
   ``bellman_targets``, ``td_error``, ``health_summary``).
+- slice 20 runs the QT-Opt replay loop over a mesh of two gloo ranks on
+  the card (``qtopt_mesh``) at the production width (the 64x64 flagship
+  in float32 with TF32 off, CEM 64/6/3, batch 32 as 16 a rank, a fleet of
+  32 as 16 a rank): a collect-only Anakin dispatch at dp=2 equal to one
+  rank's bit for bit (the ring and the fleet, gathered), three trained
+  Anakin dispatches and three megastep dispatches with ZeRO-1 within the
+  JAX mesh loop's bound (rtol 1e-4, atol 1e-6) of one rank's, the Anakin
+  loop at tp=2 with the flagship's parameters split by its rules, and
+  ``run_qtopt_replay --anakin --mesh 2`` at the production config under
+  ``torch.distributed.run``; it reports the collectives' bytes of a
+  dispatch and the ring's bytes a rank. Two ranks on one card measure
+  structure, not scaling.
 
 Slice 6's record run and slice 7's capability check wait on the host's
 record parser with the card idle, so each runs in a child process of
 this script (``--background``) beside slice 16's and 17's phases, whose
-checks hold no time; meta-BC's graph check runs in a child as well. The
+checks hold no time; meta-BC's graph check runs in a child as well, and
+so does slice 20's mesh phase, which holds parity and no time. The
 ``phase_seconds`` line gives the run's seconds by phase and each child's.
 
 Each path runs with the launch counts set to 0 just before it and checks
@@ -205,6 +218,7 @@ import importlib
 import json
 import logging
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -287,6 +301,22 @@ PARALLEL_TRAIN_STEPS = 3
 # CPU at 64x64 the modes agree within 5e-6. A lost reduction or a
 # gradient off by the rank count moves it by ~1.
 PARALLEL_GRAD_SHARE = 1e-2
+# Slice 20: the replay loop over two gloo ranks on the card at the
+# production width (64x64 flagship in float32, TF32 off; CEM 64/6/3; batch
+# 32 as 16 a rank; a fleet of 32 as 16 a rank). The parity runs hold a
+# ring of MESH_CAPACITY (the CLI run the production 50,000) and one
+# period of MESH_INNER control steps a dispatch; learns are held to the
+# JAX mesh loop's bound (tests/test_anakin.py's TestShardedAnakinParity).
+MESH_RANKS = 2
+MESH_CAPACITY = 1024
+MESH_BANK_SCENES = 256
+MESH_INNER = 8
+MESH_MIN_FILL = 32
+MESH_DISPATCHES = 3
+MESH_MEGASTEP_INNER = 4
+MESH_CLI_STEPS = 25
+MESH_LOSS_RTOL, MESH_LOSS_ATOL = 1e-4, 1e-6
+MESH_LOSS_KEYS = ("loss", "td_error", "q_next", "staleness")
 
 
 def flash_limit(torch, want):
@@ -5418,6 +5448,8 @@ def run_background(name: str, torch, ss, gl, dev, seed: int, root: str,
     # In a fresh process every run agrees bit for bit (``ROADMAP.md``
     # Queue 3). So the graph is held against eager steps there.
     return run_meta_bc_graph(torch, ss, gl, dev, seed, root, smi)
+  if name == "qtopt_mesh":
+    return run_qtopt_mesh(torch, dev, seed, root, smi)
   raise ValueError(f"no background phase {name!r}")
 
 
@@ -6036,12 +6068,335 @@ def run_parallel_train(torch, seed: int, root: str, smi: str) -> dict:
           "modes": modes, "seconds": time.perf_counter() - start}
 
 
+# --- slice 20: the QT-Opt replay loop over a mesh of ranks --------------------
+
+
+def mesh_config(seed: int):
+  """The production loop's config (``run_qtopt_replay``'s full scale: the
+  64x64 flagship, CEM 64/6/3, batch 32, a fleet of 32 envs)."""
+  from tensor2robot_tpu_torch.bin.run_qtopt_replay import build_config
+  return build_config(False, seed)
+
+
+def mesh_flagship(config):
+  """The loop's flagship critic at the config's width, float32 (the
+  parity runs hold TF32 off)."""
+  import torch
+
+  from tensor2robot_tpu_torch.research.qtopt.t2r_models import (
+      QTOptGraspingModel,
+  )
+  from tensor2robot_tpu_torch.utils import optimizers
+  return QTOptGraspingModel(
+      image_size=config.image_size, action_size=config.action_size,
+      uint8_images=True, norm="group", compute_dtype=torch.float32,
+      optimizer_fn=optimizers.create_adam_optimizer(config.learning_rate))
+
+
+def mesh_anakin(dev, seed: int, mesh, zero1: bool, min_fill: int,
+                tp: bool = False):
+  """The Anakin loop at the production width over `mesh` (None: one
+  rank, eager), on a ring of MESH_CAPACITY."""
+  from tensor2robot_tpu_torch.parallel import tp_rules
+  from tensor2robot_tpu_torch.replay.anakin import AnakinLoop
+  from tensor2robot_tpu_torch.replay.device_buffer import DeviceReplayBuffer
+  from tensor2robot_tpu_torch.replay.loop import transition_spec
+  from tensor2robot_tpu_torch.research.qtopt.device_grasping import (
+      DeviceGraspEnv,
+      make_scene_bank,
+  )
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  config = mesh_config(seed)
+  model = mesh_flagship(config)
+  specs = (tp_rules.partition_specs_for_model(model, mesh, axis="model")
+           if tp else None)
+  trainer = Trainer(model, seed=seed, device=dev, mesh=mesh,
+                    param_specs=specs, shard_optimizer_state=zero1)
+  state = trainer.create_train_state()
+  fleet = config.num_collectors * config.envs_per_collector
+  ring = DeviceReplayBuffer(
+      transition_spec(config.image_size, config.action_size), MESH_CAPACITY,
+      config.batch_size, seed=seed, prioritized=True, ingest_chunk=fleet,
+      mesh=trainer.mesh, device=dev)
+  env = DeviceGraspEnv(
+      fleet, image_size=config.image_size, max_attempts=config.max_attempts,
+      radius=config.grasp_radius,
+      bank=make_scene_bank(MESH_BANK_SCENES, image_size=config.image_size,
+                           base_seed=seed, device=dev), device=dev)
+  loop = AnakinLoop(
+      model, trainer, ring, env, action_size=config.action_size,
+      gamma=config.gamma, num_samples=config.cem_num_samples,
+      num_elites=config.cem_num_elites, iterations=config.cem_iterations,
+      inner_steps=MESH_INNER, train_every=MESH_INNER, min_fill=min_fill,
+      exploration_epsilon=config.exploration_epsilon,
+      scripted_fraction=config.scripted_fraction, seed=seed + 13,
+      health=True, graphs=False)
+  loop.refresh(state.full_variables(use_ema=True), 0)
+  return state, loop, ring
+
+
+def mesh_streams(dev, seed: int, dp=None, tp=None) -> dict:
+  """The mesh phase's runs on one rank (`dp` None) or over the given
+  meshes: a collect-only Anakin dispatch (its ring and fleet whole), three
+  trained Anakin dispatches and three megastep dispatches with ZeRO-1
+  over `dp` (the collectives' bytes of the last Anakin one), and two
+  trained dispatches over `tp`."""
+  from tensor2robot_tpu_torch.parallel import collectives
+  from tensor2robot_tpu_torch.replay.loop import param_sharding_summary
+  out = {}
+  state, loop, ring = mesh_anakin(dev, seed, dp, zero1=dp is not None,
+                                  min_fill=10 ** 9)
+  state, metrics = loop.step(state)
+  if metrics["trained_steps"]:
+    raise AssertionError("the collect-only dispatch learned")
+  arrays = loop.checkpoint_arrays()
+  out["pretrain"] = {"env": arrays["env"], "ring": arrays["buffer"],
+                     "ring_bytes_local": sum(
+                         t.numel() * t.element_size()
+                         for t in (*ring.state.storage.values(),
+                                   ring.state.written_at))}
+  del state, loop, ring
+  state, loop, _ = mesh_anakin(dev, seed, dp, zero1=dp is not None,
+                               min_fill=MESH_MIN_FILL)
+  trained = []
+  for i in range(MESH_DISPATCHES):
+    if i == MESH_DISPATCHES - 1:
+      collectives.reset_counts()
+    start = time.perf_counter()
+    state, metrics = loop.step(state)  # its metrics' readback waits
+    trained.append({**metrics, "seconds": time.perf_counter() - start})
+  out["trained"] = trained
+  out["collectives_last_dispatch"] = _collective_counts(collectives)
+  out["compile_counts"] = dict(loop.compile_counts)
+  out["mesh_shape"] = loop.mesh_shape
+  del state, loop
+  out["megastep"] = mesh_megastep(dev, seed, dp)
+  if tp is not None:
+    state, loop, _ = mesh_anakin(dev, seed, tp, zero1=False,
+                                 min_fill=MESH_MIN_FILL, tp=True)
+    metrics = []
+    for _ in range(2):
+      state, got = loop.step(state)
+      metrics.append(got)
+    out["tp2"] = {"metrics": metrics, "mesh_shape": loop.mesh_shape,
+                  "param_sharding": param_sharding_summary(state),
+                  "compile_counts": dict(loop.compile_counts)}
+  return out
+
+
+def mesh_megastep(dev, seed: int, mesh) -> list:
+  """Three megastep dispatches at the production width over a ring every
+  rank fills with the same seeded rows (ZeRO-1 over a mesh)."""
+  from tensor2robot_tpu_torch.replay.device_buffer import (
+      DeviceReplayBuffer,
+      MegastepLearner,
+  )
+  from tensor2robot_tpu_torch.replay.loop import transition_spec
+  from tensor2robot_tpu_torch.train.trainer import Trainer
+  config = mesh_config(seed)
+  model = mesh_flagship(config)
+  trainer = Trainer(model, seed=seed, device=dev, mesh=mesh,
+                    shard_optimizer_state=mesh is not None)
+  state = trainer.create_train_state()
+  ring = DeviceReplayBuffer(
+      transition_spec(config.image_size, config.action_size), MESH_CAPACITY,
+      config.batch_size, seed=seed, prioritized=True, ingest_chunk=64,
+      mesh=trainer.mesh, device=dev)
+  rng = np.random.default_rng(seed + 17)
+  size, rows = config.image_size, 4 * 64
+  ring.extend({
+      "image": rng.integers(0, 256, (rows, size, size, 3), dtype=np.uint8),
+      "action": rng.uniform(-1, 1, (rows, 4)).astype(np.float32),
+      "reward": (rng.random(rows) < 0.3).astype(np.float32),
+      "done": (rng.random(rows) < 0.3).astype(np.float32),
+      "next_image": rng.integers(0, 256, (rows, size, size, 3),
+                                 dtype=np.uint8)})
+  learner = MegastepLearner(
+      model, trainer, ring, action_size=config.action_size,
+      gamma=config.gamma, num_samples=config.cem_num_samples,
+      num_elites=config.cem_num_elites, iterations=config.cem_iterations,
+      inner_steps=MESH_MEGASTEP_INNER, seed=seed + 13, health=True,
+      graphs=False)
+  learner.refresh(state.full_variables(use_ema=True), step=0)
+  metrics = []
+  for _ in range(MESH_DISPATCHES):
+    state, got = learner.step(state)
+    metrics.append(got)
+  return metrics
+
+
+def mesh_rank(rank: int, seed: int) -> dict:
+  """A rank of the mesh phase: {"data": 2} and {"data": 1, "model": 2}
+  over the two ranks, float32 with TF32 off and cuDNN deterministic."""
+  import torch
+
+  from tensor2robot_tpu_torch.parallel import create_mesh
+  _tf32_off(torch)
+  torch.backends.cudnn.deterministic = True
+  dev = torch.device("cuda", 0)
+  out = mesh_streams(dev, seed, dp=create_mesh({"data": MESH_RANKS}),
+                     tp=create_mesh({"data": 1, "model": MESH_RANKS}))
+  out["rank"] = rank
+  return out
+
+
+def _relative_diffs(got: list, want: list) -> dict:
+  """Each loss key's largest |got - want| / (atol + rtol |want|) over the
+  dispatches (at most 1 within the bound)."""
+  return {key: max(abs(g[key] - w[key])
+                   / (MESH_LOSS_ATOL + MESH_LOSS_RTOL * abs(w[key]))
+                   for g, w in zip(got, want))
+          for key in MESH_LOSS_KEYS}
+
+
+def run_mesh_cli(seed: int, root: str) -> dict:
+  """``run_qtopt_replay --anakin --mesh 2`` at the production config under
+  ``torch.distributed.run``: two ranks on the card, the primary's one
+  JSON line."""
+  import socket
+  with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+  start = time.perf_counter()
+  # A session of its own, so that a run past its time takes its ranks
+  # down with it.
+  proc = subprocess.Popen(
+      [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+       str(MESH_RANKS), "--master-port", str(port), "-m",
+       "tensor2robot_tpu_torch.bin.run_qtopt_replay", "--anakin", "--mesh",
+       str(MESH_RANKS), "--steps", str(MESH_CLI_STEPS), "--seed", str(seed),
+       "--no-anakin-bench", "--logdir", os.path.join(root, "mesh_cli")],
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=_ROOT,
+      env={**os.environ, "PYTHONPATH": _ROOT}, start_new_session=True)
+  try:
+    stdout, stderr = proc.communicate(timeout=600)
+  finally:
+    if proc.poll() is None:
+      os.killpg(proc.pid, signal.SIGKILL)
+      proc.wait()
+  seconds = time.perf_counter() - start
+  lines = [line for line in stdout.splitlines() if line.startswith("{")]
+  if proc.returncode or len(lines) != 1:
+    raise AssertionError(f"run_qtopt_replay --mesh {MESH_RANKS} rc "
+                         f"{proc.returncode}, {len(lines)} JSON lines:\n"
+                         f"{stdout[-3000:]}\n{stderr[-3000:]}")
+  result = json.loads(lines[0])
+  if (result["mesh_shape"] != {"data": MESH_RANKS, "model": 1}
+      or result["zero1"] is not True or result["steps"] < MESH_CLI_STEPS
+      or set(result["compile_counts"].values()) != {1}
+      or not np.isfinite(result["final_eval"]["eval_td_error"])):
+    raise AssertionError(f"the mesh CLI's line: {lines[0][:3000]}")
+  return {"seconds": seconds, "steps": result["steps"],
+          "mesh_shape": result["mesh_shape"], "zero1": result["zero1"],
+          "param_sharding": result["param_sharding"],
+          "compile_counts": result["compile_counts"],
+          "final_eval": result["final_eval"],
+          "buffer": result["buffer"]}
+
+
+def run_qtopt_mesh(torch, dev, seed: int, root: str, smi: str) -> dict:
+  """Slice 20's main path: the replay loop over two gloo ranks on the card
+  (see the docstring), each run against one rank's."""
+  import hashlib
+
+  from tensor2robot_tpu_torch.parallel import launch
+  from tensor2robot_tpu_torch.replay.loop import transition_spec
+  start = time.perf_counter()
+  tf32 = (torch.backends.cudnn.allow_tf32,
+          torch.backends.cuda.matmul.allow_tf32,
+          torch.backends.cudnn.deterministic)
+  _tf32_off(torch)
+  torch.backends.cudnn.deterministic = True
+  one = mesh_streams(dev, seed)
+  (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+   torch.backends.cudnn.deterministic) = tf32
+  one_seconds = time.perf_counter() - start
+  ranks = launch.launch(mesh_rank, MESH_RANKS, (seed,), device="cuda",
+                        timeout_s=600)
+  mesh_seconds = time.perf_counter() - start - one_seconds
+  report = {"ranks": MESH_RANKS, "nvidia_smi": smi, "tf32": False,
+            "compute_dtype": "float32", "capacity": MESH_CAPACITY,
+            "tolerances": {"rtol": MESH_LOSS_RTOL, "atol": MESH_LOSS_ATOL}}
+  # Before any learn: the ring and the fleet, whole, bit for bit.
+  unequal = []
+  for rank in ranks:
+    for part in ("env", "ring"):
+      for key, want in one["pretrain"][part].items():
+        if not np.array_equal(rank["pretrain"][part][key], want):
+          unequal.append(f"rank {rank['rank']} {part}/{key}")
+  if unequal:
+    raise AssertionError(f"the collect-only stream at dp={MESH_RANKS} "
+                         f"differs from one rank's: {unequal}")
+  report["pretrain"] = {
+      "bitwise_equal": True,
+      "episodes": int(one["pretrain"]["env"]["episodes"]),
+      "ring_sha256": hashlib.sha256(
+          one["pretrain"]["ring"]["storage/image"].tobytes()).hexdigest(),
+      "ring_bytes_one_rank": one["pretrain"]["ring_bytes_local"],
+      "ring_bytes_by_rank": [r["pretrain"]["ring_bytes_local"]
+                             for r in ranks]}
+  # Learns: within the float32 bound of one rank's.
+  for name in ("trained", "megastep"):
+    want = one[name]
+    diffs = [_relative_diffs(rank[name], want) for rank in ranks]
+    worst = max(max(d.values()) for d in diffs)
+    if not worst <= 1.0 or any(
+        g.get("trained_steps") != w.get("trained_steps")
+        for rank in ranks for g, w in zip(rank[name], want)):
+      raise AssertionError(f"{name} at dp={MESH_RANKS}: {diffs} of the "
+                           f"bound; {[r[name] for r in ranks]} against "
+                           f"{want}")
+    report[name] = {
+        "bound_share_by_rank": diffs,
+        "metrics_one_rank": [{k: m[k] for k in MESH_LOSS_KEYS}
+                             for m in want],
+        "metrics_rank0": [{k: m[k] for k in MESH_LOSS_KEYS}
+                          for m in ranks[0][name]]}
+  report["trained"]["dispatch_s_one_rank"] = [
+      m["seconds"] for m in one["trained"]]
+  report["trained"]["dispatch_s_by_rank"] = [
+      [m["seconds"] for m in rank["trained"]] for rank in ranks]
+  report["collectives_last_dispatch_by_rank"] = [
+      rank["collectives_last_dispatch"] for rank in ranks]
+  # Tensor parallelism: the flagship's partition rules split the critic.
+  tp2 = ranks[0]["tp2"]
+  sharding = tp2["param_sharding"]
+  if (tp2["mesh_shape"] != {"data": 1, "model": MESH_RANKS}
+      or not sharding["model_sharded_leaves"]
+      or not sharding["param_bytes_per_replica"]
+      < sharding["param_bytes_total"]
+      or tp2["compile_counts"] != {"anakin_step": 1}
+      or not all(np.isfinite(m[k]) for m in tp2["metrics"]
+                 for k in MESH_LOSS_KEYS)
+      or not all(m["trained_steps"] for m in tp2["metrics"])):
+    raise AssertionError(f"tp={MESH_RANKS}: {tp2}")
+  report["tp2"] = {
+      **tp2,
+      # Reported, not held: column-parallel convolutions compute each
+      # block of channels on its own.
+      "bound_share_vs_one_rank": _relative_diffs(
+          tp2["metrics"], one["trained"][:2])}
+  spec = transition_spec(64, 4)
+  row = sum(int(np.prod(s.shape)) * np.dtype(s.dtype).itemsize
+            for s in spec.values()) + 8  # and written_at's int64
+  capacity = mesh_config(seed).capacity
+  report["ring_bytes_per_transition"] = row
+  report["production_ring"] = {
+      "capacity": capacity, "bytes_whole": row * capacity,
+      "bytes_per_rank": row * capacity // MESH_RANKS}
+  report["cli"] = run_mesh_cli(seed, root)
+  report["seconds"] = {"one_rank": one_seconds, "mesh_ranks": mesh_seconds,
+                       "cli": report["cli"]["seconds"],
+                       "total": time.perf_counter() - start}
+  return report
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--seed", type=int, default=0)
   parser.add_argument("--background", default=None,
                       choices=("pose_records", "qtopt_capability",
-                               "meta_bc_graph"),
+                               "meta_bc_graph", "qtopt_mesh"),
                       help="run only this phase and print its result last "
                       "(the child process a Background starts)")
   args = parser.parse_args(argv)
@@ -6279,7 +6634,8 @@ def main(argv=None) -> int:
   # wait on the host's record parser with the card idle.
   records = [crc_rates()]
   background = {name: Background(name, args.seed)
-                for name in ("qtopt_capability", "pose_records")}
+                for name in ("qtopt_capability", "pose_records",
+                             "qtopt_mesh")}
   clock.lap("crc_and_background_start")
 
   # Slice 16's main paths: MAML through K1's forward and its second-order
@@ -6332,6 +6688,10 @@ def main(argv=None) -> int:
 
   capability = background["qtopt_capability"].result()
   records += background["pose_records"].result()["records"]
+  # Slice 20's main path: the replay loop over a mesh of two gloo ranks
+  # (a child beside maml and the zoo: it holds parity, no time).
+  mesh_result = background["qtopt_mesh"].result()
+  emit("qtopt_mesh", **mesh_result)
   emit("pose_records_summary", **records[0],
        success_rates={r["seed"]: r["success_rate"] for r in records[1:]},
        success_rates_at_0_1={r["seed"]: r["success_rate_at_0.1"]
@@ -6355,7 +6715,10 @@ def main(argv=None) -> int:
           "phase_s": capability["seconds"]},
       "pose_records": {
           "start_to_join_s": background["pose_records"].seconds,
-          "phase_s": sum(r["seconds"] for r in records[1:])}}
+          "phase_s": sum(r["seconds"] for r in records[1:])},
+      "qtopt_mesh": {
+          "start_to_join_s": background["qtopt_mesh"].seconds,
+          "phase_s": mesh_result["seconds"]["total"]}}
 
   # Slice 18's main paths: the parallel tier's training half, two gloo
   # ranks on the one card: Ulysses through K2-K4 a rank, ring attention,

@@ -6,6 +6,8 @@
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay --smoke --device-resident
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay --smoke --anakin
     python -m tensor2robot_tpu_torch.bin.run_qtopt_replay
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m tensor2robot_tpu_torch.bin.run_qtopt_replay --anakin --mesh 2
 
 Counterpart of ``tensor2robot_tpu/bin/run_qtopt_replay.py``'s host path:
 ``CEMFleetPolicy`` collectors on synthetic grasping, a sharded prioritized
@@ -46,8 +48,18 @@ block (the fused loop against the vector fleet beside the megastep at the
 same env count and policy, ``replay/anakin_bench.py``; skip it with
 ``--no-anakin-bench``). ``--precision bf16`` scores acting and labels
 at bfloat16 (``research/qtopt/cem.py``); the TD metrics stay float32.
-``--mesh`` (item 15b) waits for a later ``ROADMAP.md`` item and raises by
-name.
+
+``--mesh DP[,TP]`` runs the loop over a ``{"data": DP, "model": TP}``
+mesh of ranks (``replay/loop.py``): ZeRO-1 when DP > 1, the critic's own
+partition rules when TP > 1; with ``--anakin`` the env fleet and the ring
+split over the data axis too. Start DP * TP ranks with ``python -m
+torch.distributed.run --nproc-per-node DP*TP``: they join one process
+group (``parallel.distributed.initialize``; gloo under ``--device cpu``
+and for ranks that share a card), and the primary prints the JSON line,
+which then carries ``mesh_shape``, ``zero1`` and ``param_sharding``; the
+throughput blocks run on the primary alone. Under ``--smoke`` with
+``--anakin`` the fleet, the batch and the capacity round up to multiples
+of DP, as the JAX CLI's do. ``--mesh 0`` (the default) is one rank.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ import json
 import tempfile
 
 from tensor2robot_tpu_torch import Device
+from tensor2robot_tpu_torch.parallel import collectives, distributed
 
 
 def parse_profile(spec):
@@ -75,16 +88,44 @@ def parse_profile(spec):
   return start, end
 
 
+def parse_mesh(spec: str):
+  """'8' or '4,2' -> (dp, tp). '0' keeps the mode default mesh."""
+  parts = spec.split(",")
+  if len(parts) > 2:
+    raise ValueError(f"--mesh takes DP or DP,TP, got {spec!r}")
+  try:
+    dp = int(parts[0])
+    tp = int(parts[1]) if len(parts) == 2 else 1
+  except ValueError:
+    raise ValueError(f"--mesh takes integers, got {spec!r}")
+  if dp < 0 or tp < 1:
+    raise ValueError(
+        f"--mesh takes DP >= 1 (or 0 for the mode default) and "
+        f"TP >= 1, got {spec!r}")
+  if dp == 0 and tp != 1:
+    # dp=0 keeps the mode-default mesh, which would silently discard
+    # the requested TP degree — refuse instead.
+    raise ValueError(
+        f"--mesh 0,{tp} mixes the keep-default sentinel with an "
+        "explicit TP degree; name DP explicitly (e.g. "
+        f"--mesh 1,{tp}).")
+  return dp, tp
+
+
 def build_config(smoke: bool, seed: int, **options):
   """The JAX CLI's smoke and full configs, field for field. `options` are
   further config fields (device_resident, vector_actors, anakin,
-  profile_window, precision, the checkpoint fields, and mesh_dp, which
-  waits for a later item and which the config refuses off its default by
-  name)."""
+  profile_window, precision, the checkpoint fields, mesh_dp and
+  mesh_tp)."""
   from tensor2robot_tpu_torch.replay.loop import ReplayLoopConfig
   if smoke:
-    return ReplayLoopConfig(seed=seed, envs_per_collector=4, batch_size=32,
-                            capacity=512, **options)
+    dp = options.get("mesh_dp", 0)
+    # The fleet, the batch and the capacity all split over the data axis
+    # on the Anakin path: round them up to multiples of it.
+    up = (lambda v: -(-v // dp) * dp) if (
+        options.get("anakin") and dp > 1) else (lambda v: v)
+    return ReplayLoopConfig(seed=seed, envs_per_collector=up(4),
+                            batch_size=up(32), capacity=up(512), **options)
   return ReplayLoopConfig(
       image_size=64, batch_size=32, capacity=50_000, min_fill=2_000,
       num_buffer_shards=4, num_collectors=4, envs_per_collector=8,
@@ -120,6 +161,8 @@ def run(steps: int, smoke: bool, logdir: str, seed: int,
         optimizer_fn=optimizers.create_adam_optimizer(config.learning_rate))
   results = ReplayTrainLoop(config, logdir, model=model, watchdog=watchdog,
                             device=device).run(steps)
+  if not distributed.is_primary():  # the benches run on the primary alone
+    learner_bench = actor_bench = anakin_bench = False
   if config.device_resident and learner_bench:
     # The megastep against the host path at the same batch shape
     # (collector-free; replay/learner_bench).
@@ -205,7 +248,9 @@ def main(argv=None) -> None:
                       help="skip the anakin_throughput block of an "
                            "--anakin run")
   parser.add_argument("--mesh", default="0",
-                      help="DP[,TP]; any mesh waits for ROADMAP.md item 15b")
+                      help="DP or DP,TP: the loop over a mesh of DP*TP ranks "
+                           "(start them with torch.distributed.run); 0, the "
+                           "default, is one rank")
   parser.add_argument("--precision", default="f32", choices=("f32", "bf16"),
                       help="CEM scoring tier of acting and labels")
   parser.add_argument("--profile", default=None,
@@ -217,17 +262,30 @@ def main(argv=None) -> None:
   parser.add_argument("--out", default=None,
                       help="also write the JSON line to this file")
   args = parser.parse_args(argv)
+  dp, tp = parse_mesh(args.mesh)
   options = dict(device_resident=args.device_resident,
                  vector_actors=args.vector_actors, anakin=args.anakin,
-                 mesh_dp=0 if args.mesh == "0" else args.mesh,
+                 mesh_dp=dp, mesh_tp=tp,
                  profile_window=parse_profile(args.profile),
                  precision=args.precision)
   steps = args.steps or (300 if args.smoke else 10_000)
-  logdir = args.logdir or tempfile.mkdtemp(prefix="qtopt_replay_")
-  results = run(steps, args.smoke, logdir, args.seed, device=args.device,
-                actor_bench=not args.no_actor_bench,
-                learner_bench=not args.no_learner_bench,
-                anakin_bench=not args.no_anakin_bench, **options)
+  # The ranks of a torch.distributed.run launch join one group (one
+  # process is left as it is), on gloo under --device cpu.
+  distributed.initialize(device=args.device or "cuda")
+  primary = distributed.is_primary()
+  try:
+    # One logdir for every rank: the primary's.
+    logdir = collectives.broadcast_object(
+        args.logdir or (tempfile.mkdtemp(prefix="qtopt_replay_")
+                        if primary else None))
+    results = run(steps, args.smoke, logdir, args.seed, device=args.device,
+                  actor_bench=not args.no_actor_bench,
+                  learner_bench=not args.no_learner_bench,
+                  anakin_bench=not args.no_anakin_bench, **options)
+  finally:
+    distributed.shutdown()
+  if not primary:
+    return
   line = json.dumps(results)
   if args.out:
     with open(args.out, "w") as f:

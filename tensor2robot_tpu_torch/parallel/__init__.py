@@ -29,7 +29,6 @@ from tensor2robot_tpu_torch.parallel.tp_rules import (
     infer_dense_tp_specs_from_model,
     infer_fsdp_specs,
     infer_fsdp_specs_from_model,
-    specs_to_shardings,
 )
 from tensor2robot_tpu_torch.parallel.ulysses_attention import (
     ulysses_attention,
@@ -73,5 +72,4 @@ __all__ = [
     "infer_dense_tp_specs_from_model",
     "infer_fsdp_specs",
     "infer_fsdp_specs_from_model",
-    "specs_to_shardings",
 ]

@@ -3,8 +3,10 @@
 What the tier needs, over a mesh axis's process group (``Mesh.group``; a
 group of None is an axis of size 1, where every op is the identity):
 ``all_reduce``, ``all_gather`` and ``reduce_scatter`` along a dimension,
-``all_to_all`` between two dimensions, and ``ring_shift`` (send to the
-next rank of the ring, receive from the previous one). Below them, the
+``all_to_all`` between two dimensions, ``ring_shift`` (send to the
+next rank of the ring, receive from the previous one), and over the whole
+world ``broadcast_object`` (one rank's picklable object on every rank: the
+replay loop's host batches). Below them, the
 autograd functions that the trainer, ring and Ulysses attention
 differentiate through.
 
@@ -183,6 +185,29 @@ def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
 
   _run("send_recv", group, {"x": send}, {"out": out}, call)
   return out
+
+
+def _nbytes(obj) -> int:
+  """The array bytes in `obj` and the dicts, tuples and lists it holds."""
+  if isinstance(obj, dict):
+    return sum(_nbytes(value) for value in obj.values())
+  if isinstance(obj, (tuple, list)):
+    return sum(_nbytes(value) for value in obj)
+  return int(getattr(obj, "nbytes", 0))
+
+
+def broadcast_object(obj, src: int = 0):
+  """`obj` as global rank `src` holds it, on every rank of the world
+  (pickled, through ``broadcast_object_list``); the identity without a
+  process group. ``payload_bytes`` counts the arrays the source sends."""
+  if not dist.is_initialized() or dist.get_world_size() == 1:
+    return obj
+  calls["broadcast_object"] += 1
+  if dist.get_rank() == src:
+    payload_bytes["broadcast_object"] += _nbytes(obj)
+  box = [obj]
+  dist.broadcast_object_list(box, src=src)
+  return box[0]
 
 
 def local_block(x: torch.Tensor, group, dim: int) -> torch.Tensor:

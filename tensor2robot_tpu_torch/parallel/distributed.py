@@ -177,11 +177,3 @@ def global_put(tree: Any, shardings, device=None) -> Any:
   if isinstance(shardings, mesh_lib.NamedSharding):
     return tree_map(lambda leaf: place(leaf, shardings), tree)
   return tree_map(place, tree, shardings)
-
-
-def global_scalar(value, mesh, dtype=None) -> torch.Tensor:
-  """A scalar every rank holds alike: ``global_put`` of it replicated on
-  `mesh` (JAX's replicated global scalar)."""
-  from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
-  return global_put(torch.as_tensor(value, dtype=dtype),
-                    mesh_lib.replicated_sharding(mesh))

@@ -8,10 +8,6 @@ both packages and the inferred spec trees equal JAX's leaf for leaf. The
 trainer maps a flax spec onto its ``state_dict`` tensor's layout with
 ``state_dict_specs`` (an OIHW ``weight``'s dims are the HWIO kernel's
 permuted).
-
-``specs_to_shardings`` gives each spec as DTensor placements, one a mesh
-axis (``Shard(dim)`` or ``Replicate()``): how ``torch.distributed.tensor``
-would name the layout the trainer keeps by hand.
 """
 
 from __future__ import annotations
@@ -195,20 +191,6 @@ def infer_fsdp_specs_from_model(model, mesh: Mesh, axis: str = "data",
                                 min_size: int = 4096) -> Any:
   return infer_fsdp_specs(param_shapes(model), mesh, axis=axis,
                           min_size=min_size)
-
-
-def specs_to_shardings(specs: Any, mesh: Mesh) -> Any:
-  """Spec tree -> DTensor placements tree: for each leaf a tuple with one
-  placement a mesh axis, ``Shard(dim)`` where the spec splits dim over
-  that axis, else ``Replicate()``."""
-  from torch.distributed.tensor.placement_types import Replicate, Shard
-
-  def placements(path, spec):
-    dims = {axis: dim for dim, axis in enumerate(spec) if axis is not None}
-    return tuple(Shard(dims[axis]) if axis in dims else Replicate()
-                 for axis in mesh.axis_names)
-
-  return tree_map_with_path(placements, specs)
 
 
 # flax dim of each torch dim, for the tensors the bridge transposes.

@@ -62,6 +62,22 @@ graph; the env step, the extend, the gradients and the TD errors stay
 float32, and the loop still captures once. ``dtype`` names the scoring
 dtype.
 
+**Over a mesh of ranks** (the trainer's mesh, ``Trainer(mesh=)``), the
+JAX loop's sharded layout: the env fleet splits over the data axis
+(``DeviceGraspEnv.state_shardings``; each rank acts for and steps its
+block of envs with its block of the global draws), the ring splits its
+capacity (``DeviceReplayBuffer(mesh=)``; each control step gathers the
+fleet's chunk and each rank writes the slots it holds), and the learn
+keeps each rank's block of the sampled batch and trains data parallel
+(``make_learn_iteration_fn(constrain_batch=)``, ZeRO-1 when the trainer
+shards its optimizer state). Acting scores with the whole EMA variables
+and labels with the whole target, on every rank. Every draw is the
+global stream's, so before the first learn the ring, the fleet and the
+episode counts equal one rank's bit for bit; once learns run, the
+gradient all-reduce sums in another order. Over more than one rank every
+dispatch runs eagerly (gloo's collectives run on the host, outside any
+CUDA graph).
+
 **The ledger.** With ``ledger=`` (``obs/ledger.py``) the period's
 program registers as ``anakin_step`` (shapes ``{inner_steps, fleet,
 batch}``, the scoring tier) with the FLOPs of a dispatch whose periods all
@@ -87,6 +103,8 @@ from torch.utils.flop_counter import FlopCounterMode
 from tensor2robot_tpu_torch.obs import health as health_lib
 from tensor2robot_tpu_torch.obs import trace as trace_lib
 from tensor2robot_tpu_torch.ops import graph_launches
+from tensor2robot_tpu_torch.parallel import collectives
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.replay.bellman import (
     TargetNetwork,
     make_bellman_targets_fn,
@@ -94,8 +112,11 @@ from tensor2robot_tpu_torch.replay.bellman import (
 )
 from tensor2robot_tpu_torch.replay.device_buffer import (
     DeviceReplayBuffer,
+    check_ring_mesh,
     make_learn_iteration_fn,
+    mesh_hooks,
     sample_draws,
+    target_sharding,
 )
 from tensor2robot_tpu_torch.research.qtopt import cem
 from tensor2robot_tpu_torch.research.qtopt.device_grasping import (
@@ -107,6 +128,8 @@ from tensor2robot_tpu_torch.train import trainer as trainer_lib
 # The draw streams' seed offsets: the JAX loop's key offsets.
 _LABEL, _ACT, _ENV_INIT, _ENV, _EXPLORE = 1, 7, 21, 31, 555
 _LOSS_KEYS = ("loss", "td_error", "q_next", "staleness")
+# Draw fields with one row an env of the fleet (a rank reads its block).
+_FLEET_FIELDS = ("act_noise", "draw", "uniform", "normal", "reset_targets")
 
 
 class DrawLayout:
@@ -165,7 +188,8 @@ class AnakinLoop(TargetNetwork):
   Args:
     model / trainer / buffer: the megastep's trio, on one device; the
       buffer's ``ingest_chunk`` must equal the fleet width (one extend
-      shape).
+      shape). Over the trainer's mesh the buffer lies on that mesh, and
+      the fleet and the sample batch must divide its data axis.
     env: a ``DeviceGraspEnv`` (bank or procedural scenes).
     action_size / gamma / num_samples / num_elites / iterations: acting's
       and labelling's CEM and the discount.
@@ -225,7 +249,32 @@ class AnakinLoop(TargetNetwork):
       raise ValueError(
           f"capacity {buffer.capacity} >= 2^24: slot draws ride the float32 "
           "draw buffer and must be exact")
-    super().__init__(polyak_tau=polyak_tau, device=trainer.device)
+    # The trainer's mesh is the loop's: the fleet and the learn batch
+    # split over its data axis, so both must divide it.
+    self.mesh = trainer.mesh
+    self._data_axis = trainer.data_axis
+    axis_size = (self.mesh.shape.get(self._data_axis, 1)
+                 if self.mesh is not None else 1)
+    if env.num_envs % axis_size:
+      raise ValueError(
+          f"env fleet width {env.num_envs} is not divisible by the "
+          f"{self._data_axis!r} mesh axis size ({axis_size} devices), so "
+          f"the per-shard env fleets cannot form. Use a fleet of "
+          f"{mesh_lib.nearest_multiples(env.num_envs, axis_size)} envs, or a "
+          f"data axis that divides {env.num_envs}.")
+    if buffer.sample_batch_size % axis_size:
+      raise ValueError(
+          f"sample batch {buffer.sample_batch_size} is not divisible by "
+          f"the {self._data_axis!r} mesh axis size ({axis_size} devices), "
+          f"so the fused learn body cannot run data-parallel. Use a batch "
+          f"of "
+          f"{mesh_lib.nearest_multiples(buffer.sample_batch_size, axis_size)}.")
+    check_ring_mesh(trainer, buffer)
+    # Placement follows the whole mesh, not its data axis: a dp=1, tp>1
+    # mesh still runs every rank's collectives and holds the target whole.
+    self._sharded = mesh_lib.is_distributed(self.mesh)
+    super().__init__(polyak_tau=polyak_tau, device=trainer.device,
+                     sharding=target_sharding(trainer))
     self.precision = cem.validate_precision(precision)
     self.dtype = str(cem.scoring_dtype(precision)).replace("torch.", "")
     self._model = model
@@ -246,10 +295,19 @@ class AnakinLoop(TargetNetwork):
     self._clip_targets = getattr(model, "loss_type",
                                  "cross_entropy") == "cross_entropy"
     self.health = bool(health)
-    self._graphs = graphs and self.device.type == "cuda"
+    self._graphs = (graphs and self.device.type == "cuda"
+                    and not self._sharded)
     self._factored = getattr(model, "factored_cem_fns", lambda: None)()
-    self._env_step = env.step_fn()
-    self._extend = buffer.extend_fn()
+    mesh = self.mesh if self._sharded else None
+    self._env_step = env.step_fn(mesh, self._data_axis)
+    self._extend = buffer.extend_fn(local_rows=self._sharded)
+    # This rank's block of the fleet: [first, first + local).
+    local = env.num_envs // axis_size
+    first = (self.mesh.axis_index(self._data_axis) * local
+             if self._sharded else 0)
+    self._fleet = slice(first, first + local)
+    self._env_shardings = (env.state_shardings(self.mesh, self._data_axis)
+                           if self._sharded else None)
     self._learn = None
     self._graph: Optional[_AnakinGraph] = None
     self._built = False
@@ -288,7 +346,8 @@ class AnakinLoop(TargetNetwork):
     self._true = torch.ones((), dtype=torch.bool, device=self.device)
     self.env_state = env.init_state(
         None if env.bank is not None
-        else procedural_draws(seed + _ENV_INIT, 0, n))
+        else procedural_draws(seed + _ENV_INIT, 0, n), mesh=mesh,
+        axis=self._data_axis)
     self._outer = 0
     self._episodes = self._successes = 0
     self.env_steps = 0
@@ -301,8 +360,11 @@ class AnakinLoop(TargetNetwork):
 
   @property
   def mesh_shape(self) -> Dict[str, int]:
-    """The mesh the loop spans: one device."""
-    return {"data": 1}
+    """{axis: size} of the mesh the loop spans ({"data": 1} on one
+    rank)."""
+    if self.mesh is None:
+      return {"data": 1}
+    return {str(axis): int(size) for axis, size in self.mesh.shape.items()}
 
   @property
   def episodes(self) -> int:
@@ -317,9 +379,21 @@ class AnakinLoop(TargetNetwork):
 
   def checkpoint_state(self):
     """The carried device state: the env fleet, the ring and the target
-    net (the train state stays with the caller)."""
+    net (the train state stays with the caller); over a mesh, this rank's
+    parts of the fleet and the ring."""
     return {"env": self.env_state, "buffer": self._buffer.state,
             "target": self._target_variables}
+
+  def checkpoint_arrays(self) -> Dict[str, Dict[str, np.ndarray]]:
+    """Host copies of the whole env fleet and ring, as a checkpoint holds
+    them (over a mesh every rank gathers: a collective)."""
+    env = self.env_state.arrays()
+    if self._sharded:
+      group = self.mesh.group(self._data_axis)
+      for name in ("images", "targets", "attempts"):
+        env[name] = collectives.all_gather(
+            getattr(self.env_state, name), group, 0).cpu().numpy()
+    return {"env": env, "buffer": self._buffer.checkpoint_arrays()}
 
   def checkpoint_meta(self) -> Dict[str, int]:
     """The host counters the device state does not carry."""
@@ -333,7 +407,7 @@ class AnakinLoop(TargetNetwork):
     target's own tensors (a captured graph keeps reading them) and
     restores the counters, so the next dispatch continues the draws where
     the save cut them."""
-    self.env_state.load(composite["env"])
+    self.env_state.load(composite["env"], self._env_shardings)
     self._buffer.load_state(composite["buffer"])
     self._assign(composite["target"], polyak=False)
     self._outer = int(meta["outer"])
@@ -361,7 +435,8 @@ class AnakinLoop(TargetNetwork):
         self._model, step_fn, buffer.sample_fn(),
         buffer.update_priorities_fn(), targets_fn,
         getattr(self._model, "target_key", "target_q"), self._clip_targets,
-        health_entropy_fn=buffer.priority_entropy_fn() if health else None)
+        health_entropy_fn=buffer.priority_entropy_fn() if health else None,
+        **mesh_hooks(trainer))
 
   def _act(self, variables, obs: torch.Tensor, targets: torch.Tensor,
            draws: Mapping[str, torch.Tensor], t: int) -> torch.Tensor:
@@ -390,8 +465,14 @@ class AnakinLoop(TargetNetwork):
     if self._learn is None:
       self._learn = self._build_learn()
     draws = self.layout.views(row)
+    if self._sharded:
+      draws.update({name: value[:, self._fleet]
+                    for name, value in draws.items()
+                    if name in _FLEET_FIELDS})
     env, ring = self.env_state, self._buffer.state
-    variables = state.variables(use_ema=True)
+    # Acting scores with the whole EMA variables (gathered over a mesh
+    # whose model axis splits them).
+    variables = state.full_variables(use_ema=True)
     with torch.no_grad():
       for t in range(self.train_every):
         obs = env.images.clone()

@@ -37,8 +37,11 @@ as ``td_error`` at "f32", each with the FLOPs its first call counted
 (``FlopCounterMode``), and every call records its host seconds through its
 numpy readback, the wait the call already has.
 
-The JAX updater's multi-process target placement (``ROADMAP.md`` item
-15b-ii) is not ported; asking for it raises by name.
+Over a mesh of ranks, ``TargetNetwork(sharding=)`` places the target
+where the sharding says (``parallel.distributed.global_put``): the fused
+learners pass the mesh's replicated sharding, so every rank labels with
+the whole target; a refresh takes the whole online variables (the loop
+gathers a tensor-parallel state's blocks first, ``full_variables``).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from tensor2robot_tpu_torch import Device, resolve_device
+from tensor2robot_tpu_torch.parallel import distributed
 from tensor2robot_tpu_torch.research.qtopt import cem
 
 
@@ -147,19 +151,17 @@ class TargetNetwork:
       copied onto `device`; None leaves the target cold.
     polyak_tau: None copies on refresh; else target <- tau * online +
       (1 - tau) * target per refresh.
-    sharding: the JAX package's mesh placement of the target; it waits
-      for ``ROADMAP.md``'s flagship item 15b-ii and raises when given.
+    sharding: a ``parallel.mesh.NamedSharding``: each rank keeps the
+      part of every target tensor its spec gives it (the whole tensor
+      under the replicated sharding the fused learners pass). The
+      variables handed in are whole on every rank. None copies them.
     device: where the target lives; the GPU unless 'cpu' is asked for.
   """
 
   def __init__(self, variables=None, polyak_tau: Optional[float] = None,
                sharding=None, device: Device = None):
-    if sharding is not None:
-      raise NotImplementedError(
-          "TargetNetwork(sharding=) places the target over a mesh, which "
-          "waits for ROADMAP.md's flagship item 15b-ii (the loop over a "
-          "mesh).")
     self.device = resolve_device(device)
+    self._sharding = sharding
     self._polyak_tau = polyak_tau
     self._target_variables = (None if variables is None
                               else self._copy(variables))
@@ -167,6 +169,13 @@ class TargetNetwork:
     self.last_refresh_step = 0
 
   def _copy(self, variables) -> Dict[str, torch.Tensor]:
+    """Copies of `variables` on the target's device: this rank's parts of
+    them under a sharding."""
+    if self._sharding is not None:
+      return distributed.global_put(
+          {key: torch.as_tensor(value).detach()
+           for key, value in variables.items()},
+          self._sharding, device=self.device)
     return {key: torch.as_tensor(value).detach().to(self.device, copy=True)
             for key, value in variables.items()}
 
@@ -177,6 +186,8 @@ class TargetNetwork:
       self._target_variables = self._copy(variables)
       return
     tau = self._polyak_tau
+    if self._sharding is not None:
+      variables = self._copy(variables)
     with torch.no_grad():
       for key, target in self._target_variables.items():
         value = torch.as_tensor(variables[key]).to(self.device)

@@ -55,8 +55,21 @@ iteration of one eager dispatch, the graphed path's warm-up or the eager
 path's first) and records each dispatch from its launch through the
 metrics readback, its one wait.
 
-Not ported, and refused by name: a mesh with capacity sharding
-(``ROADMAP.md``'s flagship item 15b-ii).
+**Over a mesh of ranks.** ``DeviceReplayBuffer(mesh=)`` splits the ring
+over the mesh's data axis (``parallel.mesh.ring_sharding``): each rank
+holds ``capacity / dp`` rows of the storage and of ``written_at``, a
+contiguous block of the global slots, while the cursors, the sum tree and
+``max_priority`` stay whole on every rank and change alike, from the same
+global draws. An extend writes the rows of the global chunk that fall in
+this rank's block (``extend_fn(local_rows=True)`` first gathers a chunk
+whose rows the ranks hold in blocks, the Anakin fleet's); a sample draws
+global slots, each rank reads the rows it owns, and one ``all_gather``
+of their bytes gives every rank the whole batch. The learn iteration then
+keeps this rank's block of it (``constrain_batch``), trains data parallel
+through the trainer's mesh, and gathers the TD errors so every rank
+writes the same priorities. A mesh of more than one rank runs the
+megastep eagerly: gloo's collectives run on the host, outside any CUDA
+graph (``trainer.check_graphable``).
 """
 
 from __future__ import annotations
@@ -75,6 +88,8 @@ from tensor2robot_tpu_torch import Device, resolve_device
 from tensor2robot_tpu_torch.obs import health as health_lib
 from tensor2robot_tpu_torch.obs import trace as trace_lib
 from tensor2robot_tpu_torch.ops import graph_launches
+from tensor2robot_tpu_torch.parallel import collectives, distributed
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.replay.bellman import (
     TargetNetwork,
     make_bellman_targets_fn,
@@ -205,9 +220,13 @@ class DeviceReplayBuffer:
   reading them never waits on the card.
 
   Args:
-    mesh / data_axis: the JAX buffer's capacity sharding over a mesh; they
-      wait for ``ROADMAP.md``'s flagship item 15b-ii and raise when given.
-      ``shard_capacity`` has nothing to shard on one device.
+    mesh / data_axis: a ``parallel.mesh.Mesh`` of ranks whose `data_axis`
+      splits the ring's capacity (see the module's docstring). Every rank
+      makes the same calls: host extends with the same rows, samples and
+      priority updates in the same order.
+    shard_capacity: False keeps the whole ring on every rank of the mesh
+      (correct, and dp times the memory); the default splits it and
+      refuses a capacity the axis does not divide.
     ledger: an ``obs.ledger.ExecutableLedger`` each ring function
       registers into at its first use; each host call records its seconds
       (``extend`` and ``update_priorities`` their launches only, a lower
@@ -231,12 +250,6 @@ class DeviceReplayBuffer:
       ledger=None,
       device: Device = None,
   ):
-    del shard_capacity  # one device holds the whole ring
-    if mesh is not None or data_axis != "data":
-      raise NotImplementedError(
-          "DeviceReplayBuffer(mesh=, data_axis=) shards the ring over a "
-          "mesh, which waits for ROADMAP.md's flagship item 15b-ii (the "
-          "loop over a mesh).")
     if capacity < 1:
       raise ValueError(f"capacity must be >= 1, got {capacity}")
     if sample_batch_size < 1:
@@ -245,6 +258,27 @@ class DeviceReplayBuffer:
     self._spec = ts.flatten_spec_structure(transition_spec)
     if not list(self._spec.keys()):
       raise ValueError("transition_spec has no leaves")
+    axis_size = mesh.shape[data_axis] if mesh is not None else 1
+    if shard_capacity and axis_size > 1 and capacity % axis_size:
+      raise ValueError(
+          f"capacity {capacity} is not divisible by the {data_axis!r} "
+          f"mesh axis size ({axis_size} devices), so the ring cannot "
+          f"capacity-shard and would silently replicate the full "
+          f"storage on every device. Use the nearest divisible "
+          f"capacity ({mesh_lib.nearest_multiples(capacity, axis_size)}), "
+          "or pass shard_capacity=False for a "
+          "deliberately replicated ring.")
+    if mesh_lib.is_distributed(mesh) and mesh.is_virtual:
+      raise ValueError(f"{mesh} has no process groups on this process; "
+                       "initialize the ranks before building the ring.")
+    self.mesh = mesh
+    self.data_axis = data_axis
+    self.shard_capacity = bool(shard_capacity and axis_size > 1)
+    self._group = mesh.group(data_axis) if axis_size > 1 else None
+    # This rank's block of the global slots: [first, first + rows).
+    self.rows = capacity // axis_size if self.shard_capacity else capacity
+    self._first = (mesh.axis_index(data_axis) * self.rows
+                   if self.shard_capacity else 0)
     self.device = resolve_device(device)
     self.capacity = capacity
     self.sample_batch_size = sample_batch_size
@@ -274,10 +308,10 @@ class DeviceReplayBuffer:
 
     return DeviceReplayState(
         storage={key: torch.zeros(
-            (self.capacity,) + tuple(spec.shape), device=dev,
+            (self.rows,) + tuple(spec.shape), device=dev,
             dtype=torch.from_numpy(np.empty(0, np.dtype(spec.dtype))).dtype)
                  for key, spec in self._spec.items()},
-        written_at=torch.zeros(self.capacity, dtype=torch.int64, device=dev),
+        written_at=torch.zeros(self.rows, dtype=torch.int64, device=dev),
         next_slot=scalar(torch.int64),
         size=scalar(torch.int64),
         append_count=scalar(torch.int64),
@@ -287,24 +321,66 @@ class DeviceReplayBuffer:
 
   @property
   def state(self) -> DeviceReplayState:
-    """The ring's tensors (the megastep reads and writes them in place)."""
+    """The ring's tensors (the megastep reads and writes them in place);
+    over a capacity-sharded mesh, this rank's block of the storage and
+    ``written_at``."""
     return self._state
 
+  def state_shardings(self) -> Dict[str, mesh_lib.NamedSharding]:
+    """{``DeviceReplayState.arrays`` key: sharding}: the storage and
+    ``written_at`` split over the data axis (``ring_sharding``) when the
+    capacity is, the scalars and the tree whole on every rank (the tree's
+    heap layout has no capacity-aligned axis to split)."""
+    mesh = self.mesh or mesh_lib.create_mesh({self.data_axis: 1},
+                                             devices=[0])
+    whole = mesh_lib.replicated_sharding(mesh)
+    rows = (mesh_lib.ring_sharding(mesh, self.data_axis)
+            if self.shard_capacity else whole)
+    out = {f"storage/{key}": rows for key in self._spec}
+    out["written_at"] = rows
+    out.update({name: whole for name in ("tree",) + _SCALARS})
+    return out
+
   def load_state(self, state: DeviceReplayState) -> None:
-    """Copies `state` (tensors or arrays) into the ring's own tensors, so
-    a captured graph keeps reading them; the host counts follow."""
+    """Copies `state` (tensors or arrays of the whole ring) into the
+    ring's own tensors, so a captured graph keeps reading them; over a
+    capacity-sharded mesh each rank takes its block
+    (``distributed.global_put``). The host counts follow."""
+    flat = {f"storage/{key}": value for key, value in state.storage.items()}
+    flat.update({name: getattr(state, name)
+                 for name in ("written_at", "tree") + _SCALARS})
     with self._lock, torch.no_grad():
       if self._pending_count:
         raise RuntimeError(
             f"load_state with {self._pending_count} host rows staged")
+      placed = distributed.global_put(flat, self.state_shardings(),
+                                      device=self.device)
       ours = self._state
-      for key, value in state.storage.items():
-        ours.storage[key].copy_(torch.as_tensor(value))
-      for name in ("written_at", "tree") + _SCALARS:
-        getattr(ours, name).copy_(torch.as_tensor(getattr(state, name)))
+      for key, value in placed.items():
+        if key.startswith("storage/"):
+          ours.storage[key[len("storage/"):]].copy_(value)
+        else:
+          getattr(ours, key).copy_(value)
       self._next = int(ours.next_slot)
       self._size = int(ours.size)
       self._appended = int(ours.append_count)
+
+  def checkpoint_arrays(self) -> Dict[str, np.ndarray]:
+    """Host copies of the whole ring, keyed as ``DeviceReplayState.arrays``
+    (a checkpoint's layout): over a capacity-sharded mesh every rank
+    gathers the storage and ``written_at`` (a collective)."""
+    state = self._state
+    if not self.shard_capacity:
+      return state.arrays()
+    out = {}
+    for key, value in state.storage.items():
+      out[f"storage/{key}"] = collectives.all_gather(
+          value, self._group, 0).cpu().numpy()
+    out["written_at"] = collectives.all_gather(
+        state.written_at, self._group, 0).cpu().numpy()
+    for name in ("tree",) + _SCALARS:
+      out[name] = getattr(state, name).cpu().numpy()
+    return out
 
   @staticmethod
   def state_from_arrays(arrays: Mapping[str, np.ndarray]
@@ -334,22 +410,35 @@ class DeviceReplayBuffer:
     if self._ledger is not None:
       self._ledger.record_dispatch(name, time.perf_counter() - start)
 
-  def extend_fn(self) -> Callable:
+  def extend_fn(self, local_rows: bool = False) -> Callable:
     """(state, {key: (chunk, *shape) tensor}) -> state: one fixed-chunk
     ring write with wraparound; fresh slots enter the tree at the current
     max priority. The chunk is at most the capacity, so its positions are
-    distinct."""
+    distinct. Over a capacity-sharded mesh each rank writes the rows whose
+    slots it holds; with `local_rows` the batch is this rank's block of
+    the chunk along the data axis, gathered first."""
     capacity, chunk = self.capacity, self.ingest_chunk
     prioritized, depth, n_leaves = (self.prioritized, self._depth,
                                     self._n_leaves)
     offsets = torch.arange(chunk, dtype=torch.int64, device=self.device)
+    group, first, rows = self._group, self._first, self.rows
+    sharded = self.shard_capacity
 
     def extend(state: DeviceReplayState, batch) -> DeviceReplayState:
+      if local_rows:
+        batch = {key: collectives.all_gather(value, group, 0)
+                 for key, value in batch.items()}
       positions = (state.next_slot + offsets) % capacity
+      written = state.append_count + offsets
+      slots = positions
+      if sharded:
+        local = positions - first
+        keep = ((local >= 0) & (local < rows)).nonzero().squeeze(1)
+        slots, written = local[keep], written[keep]
       for key, storage in state.storage.items():
-        storage.index_copy_(0, positions, batch[key].to(storage.dtype))
-      state.written_at.index_copy_(0, positions,
-                                   state.append_count + offsets)
+        values = batch[key].to(storage.dtype)
+        storage.index_copy_(0, slots, values[keep] if sharded else values)
+      state.written_at.index_copy_(0, slots, written)
       if prioritized:
         tree_set(state.tree, positions, state.max_priority.expand(chunk),
                  depth, n_leaves)
@@ -371,6 +460,7 @@ class DeviceReplayBuffer:
     n, capacity = self.sample_batch_size, self.capacity
     prioritized, depth, n_leaves = (self.prioritized, self._depth,
                                     self._n_leaves)
+    read_rows = self._rows_fn()
 
     def sample(state: DeviceReplayState, uniform_idx: torch.Tensor,
                uniforms: torch.Tensor):
@@ -386,12 +476,46 @@ class DeviceReplayBuffer:
         indices = uniform_idx
         probabilities = torch.ones(n, dtype=torch.float32,
                                    device=size.device) / size
-      batch = {key: storage[indices]
-               for key, storage in state.storage.items()}
-      staleness = state.append_count - state.written_at[indices]
+      batch, written_at = read_rows(state, indices)
+      staleness = state.append_count - written_at
       return batch, indices, probabilities, staleness
 
     return sample
+
+  def _rows_fn(self) -> Callable:
+    """(state, global slots (n,)) -> ({key: rows}, written_at rows), whole
+    on every rank. Over a capacity-sharded mesh each rank reads the rows
+    it holds (zeros elsewhere), packs them as bytes, and one all_gather
+    lets every rank take each row from its owner."""
+    if not self.shard_capacity:
+      return lambda state, indices: (
+          {key: storage[indices] for key, storage in state.storage.items()},
+          state.written_at[indices])
+    group, first, rows = self._group, self._first, self.rows
+
+    def read(state: DeviceReplayState, indices: torch.Tensor):
+      n = len(indices)
+      local = indices - first
+      owned = (local >= 0) & (local < rows)
+      safe = torch.where(owned, local, 0)
+      parts = {key: storage[safe] for key, storage in state.storage.items()}
+      parts["written_at"] = state.written_at[safe]
+      columns = [value.reshape(n, -1).view(torch.uint8)
+                 for value in parts.values()]
+      packed = torch.where(owned[:, None], torch.cat(columns, dim=1), 0)
+      every = collectives.all_gather(packed[None], group, 0)
+      picked = every[torch.div(indices, rows, rounding_mode="floor"),
+                     torch.arange(n, device=indices.device)]
+      out, offset = {}, 0
+      for (key, value), column in zip(parts.items(), columns):
+        width = column.shape[1]
+        out[key] = picked[:, offset:offset + width].contiguous().view(
+            value.dtype).reshape(value.shape)
+        offset += width
+      written_at = out.pop("written_at")
+      return out, written_at
+
+    return read
 
   def update_priorities_fn(self) -> Callable:
     """(state, indices, td_errors) -> state: the (|td| + eps)^alpha
@@ -613,9 +737,32 @@ class DeviceReplayBuffer:
     }
 
 
+def _ema_predict(model, state, features):
+  """PREDICT outputs of the fresh EMA variables; over a mesh through the
+  trainer's layout (a tensor-parallel rank holds blocks of them)."""
+  layout = state.layout
+  if layout is None:
+    return model.predict_fn(state.variables(use_ema=True), features)
+  with layout.forward_context(train=False):
+    return model.predict_fn(layout.forward_variables(state, use_ema=True),
+                            features)
+
+
+def parameter_health(state) -> Tuple[torch.Tensor, torch.Tensor]:
+  """(global L2 norm, non-finite count) of the parameters: a layout's
+  sums over the axes that split them, when any does."""
+  layout = state.layout
+  if layout is not None and any(spec.axes() for spec in layout.specs.values()):
+    norm, nonfinite = layout.parameter_health(state)
+    return norm, nonfinite.float()
+  return (health_lib.tree_global_norm(state.params),
+          health_lib.tree_nonfinite_count(state.params).float())
+
+
 def make_learn_iteration_fn(model, step_fn, sample, update_priorities,
                             targets_fn, target_key: str, clip_targets: bool,
-                            constrain_batch=None, health_entropy_fn=None):
+                            constrain_batch=None, health_entropy_fn=None,
+                            gather_rows=None):
   """One sample -> label -> train -> TD -> reprioritize iteration:
 
   (train_state, buffer_state, target_variables, (uniform_idx, uniforms),
@@ -628,45 +775,50 @@ def make_learn_iteration_fn(model, step_fn, sample, update_priorities,
   does. `health_entropy_fn` (the ring's ``priority_entropy_fn``) adds the
   ``health.SUMMARY_KEYS``; `step_fn` must then add ``grad_norm`` and
   ``grads_nonfinite`` (``train_step(with_health=True)``).
-  `constrain_batch` re-shards the batch over a mesh, which waits for
-  ``ROADMAP.md``'s flagship item 15b-ii.
+
+  Over a mesh (``Trainer.shard_batch`` and ``gather_batch``):
+  `constrain_batch` maps (the sampled global batch, its label noise) to
+  this rank's block of both, so the labels, the train step and the TD
+  forward run data parallel; `gather_rows` maps this rank's rows of a
+  (rows, k) tensor to the global batch's, so every rank reduces the same
+  TD errors and writes the same priorities.
   """
-  if constrain_batch is not None:
-    raise NotImplementedError(
-        "make_learn_iteration_fn(constrain_batch=) lays the batch over a "
-        "mesh, which waits for ROADMAP.md's flagship item 15b-ii.")
 
   def learn(train_state, buffer_state, target_variables, sample_draws,
             label_noise):
     with torch.no_grad():
       batch, indices, _, staleness = sample(buffer_state, *sample_draws)
+      if constrain_batch is not None:
+        batch, label_noise = constrain_batch((batch, label_noise))
       targets, q_next = targets_fn(target_variables, batch["next_image"],
                                    batch["reward"], batch["done"],
                                    label_noise)
     train_state, metrics = step_fn(
         train_state, {"image": batch["image"], "action": batch["action"]},
         {target_key: targets})
-    outputs = model.predict_fn(train_state.variables(use_ema=True),
-                               {"image": batch["image"],
-                                "action": batch["action"].float()})
+    outputs = _ema_predict(model, train_state,
+                           {"image": batch["image"],
+                            "action": batch["action"].float()})
     with torch.no_grad():
       q = q_value_from_logits(outputs["q_predicted"].reshape(-1),
                               clip_targets)
+      if gather_rows is not None:
+        q, targets, q_next = gather_rows(
+            torch.stack([q, targets.float(), q_next.float()], 1)).unbind(1)
       td = torch.abs(q - targets)
       update_priorities(buffer_state, indices, td)
       age = staleness.float().mean()
       inner = {"loss": metrics["loss"].float(), "td_error": td.mean(),
                "q_next": q_next.mean(), "staleness": age}
       if health_entropy_fn is not None:
+        param_norm, nonfinite_params = parameter_health(train_state)
         inner.update({
             "health/nonfinite_grads": metrics["grads_nonfinite"].float(),
-            "health/nonfinite_params": health_lib.tree_nonfinite_count(
-                train_state.params),
+            "health/nonfinite_params": nonfinite_params,
             "health/nonfinite_targets": (~torch.isfinite(targets)).sum(
                 dtype=torch.float32),
             "health/grad_norm": metrics["grad_norm"].float(),
-            "health/param_norm": health_lib.tree_global_norm(
-                train_state.params),
+            "health/param_norm": param_norm,
             "health/td_mean": td.mean(),
             "health/td_max": td.max(),
             "health/q_mean": q.mean(),
@@ -714,6 +866,32 @@ class _MegastepGraph:
     return self.metrics
 
 
+def mesh_hooks(trainer) -> Dict[str, Callable]:
+  """``make_learn_iteration_fn``'s mesh hooks for `trainer`: its
+  ``shard_batch`` and ``gather_batch`` over a mesh, none on one rank."""
+  if trainer.layout is None:
+    return {}
+  return {"constrain_batch": trainer.shard_batch,
+          "gather_rows": trainer.gather_batch}
+
+
+def target_sharding(trainer):
+  """The lagged target's placement: whole on every rank of the trainer's
+  mesh (None on one rank)."""
+  if not mesh_lib.is_distributed(trainer.mesh):
+    return None
+  return mesh_lib.replicated_sharding(trainer.mesh)
+
+
+def check_ring_mesh(trainer, buffer) -> None:
+  """A ring split over ranks must lie on the trainer's own mesh: its
+  sample is a collective of the ranks that learn from it."""
+  if mesh_lib.is_distributed(buffer.mesh) and buffer.mesh is not trainer.mesh:
+    raise ValueError(
+        f"the ring lies over {buffer.mesh}, the trainer over "
+        f"{trainer.mesh}: build the ring with mesh=trainer.mesh")
+
+
 class MegastepLearner(TargetNetwork):
   """K fused sample -> label -> train -> reprioritize iterations a
   dispatch, over a ``DeviceReplayBuffer``.
@@ -730,7 +908,11 @@ class MegastepLearner(TargetNetwork):
   captured once in one CUDA graph over the draw buffer, and every later
   dispatch replays it once.
   ``graphs=False`` runs every dispatch eagerly (the bit-parity control).
-  On the CPU every dispatch runs eagerly. ``compile_counts["megastep"]``
+  On the CPU every dispatch runs eagerly, and so does a trainer over a
+  mesh of more than one rank (gloo's collectives run on the host, outside
+  any capture): each rank runs the K iterations on its block of each
+  sampled batch, over the ring the mesh splits (``buffer.mesh`` must be
+  the trainer's). ``compile_counts["megastep"]``
   counts the builds: the capture on the graphed path, the body on the
   eager paths; it stays 1 for the learner's life. The target net is the
   graph's input, not a constant in it: ``refresh`` copies into its
@@ -772,8 +954,11 @@ class MegastepLearner(TargetNetwork):
       raise ValueError(
           f"capacity {buffer.capacity} >= 2^24: slot draws ride the float32 "
           "draw buffer and must be exact")
-    # A cold target: the first refresh() is a hard copy.
-    super().__init__(polyak_tau=polyak_tau, device=trainer.device)
+    check_ring_mesh(trainer, buffer)
+    # A cold target: the first refresh() is a hard copy. Over a mesh every
+    # rank holds it whole.
+    super().__init__(polyak_tau=polyak_tau, device=trainer.device,
+                     sharding=target_sharding(trainer))
     self.precision = cem.validate_precision(precision)
     self._model = model
     self._trainer = trainer
@@ -784,7 +969,8 @@ class MegastepLearner(TargetNetwork):
     self._num_elites = num_elites
     self._iterations_cem = iterations
     self.inner_steps = inner_steps
-    self._graphs = graphs and self.device.type == "cuda"
+    self._graphs = (graphs and self.device.type == "cuda"
+                    and trainer.layout is None)
     self._seed = seed
     self._clip_targets = getattr(model, "loss_type",
                                  "cross_entropy") == "cross_entropy"
@@ -818,6 +1004,11 @@ class MegastepLearner(TargetNetwork):
     """The carried device state: the ring and the target net (the train
     state stays with the caller)."""
     return {"buffer": self._buffer.state, "target": self._target_variables}
+
+  def checkpoint_arrays(self) -> Dict[str, Dict[str, np.ndarray]]:
+    """Host copies of the whole ring, as a checkpoint holds it (over a
+    capacity-sharded mesh every rank gathers: a collective)."""
+    return {"buffer": self._buffer.checkpoint_arrays()}
 
   def checkpoint_meta(self) -> Dict[str, int]:
     """The host counters that drive the (outer, label seed) draws."""
@@ -855,7 +1046,8 @@ class MegastepLearner(TargetNetwork):
         self._model, step_fn, buffer.sample_fn(),
         buffer.update_priorities_fn(), targets_fn,
         getattr(self._model, "target_key", "target_q"), self._clip_targets,
-        health_entropy_fn=buffer.priority_entropy_fn() if health else None)
+        health_entropy_fn=buffer.priority_entropy_fn() if health else None,
+        **mesh_hooks(trainer))
 
   def _iterations(self, state, draws: torch.Tensor, count: bool = False):
     """One learn iteration for each row of `draws` (steps, B, W); returns

@@ -348,7 +348,17 @@ class ReplayFeeder:
     same call feeds the device-resident ring, whose extend writes fixed
     chunks to the card.
     """
-    batch, labels = self.queue.drain_batch_with_provenance()
+    return self.put(*self.take())
+
+  def take(self):
+    """(batch, provenance labels) of every pending transition, taken off
+    the queue; (None, None) when it is empty. ``drain`` is ``put`` of
+    it; the replay loop over a mesh hands it from the primary rank to the
+    others between the two."""
+    return self.queue.drain_batch_with_provenance()
+
+  def put(self, batch, labels) -> int:
+    """Extends the buffer with a ``take``'s batch; returns its rows."""
     if batch is None:
       return 0
     if self._extend_takes_provenance:

@@ -139,7 +139,10 @@ def host_learner_step(trainer: Trainer, updater: BellmanUpdater, buffer,
   """One learner step of the JAX ``ReplayTrainLoop._run_host``: sample,
   label, train, TD errors, priority write-back. `clock` (a StageClock)
   times each stage; `with_health` adds the gradients' norm and non-finite
-  count to the metrics."""
+  count to the metrics. Over a trainer's mesh every rank samples and
+  labels the same batch from the same ring, trains on its block of it
+  (``Trainer.shard_batch``) and takes the TD errors with the whole
+  variables, so the priorities stay the same on every rank."""
   clock = clock or (lambda name: contextlib.nullcontext())
   device = trainer.device
   with clock("sample"):
@@ -151,11 +154,13 @@ def host_learner_step(trainer: Trainer, updater: BellmanUpdater, buffer,
         "image": torch.from_numpy(np.asarray(batch["image"])).to(device),
         "action": torch.from_numpy(np.asarray(batch["action"])).to(device)}
     labels = {"target_q": torch.from_numpy(targets).to(device)}
+    features, labels = trainer.shard_batch((features, labels))
     with trace_lib.span("learn/train_step"):
       state, metrics = trainer.train_step(state, features, labels,
                                           with_health=with_health)
   with clock("td"):
-    td = updater.td_errors(state.variables(use_ema=True), batch, targets)
+    td = updater.td_errors(state.full_variables(use_ema=True), batch,
+                           targets)
   with clock("priority_write"):
     buffer.update_priorities(info.indices, td)
   return LearnerStep(state, metrics, td, targets, q_next, info)

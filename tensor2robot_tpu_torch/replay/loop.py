@@ -64,8 +64,25 @@ that reads it. The policy's lock covers each call's copy-in, replay and
 copy-out. The collectors' bucket is captured before their threads start,
 so no capture ever runs beside another thread's launches.
 
-Not ported, and named where asked for: the mesh and the checkpoints'
-mesh stamp (item 15b-ii), and the fault seam (``fault_plan=``; item 15c).
+**Over a mesh of ranks** (``mesh_dp``, ``mesh_tp``, ``zero1``; one
+process a rank, ``parallel/``): the trainer trains over
+``{"data": mesh_dp, "model": mesh_tp}`` (ZeRO-1 by default when
+``mesh_dp > 1``, the model's own partition rules when ``mesh_tp > 1``),
+the device ring splits its capacity over the data axis, and the Anakin
+path splits its env fleet too (``anakin.AnakinLoop``). Collectors and
+actors run on the primary rank alone: what their threads produce depends
+on thread timing, so the primary drains the queue and hands each drained
+batch to every rank (one broadcast), and every rank extends its ring
+with the same rows. Each rank then samples the same batch, trains on its
+block of it, and writes the same priorities; the result's
+``param_sharding`` says how the final parameters lie. Checkpoints gather
+to the one-rank layout, the primary writes them, and the sidecar carries
+the mesh's geometry: a resume on another mesh refuses and names both.
+The primary alone writes the metric files; every other rank writes under
+``<logdir>/rank<k>``.
+
+Not ported, and named where asked for: the fault seam (``fault_plan=``;
+item 15c).
 """
 
 from __future__ import annotations
@@ -91,6 +108,8 @@ from tensor2robot_tpu_torch.obs import ledger as ledger_lib
 from tensor2robot_tpu_torch.obs import registry as registry_lib
 from tensor2robot_tpu_torch.obs import trace as trace_lib
 from tensor2robot_tpu_torch.obs import watchdog as watchdog_lib
+from tensor2robot_tpu_torch.parallel import collectives, distributed
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.predictors.abstract_predictor import (
     AbstractPredictor,
     checked_swap,
@@ -113,6 +132,50 @@ from tensor2robot_tpu_torch.utils.metric_writer import MetricWriter
 from tensor2robot_tpu_torch.utils.profiling import ProfilerHook
 
 _log = logging.getLogger(__name__)
+
+
+def _loop_mesh(config) -> Optional[mesh_lib.Mesh]:
+  """The loop's ``{"data": mesh_dp, "model": mesh_tp}`` mesh over the
+  ranks of the process group (None for ``mesh_dp == 0``). Refuses a mesh
+  the ranks present do not fill exactly: it neither shrinks nor leaves a
+  rank idle."""
+  if not config.mesh_dp:
+    return None
+  if config.mesh_dp < 0 or config.mesh_tp < 1:
+    raise ValueError(f"mesh {config.mesh_dp}x{config.mesh_tp}: mesh_dp must "
+                     "be >= 0 and mesh_tp >= 1")
+  needed = config.mesh_dp * config.mesh_tp
+  ranks = distributed.process_count()
+  if ranks != needed:
+    raise ValueError(
+        f"mesh {config.mesh_dp}x{config.mesh_tp} needs {needed} rank(s), "
+        f"have {ranks}. Start {needed} ranks (python -m "
+        f"torch.distributed.run --nproc-per-node {needed}, or "
+        "parallel.launch) or change the mesh.")
+  return mesh_lib.create_mesh({"data": config.mesh_dp,
+                               "model": config.mesh_tp})
+
+
+def param_sharding_summary(state) -> Dict:
+  """How the final parameters lie (the JAX loop's ``param_sharding``):
+  the leaves, those the model axis splits, and the parameter bytes whole
+  against this rank's resident blocks (the memory tensor parallelism
+  exists to shrink)."""
+  layout = state.layout
+  whole = (dict(layout.model.module.named_parameters())
+           if layout is not None else state.params)
+  sharded = 0
+  total = per_rank = 0
+  for key, value in state.params.items():
+    size = value.element_size()
+    total += whole[key].numel() * size
+    per_rank += value.numel() * size
+    if layout is not None and "model" in layout.specs[key].axes():
+      sharded += 1
+  return {"total_leaves": len(state.params),
+          "model_sharded_leaves": sharded,
+          "param_bytes_total": int(total),
+          "param_bytes_per_replica": int(per_rank)}
 
 
 def transition_spec(image_size: int, action_size: int) -> ts.TensorSpecStruct:
@@ -264,15 +327,6 @@ class CollectorWorker:
         env.reset(self._scene_seed())
 
 
-# Options whose paths wait for a later ROADMAP.md item, with their defaults:
-# a config that asks for one raises by name.
-_WAITING = {
-    "mesh_dp": (0, "item 15b-ii (the loop over a mesh)"),
-    "mesh_tp": (1, "item 15b-ii (the loop over a mesh)"),
-    "zero1": (None, "item 15b-ii (the loop over a mesh)"),
-}
-
-
 # The config that resumes each path's checkpoints.
 _PATH_FLAGS = {"host": "device_resident=False and anakin=False",
                "device-resident": "device_resident=True",
@@ -287,9 +341,10 @@ class ReplayLoopConfig:
   ``device_resident`` adds ``megastep_inner`` and ``ingest_chunk``;
   ``anakin`` adds ``anakin_inner``, ``anakin_train_every`` and
   ``anakin_bank_scenes`` (its fleet is ``num_collectors *
-  envs_per_collector`` envs, which is also its ring's chunk). The rest
-  belong to paths that wait for later items, and setting one off its
-  default raises NotImplementedError naming the item."""
+  envs_per_collector`` envs, which is also its ring's chunk). Every path
+  reads ``mesh_dp`` (0: one rank, no mesh), ``mesh_tp`` and ``zero1``
+  (None: ZeRO-1 when ``mesh_dp > 1``): the loop then spans ``mesh_dp *
+  mesh_tp`` ranks (see the module's docstring)."""
   image_size: int = 16
   action_size: int = 4
   batch_size: int = 32
@@ -343,11 +398,6 @@ class ReplayLoopConfig:
 
   def __post_init__(self):
     cem.validate_precision(self.precision)
-    for name, (default, item) in _WAITING.items():
-      if getattr(self, name) != default:
-        raise NotImplementedError(
-            f"ReplayLoopConfig.{name}={getattr(self, name)!r} waits for "
-            f"ROADMAP.md's flagship {item}.")
 
 
 def eval_transitions(config: ReplayLoopConfig):
@@ -516,8 +566,22 @@ class ReplayTrainLoop:
           rules=health_lib.default_rules(capacity=config.capacity),
           registry=self.registry, recorder=self.recorder,
           halt_on_breach=config.health_halt)
-    self.trainer = Trainer(self.model, seed=config.seed, device=device)
-    self.writer = MetricWriter(logdir)
+    self.mesh = _loop_mesh(config)
+    self._mesh_feed = mesh_lib.is_distributed(self.mesh)
+    self._primary = distributed.is_primary()
+    self.zero1 = bool(config.zero1 if config.zero1 is not None
+                      else config.mesh_dp > 1)
+    param_specs = None
+    if self.mesh is not None and config.mesh_tp > 1:
+      from tensor2robot_tpu_torch.parallel import tp_rules
+      param_specs = tp_rules.partition_specs_for_model(
+          self.model, self.mesh, axis="model")
+    self.trainer = Trainer(self.model, seed=config.seed, device=device,
+                           mesh=self.mesh, param_specs=param_specs,
+                           shard_optimizer_state=self.zero1)
+    self.writer = MetricWriter(
+        logdir if self._primary
+        else os.path.join(logdir, f"rank{distributed.process_index()}"))
     spec = transition_spec(config.image_size, config.action_size)
     if config.device_resident or config.anakin:
       # The device ring is the whole ring on these paths: the host shards
@@ -540,7 +604,8 @@ class ReplayTrainLoop:
       self.buffer = DeviceReplayBuffer(
           spec, config.capacity, config.batch_size, seed=config.seed,
           prioritized=config.prioritized, ingest_chunk=chunk,
-          ledger=self.obs_ledger, device=self.trainer.device)
+          mesh=self.trainer.mesh, ledger=self.obs_ledger,
+          device=self.trainer.device)
     elif config.num_buffer_shards > 1:
       self.buffer = ShardedReplayBuffer(
           spec, config.capacity, config.batch_size,
@@ -583,10 +648,21 @@ class ReplayTrainLoop:
 
   @staticmethod
   def _host_variables(state) -> Dict[str, torch.Tensor]:
-    """A detached clone of the EMA variables on their device: the learner
-    updates its tensors in place, so collectors never serve those."""
+    """A detached clone of the whole EMA variables on their device (over a
+    mesh every rank gathers its blocks): the learner updates its tensors
+    in place, so collectors never serve those."""
     return {key: value.detach().clone()
-            for key, value in state.variables(use_ema=True).items()}
+            for key, value in state.full_variables(use_ema=True).items()}
+
+  def _drain(self) -> int:
+    """Moves the queue's transitions into the ring; returns the rows.
+    Over a mesh the primary drains its collectors' queue and broadcasts
+    the batch, and every rank extends its ring with the same rows (a
+    collective: every rank calls it at the same points)."""
+    if not self._mesh_feed:
+      return self.feeder.drain()
+    taken = self.feeder.take() if self._primary else None
+    return self.feeder.put(*collectives.broadcast_object(taken))
 
   def _acting_batch(self) -> int:
     """The envs one acting call covers: the whole fleet for the vector
@@ -618,13 +694,18 @@ class ReplayTrainLoop:
     if resume_meta is not None:
       return (dict(resume_meta["initial_eval"]),
               [dict(entry) for entry in resume_meta["eval_history"]])
-    initial_eval = self._eval(updater, state.variables(use_ema=True),
+    initial_eval = self._eval(updater, state.full_variables(use_ema=True),
                               eval_batches, eval_q_stars)
     self._emit(0, {"replay/" + k: v for k, v in initial_eval.items()})
     return initial_eval, [dict(step=0, **initial_eval)]
 
   def _start_collectors(self, policy) -> None:
+    """Starts the collector threads (or the vector actor): over a mesh on
+    the primary rank alone, which hands what they collect to the others
+    (``_drain``)."""
     c = self.config
+    if self._mesh_feed and not self._primary:
+      return
     if c.vector_actors:
       # One VectorActor over every env the threaded path spreads across
       # num_collectors threads; the actor list takes the collectors'
@@ -758,11 +839,13 @@ class ReplayTrainLoop:
       self._health_registered = True
       self.obs_ledger.register("health_summary", device=self.trainer.device)
     start = time.perf_counter()
+    from tensor2robot_tpu_torch.replay.device_buffer import (
+        parameter_health,
+    )
     with torch.no_grad():
-      summary = {"health/nonfinite_params": float(
-                     health_lib.tree_nonfinite_count(state.params)),
-                 "health/param_norm": float(
-                     health_lib.tree_global_norm(state.params))}
+      norm, nonfinite = parameter_health(state)
+      summary = {"health/nonfinite_params": float(nonfinite),
+                 "health/param_norm": float(norm)}
     self.obs_ledger.record_dispatch("health_summary",
                                     time.perf_counter() - start)
     return summary
@@ -773,7 +856,7 @@ class ReplayTrainLoop:
     reached."""
 
     def ready():
-      self.feeder.drain()
+      self._drain()
       self._feeder_hb.beat()
       for collector in self._collectors:
         if collector.errors:
@@ -837,6 +920,14 @@ class ReplayTrainLoop:
         **extra,
     }
 
+  def _mesh_result(self, state) -> Dict:
+    """The JAX Anakin result's mesh keys: the mesh's shape, whether ZeRO-1
+    ran, and how the final parameters lie (``param_sharding``)."""
+    shape = ({"data": 1} if self.mesh is None
+             else {str(k): int(v) for k, v in self.mesh.shape.items()})
+    return {"mesh_shape": shape, "zero1": self.zero1,
+            "param_sharding": param_sharding_summary(state)}
+
   # --- crash-resume checkpoints --------------------------------------------
 
   def _path(self) -> str:
@@ -873,12 +964,14 @@ class ReplayTrainLoop:
                         else "replay/checkpoint", step=step):
       if step != self._saved_step:
         stale = os.path.join(self.checkpoint_root, str(step))
-        if os.path.isdir(stale):
+        if self._primary and os.path.isdir(stale):
           shutil.rmtree(stale)
+        distributed.sync_global_devices(f"loop checkpoint {step}")
         self._ckpt_manager.save(step, state)
         self._saved_step = step
       meta = {
           "fingerprint": self._checkpoint_fingerprint(),
+          "mesh": checkpoints_lib.mesh_geometry(self.trainer.mesh),
           "path": self._path(),
           **path_meta,
           "queue_counters": {key: value
@@ -891,10 +984,12 @@ class ReplayTrainLoop:
       # would re-warm its EWMA state, blind to drift right after a restart.
       if self.health_monitor is not None:
         meta["health"] = self.health_monitor.state_dict()
-      checkpoints_lib.save_sidecar(self.checkpoint_root, step, trees=trees,
-                                   flats=flats, meta=meta)
-      checkpoints_lib.prune_sidecars(self.checkpoint_root,
-                                     self._ckpt_manager.all_steps())
+      if self._primary:
+        checkpoints_lib.save_sidecar(self.checkpoint_root, step,
+                                     trees=trees, flats=flats, meta=meta)
+        checkpoints_lib.prune_sidecars(self.checkpoint_root,
+                                       self._ckpt_manager.all_steps())
+      distributed.sync_global_devices(f"loop sidecar {step}")
     self.recorder.record("event", "loop_checkpoint", step=step, **fused)
 
   def _read_checkpoint(self, state):
@@ -922,6 +1017,9 @@ class ReplayTrainLoop:
       raise ValueError(
           f"checkpoint step {step} under {self.checkpoint_root} was saved "
           f"by the {saved} path; resume it with {_PATH_FLAGS[saved]}")
+    # A stamp of another mesh refuses before any state is read (sidecars
+    # that predate the stamp pass).
+    checkpoints_lib.validate_restore_mesh(meta.get("mesh"), self.trainer.mesh)
     state = self._ckpt_manager.restore(state, step=step)
     if int(state.step) != int(step):
       raise ValueError(f"restored TrainState.step {int(state.step)} != "
@@ -969,10 +1067,7 @@ class ReplayTrainLoop:
     Anakin path: what `learner` (the megastep or the Anakin loop) carries
     (the ring's tensors, the lagged target and the Anakin fleet's env
     state) and its draw counters ride the sidecar."""
-    carried = learner.checkpoint_state()
-    flats = {"buffer": carried["buffer"].arrays()}
-    if "env" in carried:
-      flats["env"] = carried["env"].arrays()
+    flats = learner.checkpoint_arrays()  # whole, on every rank
     self._write_checkpoint(
         step, state, trees={"target": learner.target_state()[0]},
         flats=flats, path_meta={"fused": learner.checkpoint_meta()},
@@ -1069,8 +1164,9 @@ class ReplayTrainLoop:
     try:
       # The acting bucket is built here, on this thread: on the GPU no
       # capture then runs beside another thread's launches.
-      policy.warm(lambda i: blank,
-                  sizes=(policy.ladder.bucket_for(self._acting_batch()),))
+      if self._primary or not self._mesh_feed:  # the ranks that act
+        policy.warm(lambda i: blank,
+                    sizes=(policy.ladder.bucket_for(self._acting_batch()),))
       self._start_collectors(policy)
       self._wait_for_min_fill()
       eval_batches, eval_q_stars = eval_transitions(c)
@@ -1080,7 +1176,7 @@ class ReplayTrainLoop:
       clock = self._train_clock()
       for step in range(start_step + 1, num_steps + 1):
         with trace_lib.span("extend/drain"):
-          self.feeder.drain()
+          self._drain()
         self._feeder_hb.beat()
         state, metrics, td, targets, q_next, info = host_learner_step(
             self.trainer, updater, self.buffer, state, clock=clock,
@@ -1134,7 +1230,8 @@ class ReplayTrainLoop:
             self._emit(step, dict(self.health_monitor.last_summary))
         if step % c.eval_every == 0 or step == num_steps:
           with trace_lib.span("replay/eval"):
-            evals = self._eval(updater, state.variables(use_ema=True),
+            evals = self._eval(updater,
+                               state.full_variables(use_ema=True),
                                eval_batches, eval_q_stars)
           eval_history.append(dict(step=step, **evals))
           self._emit(step, {"replay/" + k: v for k, v in evals.items()})
@@ -1145,7 +1242,9 @@ class ReplayTrainLoop:
       collector_errors = self._stop(profile_hook, num_steps)
     _raise_first(collector_errors)
     return self._assemble_result(num_steps, initial_eval, eval_history,
-                                 param_refreshes=updater.refresh_count)
+                                 param_refreshes=updater.refresh_count,
+                                 **(self._mesh_result(state)
+                                    if c.mesh_dp else {}))
 
   def _megastep_learner(self):
     """The device-resident path's learner over the loop's ring, with a
@@ -1208,8 +1307,9 @@ class ReplayTrainLoop:
     profile_hook = self._profile_hook()
     blank = np.zeros((c.image_size, c.image_size, 3), np.uint8)
     try:
-      policy.warm(lambda i: blank,
-                  sizes=(policy.ladder.bucket_for(self._acting_batch()),))
+      if self._primary or not self._mesh_feed:  # the ranks that act
+        policy.warm(lambda i: blank,
+                    sizes=(policy.ladder.bucket_for(self._acting_batch()),))
       self._start_collectors(policy)
       self._wait_for_min_fill()
       eval_batches, eval_q_stars = eval_transitions(c)
@@ -1218,7 +1318,7 @@ class ReplayTrainLoop:
       prev_step = resume_step
       for outer in range(resume_step // k + 1, num_outer + 1):
         with trace_lib.span("extend/drain"):
-          self.feeder.drain()
+          self._drain()
         self._feeder_hb.beat()
         state, metrics = learner.step(state)
         self._learner_hb.beat()
@@ -1253,7 +1353,8 @@ class ReplayTrainLoop:
             self._emit(step, dict(self.health_monitor.last_summary))
         if crossed(c.eval_every) or outer == num_outer:
           with trace_lib.span("replay/eval"):
-            evals = self._eval(updater, state.variables(use_ema=True),
+            evals = self._eval(updater,
+                               state.full_variables(use_ema=True),
                                eval_batches, eval_q_stars)
           eval_history.append(dict(step=step, **evals))
           self._emit(step, {"replay/" + k_: v for k_, v in evals.items()})
@@ -1267,7 +1368,8 @@ class ReplayTrainLoop:
     return self._assemble_result(
         num_outer * k, initial_eval, eval_history,
         param_refreshes=learner.refresh_count - 1,  # less the cold start
-        device_resident=True, megastep_inner=k)
+        device_resident=True, megastep_inner=k,
+        **(self._mesh_result(state) if c.mesh_dp else {}))
 
   def _anakin_loop(self):
     """The Anakin path's loop over the loop's ring and a fleet of
@@ -1307,8 +1409,8 @@ class ReplayTrainLoop:
     count optimizer steps and fire after the dispatch that crosses a
     multiple. It stops once `num_steps` optimizer steps have run: the
     dispatches before ``min_fill`` collect without training, so their
-    number adapts. The JAX result's ``param_sharding`` belongs to the mesh
-    (item 15b-ii) and is left out."""
+    number adapts. The result carries the JAX keys ``mesh_shape``,
+    ``zero1`` and ``param_sharding``."""
     c = self.config
     total_envs = c.num_collectors * c.envs_per_collector
     state = self.trainer.create_train_state()
@@ -1380,7 +1482,8 @@ class ReplayTrainLoop:
             self._emit(step, dict(self.health_monitor.last_summary))
         if crossed(c.eval_every) or done:
           with trace_lib.span("replay/eval"):
-            evals = self._eval(updater, state.variables(use_ema=True),
+            evals = self._eval(updater,
+                               state.full_variables(use_ema=True),
                                eval_batches, eval_q_stars)
           eval_history.append(dict(step=step, **evals))
           self._emit(step, {"replay/" + k_: v for k_, v in evals.items()})
@@ -1395,7 +1498,7 @@ class ReplayTrainLoop:
         loop.trained_steps, initial_eval, eval_history,
         param_refreshes=loop.refresh_count - 1,  # less the cold start
         device_resident=True, anakin=True, anakin_inner=c.anakin_inner,
-        anakin_train_every=c.anakin_train_every, mesh_shape=loop.mesh_shape,
-        zero1=False, episodes_collected=loop.episodes,
+        anakin_train_every=c.anakin_train_every, **self._mesh_result(state),
+        episodes_collected=loop.episodes,
         env_steps_collected=loop.env_steps,
         collector_success_rate=loop.successes / max(1, loop.episodes))

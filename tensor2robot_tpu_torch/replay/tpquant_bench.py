@@ -26,13 +26,23 @@ selection). Two claims:
   _measure_tier_rollout``): a jittered tree scored at int8 rolled back in
   shadow, then int8 promoted, one build a bucket a replica a tier.
 
-The JAX bench's tensor-parallel ladder waits for ``ROADMAP.md``'s flagship
-item 15b-ii (the loop over a mesh): ``_measure_tp_ladder`` raises by
-name.
+- **Tensor-parallel ladder.** ``_measure_tp_ladder``: the flagship
+  critic (the uint8 GroupNorm QTOptGraspingModel) through the Anakin loop
+  on a ``{"data": 1, "model": tp}`` mesh of `tp` ranks for each rung
+  (``parallel.launch``; the tp=1 rung in this process), its parameters
+  split by the model's own partition rules. Structural, as JAX's: one
+  ``anakin_step`` build a rung, a tp > 1 rung's parameters really split
+  (``param_sharding.model_sharded_leaves`` > 0, fewer bytes a rank), and
+  the tp=1 rung run twice, bit for bit equal, with no leaf split. The
+  ranks share one machine (and, on the card, one device through gloo), so
+  the rates measure the collectives' overhead and claim no scaling:
+  ``colocated_ranks`` is true and ``tp_scaling_efficiency`` null.
 """
 
 from __future__ import annotations
 
+import tempfile
+import time
 from typing import Dict, Sequence
 
 import torch
@@ -41,6 +51,7 @@ from tensor2robot_tpu_torch import Device, resolve_device
 from tensor2robot_tpu_torch.replay import precision_bench
 from tensor2robot_tpu_torch.research.qtopt import cem
 
+R17_TP_LADDER = (1, 2)
 R17_BUCKETS = (1, 4, 8)
 R17_Q_TOL = 0.05             # value-space q-delta bar (the rollout gate's)
 R17_INT8_AGREEMENT_BAR = 0.99
@@ -92,10 +103,107 @@ def _measure_int8_agreement(model, variables, buckets: Sequence[int],
       image_size, seed, ledger=ledger)
 
 
-def _measure_tp_ladder(*_args, **_kwargs):
-  raise NotImplementedError(
-      "tpquant's tensor-parallel ladder waits for ROADMAP.md's flagship "
-      "item 15b-ii (the loop over a mesh).")
+def _run_flagship_anakin(tp: int, steps: int, seed: int, image_size: int,
+                         logdir: str, device: Device = None) -> Dict:
+  """One ladder rung in this rank: the default (flagship) model through
+  the Anakin loop on a {"data": 1, "model": tp} mesh (the JAX rung's
+  config). Returns the loop's result with its wall seconds and rate."""
+  from tensor2robot_tpu_torch.replay.loop import (
+      ReplayLoopConfig,
+      ReplayTrainLoop,
+  )
+  config = ReplayLoopConfig(
+      anakin=True, mesh_dp=1, mesh_tp=tp, image_size=image_size,
+      seed=seed, batch_size=8, capacity=128, min_fill=32,
+      anakin_bank_scenes=32, anakin_inner=16, anakin_train_every=8,
+      cem_num_samples=8, cem_num_elites=2, cem_iterations=1,
+      eval_every=max(steps, 1), eval_batches=1, num_buffer_shards=1)
+  loop = ReplayTrainLoop(config, logdir, device=device)
+  start = time.perf_counter()
+  result = loop.run(steps)
+  elapsed = time.perf_counter() - start
+  result["wall_seconds"] = elapsed
+  result["steps_per_sec"] = result["steps"] / max(elapsed, 1e-9)
+  return result
+
+
+def _tp_rung_rank(rank: int, tp: int, steps: int, seed: int,
+                  image_size: int, logdir: str, device: str) -> Dict:
+  """``parallel.launch``'s body of a tp > 1 rung."""
+  del rank
+  return _run_flagship_anakin(tp, steps, seed, image_size, logdir, device)
+
+
+def _rung_summary(tp: int, result: Dict) -> Dict:
+  sharding = result["param_sharding"]
+  return {
+      "tp": tp,
+      "mesh_shape": dict(result["mesh_shape"]),
+      "anakin_step_compiles": result["compile_counts"].get("anakin_step"),
+      "ledger_all_one": all(
+          v == 1 for v in result["compile_counts"].values()),
+      "param_sharding": sharding,
+      "replica_bytes_factor": round(
+          sharding["param_bytes_total"]
+          / max(sharding["param_bytes_per_replica"], 1), 3),
+      "steps": result["steps"],
+      "steps_per_sec": round(result["steps_per_sec"], 4),
+      "final_eval_td": result["final_eval"]["eval_td_error"],
+  }
+
+
+def _measure_tp_ladder(ladder: Sequence[int] = R17_TP_LADDER, steps: int = 8,
+                       seed: int = 0, image_size: int = 64,
+                       device: Device = None) -> Dict:
+  """The flagship's tensor-parallel ladder and the tp=1 bitwise oracle
+  pair (see the module's docstring). A tp > 1 rung runs in `tp` spawned
+  ranks (co-located on the card under ``device`` cuda)."""
+  from tensor2robot_tpu_torch.parallel import launch
+  if 1 not in ladder or min(ladder) < 1:
+    raise ValueError(
+        f"ladder {tuple(ladder)} needs its tp=1 rung (the bitwise oracle) "
+        "and no tp below 1")
+  device = resolve_device(device)
+  rungs, oracle = {}, None
+  for tp in ladder:
+    logdir = tempfile.mkdtemp(prefix=f"tpq{tp}_")
+    if tp == 1:
+      result = _run_flagship_anakin(1, steps, seed, image_size, logdir,
+                                    device)
+      # The oracle pair: the same tp=1 config again, bit for bit (eval
+      # history and final eval), with no leaf on the model axis.
+      rerun = _run_flagship_anakin(1, steps, seed, image_size,
+                                   tempfile.mkdtemp(prefix="tpq1_"), device)
+      oracle = {
+          "bitwise_equal": (result["eval_history"] == rerun["eval_history"]
+                            and result["final_eval"] == rerun["final_eval"]),
+          "model_sharded_leaves": result["param_sharding"][
+              "model_sharded_leaves"],
+      }
+    else:
+      result = launch.launch(
+          _tp_rung_rank, tp,
+          (tp, steps, seed, image_size, logdir, device.type),
+          device=device.type)[0]
+    rungs[str(tp)] = _rung_summary(tp, result)
+  base_rate = rungs["1"]["steps_per_sec"]
+  top = str(max(ladder))
+  return {
+      "ladder": [int(tp) for tp in ladder],
+      "steps": steps,
+      "rungs": rungs,
+      "tp1_oracle": oracle,
+      # Ranks on one machine share its cores (and its one card through
+      # gloo): the ratio measures the collectives' overhead, not scaling.
+      "scaling_efficiency_diagnostic": round(
+          rungs[top]["steps_per_sec"] / max(base_rate, 1e-9), 4),
+      "colocated_ranks": True,
+      "tp_scaling_efficiency": None,
+      "device": str(device),
+      "note": ("fixed per-rung workload; co-located ranks share one "
+               "machine and its card, so rates are collective-overhead "
+               "diagnostics and no scaling is claimed (colocated_ranks)."),
+  }
 
 
 def _measure_rollout_int8(**kwargs) -> Dict:
@@ -118,9 +226,13 @@ def measure_tpquant(
     grasp_radius: float = 0.4,
     seed: int = 0,
     device: Device = None,
+    tp_ladder: Sequence[int] = (),
+    tp_steps: int = 8,
+    tp_image_size: int = 64,
 ) -> Dict:
-  """The int8 half of the JAX protocol: agreement, its tier ledger and
-  bytes. Raises if a bar fails."""
+  """The JAX protocol: the int8 agreement, its tier ledger and bytes, and
+  with `tp_ladder` (say ``R17_TP_LADDER``) the tensor-parallel ladder
+  under ``tp``. Raises if a bar fails."""
   from tensor2robot_tpu_torch.obs.ledger import ExecutableLedger
 
   device = resolve_device(device)
@@ -146,8 +258,12 @@ def measure_tpquant(
       "tier_ledger": tier_ledger,
       "int8_q_agreement": agreement["overall_rate"],
       "int8_param_bytes_reduction": bytes_reduction["flagship"],
-      "waiting": {"tp_ladder": "item 15b-ii"},
   }
+  if tp_ladder:
+    result["tp"] = _measure_tp_ladder(tp_ladder, tp_steps, seed,
+                                      tp_image_size, device)
+    result["colocated_ranks"] = True
+    result["tp_scaling_efficiency"] = None
   failures = []
   if agreement["overall_rate"] < R17_INT8_AGREEMENT_BAR:
     failures.append(f"int8 agreement {agreement['overall_rate']} < "
@@ -159,6 +275,18 @@ def measure_tpquant(
   if not tier_ledger["per_tier_exactly_once"]:
     failures.append(
         f"tier ledger not exactly-once: {tier_ledger['compile_counts']}")
+  if tp_ladder:
+    tp = result["tp"]
+    if not tp["tp1_oracle"]["bitwise_equal"]:
+      failures.append("the tp=1 rung is not bitwise deterministic")
+    if tp["tp1_oracle"]["model_sharded_leaves"]:
+      failures.append("the tp=1 rung splits parameters")
+    for name, rung in tp["rungs"].items():
+      if rung["anakin_step_compiles"] != 1:
+        failures.append(f"rung {name}: {rung['anakin_step_compiles']} "
+                        "anakin_step builds")
+      if int(name) > 1 and not rung["param_sharding"]["model_sharded_leaves"]:
+        failures.append(f"rung {name}: no parameter split")
   if failures:
     raise AssertionError("tpquant bars failed: " + "; ".join(failures))
   return result

@@ -35,6 +35,14 @@ op (no fused multiply-add), against the float64 ``r**2``. The checker
 table and the arm disc never change, so the oracle's code renders them
 once (``_base_image``) and only the target disc is decided on the
 device.
+
+**Over a mesh of ranks** (``state_shardings``, Podracer's per-core env
+slices): each rank holds and steps its block of the fleet (images,
+targets, attempts) while the scene cursor and the episode counts stay
+whole on every rank, one global counter. A step over a mesh gathers the
+fleet's terminal and success flags, so every rank assigns scenes from
+the same global order and counts the same episodes: the one-rank fleet's
+stream, bit for bit.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ import numpy as np
 import torch
 
 from tensor2robot_tpu_torch import Device, resolve_device
+from tensor2robot_tpu_torch.parallel import collectives, distributed
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.research.pose_env import pose_env
 from tensor2robot_tpu_torch.research.qtopt.synthetic_grasping import (
     GRASP_RADIUS,
@@ -193,9 +203,15 @@ class DeviceGraspState:
     return {name: getattr(self, name).cpu().numpy().copy()
             for name in self._FIELDS}
 
-  def load(self, arrays) -> None:
+  def load(self, arrays, shardings: Optional["DeviceGraspState"] = None
+           ) -> None:
     """Copies field-keyed `arrays` (``arrays()``'s) into this state's own
-    tensors."""
+    tensors; with `shardings` (``DeviceGraspEnv.state_shardings``) the
+    arrays are the whole fleet's and each rank copies its part."""
+    if shardings is not None:
+      arrays = distributed.global_put(
+          {name: arrays[name] for name in self._FIELDS},
+          {name: getattr(shardings, name) for name in self._FIELDS})
     with torch.no_grad():
       for name in self._FIELDS:
         getattr(self, name).copy_(torch.as_tensor(arrays[name]))
@@ -248,34 +264,64 @@ class DeviceGraspEnv:
     targets = torch.as_tensor(targets).to(self.device, torch.float32)
     return targets, self._render(targets)
 
-  def init_state(self, targets=None) -> DeviceGraspState:
+  def init_state(self, targets=None, mesh=None,
+                 axis: str = "data") -> DeviceGraspState:
     """Every env reset once, scenes 0..N-1 in env order (the oracle fleet's
     ``reset([seed_fn() for _ in range(N)])``); procedural scenes take
-    `targets`, (N, 2) draws."""
+    `targets`, (N, 2) draws. Over a `mesh`, this rank's part of that
+    state (``state_shardings``)."""
     n, dev = self.num_envs, self.device
     targets, images = self._fresh_scenes(
         torch.arange(n, dtype=torch.int32, device=dev), targets)
-    return DeviceGraspState(
+    state = DeviceGraspState(
         images=images.clone(), targets=targets.clone(),
         attempts=torch.zeros(n, dtype=torch.int32, device=dev),
         next_scene=torch.full((), n, dtype=torch.int32, device=dev),
         episodes=torch.zeros((), dtype=torch.int32, device=dev),
         successes=torch.zeros((), dtype=torch.int32, device=dev))
+    if not mesh_lib.is_distributed(mesh):
+      return state
+    shardings = self.state_shardings(mesh, axis)
+    fields = DeviceGraspState._FIELDS
+    placed = distributed.global_put(
+        {name: getattr(state, name) for name in fields},
+        {name: getattr(shardings, name) for name in fields}, device=dev)
+    return DeviceGraspState(**placed)
 
-  def state_shardings(self, mesh, axis: str = "data"):
-    raise NotImplementedError(
-        "DeviceGraspEnv.state_shardings splits the fleet over a mesh, which "
-        "waits for ROADMAP.md's flagship item 15b (the flagship loop's "
-        "parallel tier).")
+  def state_shardings(self, mesh, axis: str = "data") -> DeviceGraspState:
+    """The state's placement on `mesh`, field by field: the per-env
+    fields (images, targets, attempts) split over `axis`
+    (``parallel.mesh.env_sharding``), each rank owning num_envs /
+    axis_size envs, while the cursor and the episode counts stay whole
+    (one global seed-stream counter, the oracle's, so scenes are assigned
+    as on one rank). Refuses a fleet the axis does not divide."""
+    parts = mesh.shape[axis]
+    if self.num_envs % parts:
+      raise ValueError(
+          f"env fleet width {self.num_envs} is not divisible by the "
+          f"{axis!r} mesh axis size ({parts} devices)")
+    fleet = mesh_lib.env_sharding(mesh, axis)
+    whole = mesh_lib.replicated_sharding(mesh)
+    return DeviceGraspState(images=fleet, targets=fleet, attempts=fleet,
+                            next_scene=whole, episodes=whole,
+                            successes=whole)
 
-  def step_fn(self):
+  def step_fn(self, mesh=None, axis: str = "data"):
     """(state, actions (N, A), reset targets (N, 2) or None) -> (state,
     (rewards, dones, truncated)), the state changed in place.
 
     The success test is ``grasp_success``'s float32 arithmetic, one torch
     op an operation (sqrt(dx*dx + dy*dy) < radius): no fused form, so the
-    outcome at the boundary is the oracle's."""
+    outcome at the boundary is the oracle's. Over a `mesh` the state,
+    the actions and the reset targets are this rank's block of the fleet
+    along `axis`, and the step gathers the fleet's terminal and success
+    flags (a collective)."""
     max_attempts, radius = self.max_attempts, self.radius
+    group = (mesh.group(axis)
+             if mesh_lib.is_distributed(mesh) and mesh.shape[axis] > 1
+             else None)
+    first = (mesh.axis_index(axis) * (self.num_envs // mesh.shape[axis])
+             if group is not None else 0)
 
     def step(state: DeviceGraspState, actions: torch.Tensor,
              reset_targets: Optional[torch.Tensor] = None):
@@ -289,10 +335,19 @@ class DeviceGraspEnv:
                                     attempts >= max_attempts)
       terminal = torch.logical_or(success, truncated)
       term32 = terminal.to(torch.int32)
+      wins = success.to(torch.int32)
+      if group is not None:
+        # The fleet's flags, so every rank orders and counts globally.
+        fleet = collectives.all_gather(torch.stack([term32, wins]), group,
+                                       1)
+        every, wins = fleet[0], fleet[1]
+      else:
+        every = term32
       # Env-order scene assignment: env i's reset takes the cursor plus
       # the number of terminal envs before it, as the numpy fleet draws
       # seeds from its shared counter.
-      order = torch.cumsum(term32, 0, dtype=torch.int32) - term32
+      order = (torch.cumsum(every, 0, dtype=torch.int32) - every)[
+          first:first + len(term32)]
       slots = state.next_scene + order
       new_targets, new_images = self._fresh_scenes(slots, reset_targets)
       rewards = success.float()
@@ -302,10 +357,10 @@ class DeviceGraspEnv:
         state.targets.copy_(torch.where(terminal[:, None], new_targets,
                                         state.targets))
         state.attempts.copy_(torch.where(terminal, 0, attempts))
-        ends = term32.sum(dtype=torch.int32)
+        ends = every.sum(dtype=torch.int32)
         state.next_scene.add_(ends)
         state.episodes.add_(ends)
-        state.successes.add_(success.sum(dtype=torch.int32))
+        state.successes.add_(wins.sum(dtype=torch.int32))
       return state, (rewards, rewards, truncated)
 
     return step

@@ -321,13 +321,24 @@ class MeshLayout:
     specs = self.opt_specs if state.opt_params is not None else self.specs
     tensors = state.opt_params if state.opt_params is not None else (
         state.params)
+    return self._health({key: tensor.grad for key, tensor in tensors.items()
+                         if tensor.grad is not None}, specs)
+
+  def parameter_health(self, state) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(global L2 norm, non-finite count) of the parameters: every rank's
+    blocks counted once."""
+    return self._health({key: value.detach()
+                         for key, value in state.params.items()}, self.specs)
+
+  def _health(self, tensors: Tensors, specs
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L2 norm, non-finite count) of whole tensors whose blocks `tensors`
+    holds under `specs`: each block's sums added over its spec's axes."""
     by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
     for key, tensor in tensors.items():
-      if tensor.grad is None:
-        continue
-      grad = tensor.grad.float()
-      entry = torch.stack([grad.square().sum(),
-                           (~torch.isfinite(grad)).sum().float()])
+      value = tensor.float()
+      entry = torch.stack([value.square().sum(),
+                           (~torch.isfinite(value)).sum().float()])
       by_axes.setdefault(specs[key].axes(), []).append(entry)
     total = None
     for axes, entries in by_axes.items():

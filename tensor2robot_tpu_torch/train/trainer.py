@@ -46,6 +46,7 @@ import torch
 from tensor2robot_tpu_torch import Device, bridge, resolve_device
 from tensor2robot_tpu_torch.obs import health
 from tensor2robot_tpu_torch.ops import graph_launches
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.train.mesh_layout import MeshLayout
 from tensor2robot_tpu_torch.train.train_state import TrainState
@@ -464,6 +465,14 @@ class Trainer:
     if self.layout is None:
       return batch
     return mesh_lib.shard_batch(self.mesh, batch, self.data_axis)
+
+  def gather_batch(self, tensor: torch.Tensor) -> torch.Tensor:
+    """The global batch from every rank's block of `tensor` (its leading
+    dim), the inverse of ``shard_batch``: a collective over the data axis
+    (`tensor` itself without a mesh)."""
+    if self.layout is None:
+      return tensor
+    return collectives.all_gather(tensor, self.layout.data_group, 0)
 
   @property
   def graphs_steps(self) -> bool:

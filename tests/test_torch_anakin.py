@@ -298,8 +298,17 @@ class TestDeviceGraspEnv:
     assert int(state.episodes) == int(state.successes) == 4
     with pytest.raises(ValueError, match="procedural"):
       env.init_state()
-    with pytest.raises(NotImplementedError, match="item 15"):
-      env.state_shardings(None)
+    # Over a mesh the per-env fields split over the data axis and the
+    # counters stay whole; a fleet the axis does not divide refuses.
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    shardings = env.state_shardings(
+        mesh_lib.create_mesh({"data": 2}, devices=range(2)))
+    assert [tuple(getattr(shardings, name).spec) for name in (
+        "images", "targets", "attempts", "next_scene", "episodes",
+        "successes")] == [("data",)] * 3 + [()] * 3
+    with pytest.raises(ValueError, match="fleet width 4"):
+      env.state_shardings(mesh_lib.create_mesh({"data": 8},
+                                               devices=range(8)))
 
 
 # --- the loop against the JAX package ----------------------------------------

@@ -294,9 +294,18 @@ class TestDeviceReplayBuffer:
                                 _transitions(4, 9).items()})
     with pytest.raises(ValueError, match="no priorities"):
       _ring(16, 4, 8, prioritized=False).priorities([0])
-    for kwargs in ({"mesh": object()}, {"data_axis": "replica"}):
-      with pytest.raises(NotImplementedError, match="item 15"):
-        _ring(16, 4, 8, **kwargs)
+    # mesh= splits the capacity over the data axis (over ranks in
+    # tests/test_torch_mesh_loop.py): an indivisible capacity refuses with
+    # the nearest fixes, a mesh without this process's ranks refuses, and
+    # one rank keeps the whole ring whatever the axis is named.
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    with pytest.raises(ValueError, match=r"capacity 16 .*\(15 or 18\)"):
+      _ring(16, 4, 8, mesh=mesh_lib.create_mesh({"data": 3},
+                                                devices=range(3)))
+    with pytest.raises(ValueError, match="no process groups"):
+      _ring(16, 4, 8, mesh=mesh_lib.create_mesh({"data": 2},
+                                                devices=range(2)))
+    assert _ring(16, 4, 8, data_axis="replica").rows == 16
     # ledger= registers each ring function at its first use, with the JAX
     # shapes, and records each host call.
     book = ExecutableLedger()
@@ -572,10 +581,12 @@ class TestMegastepLearner:
     with pytest.raises(ValueError, match="inner_steps"):
       _megastep(inner_steps=0)
     model, trainer, state, ring, _ = _megastep()
-    with pytest.raises(NotImplementedError, match="item 15"):
-      device_buffer.make_learn_iteration_fn(None, None, None, None, None,
-                                            "target_q", True,
-                                            constrain_batch=object())
+    # One rank adds no mesh hooks; the body takes a mesh's (held over two
+    # ranks in tests/test_torch_mesh_loop.py).
+    assert device_buffer.mesh_hooks(trainer) == {}
+    assert callable(device_buffer.make_learn_iteration_fn(
+        None, None, None, None, None, "target_q", True,
+        constrain_batch=lambda tree: tree, gather_rows=lambda rows: rows))
     cold = device_buffer.MegastepLearner(model, trainer, ring)
     with pytest.raises(ValueError, match="refresh"):
       cold.step(state)
@@ -629,11 +640,15 @@ class TestDeviceResidentLoop:
     assert result["health"]["observations"] == 3
     assert result["health"]["breach_count"] == 0
 
-  def test_refusals_that_stay(self):
+  def test_refusals_that_stay(self, tmp_path):
     assert loop.ReplayLoopConfig(device_resident=True).device_resident
-    for name, value in (("mesh_dp", 2), ("zero1", True)):
-      with pytest.raises(NotImplementedError):
-        loop.ReplayLoopConfig(device_resident=True, **{name: value})
+    # The mesh knobs configure; a mesh larger than the ranks present
+    # refuses at the loop, naming both, rather than shrinking.
+    config = loop.ReplayLoopConfig(device_resident=True, mesh_dp=2,
+                                   zero1=True)
+    with pytest.raises(ValueError, match=r"needs 2 rank\(s\), have 1"):
+      loop.ReplayTrainLoop(config, str(tmp_path), model=_tinyq(),
+                           device="cpu")
     # The scoring tiers, once item 11's refusal, take the fused path.
     assert loop.ReplayLoopConfig(device_resident=True,
                                  precision="bf16").precision == "bf16"

@@ -396,9 +396,14 @@ class TestLoopPieces:
     assert obj["steps"] == 40 and obj["health"]["breach_count"] == 0
     assert json.loads(out.read_text()) == obj
 
-  @pytest.mark.parametrize("argv, item", [(["--mesh", "8"], "item 15")])
+  @pytest.mark.parametrize("argv, item", [
+      # --mesh runs over ranks (tests/test_torch_mesh_loop.py); a mesh
+      # the ranks present do not fill refuses, as does a TP degree with
+      # the keep-default DP.
+      (["--mesh", "8"], r"needs 8 rank\(s\), have 1"),
+      (["--mesh", "0,2"], "keep-default sentinel")])
   def test_cli_refuses_by_name(self, tmp_path, argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
       run_qtopt_replay.main(["--smoke", "--device", "cpu", "--logdir",
                              str(tmp_path), *argv])
 

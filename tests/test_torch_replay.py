@@ -703,13 +703,6 @@ class TestCollector:
 
     assert fields(loop.ReplayLoopConfig) == fields(jax_loop.ReplayLoopConfig)
 
-  @pytest.mark.parametrize("name, value, item", [
-      ("mesh_dp", 2, "item 15"), ("mesh_tp", 2, "item 15"),
-      ("zero1", True, "item 15")])
-  def test_config_refuses_what_waits_by_name(self, name, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-      loop.ReplayLoopConfig(**{name: value})
-
   @pytest.mark.parametrize("tier", ["bf16", "int8"])
   def test_config_takes_the_scoring_tiers(self, tier):
     assert loop.ReplayLoopConfig(precision=tier).precision == tier
@@ -985,8 +978,14 @@ class TestBellmanUpdater:
     model = smoke.TinyQCriticModel(image_size=IMG)
     state = model.init_variables(torch.Generator().manual_seed(0),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-      bellman.TargetNetwork(state, sharding=object(), device="cpu")
+    # sharding= places the target where its spec says: whole on every
+    # rank under the replicated sharding the fused learners pass.
+    from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
+    placed = bellman.TargetNetwork(
+        state, sharding=mesh_lib.replicated_sharding(
+            mesh_lib.create_mesh({"data": 1}, devices=[0])), device="cpu")
+    for key, value in placed.target_state()[0].items():
+      np.testing.assert_array_equal(value, state[key].numpy(), err_msg=key)
     # The bf16 tier, once item 11's refusal: one label at the tier,
     # float32 and clipped; ledger=, once item 15b-i's, takes the label
     # closure at the tier with its FLOPs and the call.

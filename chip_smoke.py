@@ -317,6 +317,10 @@ MESH_MEGASTEP_INNER = 4
 MESH_CLI_STEPS = 25
 MESH_LOSS_RTOL, MESH_LOSS_ATOL = 1e-4, 1e-6
 MESH_LOSS_KEYS = ("loss", "td_error", "q_next", "staleness")
+# and the global gradient norm at the same bound: Adam's update is blind
+# to a gradient's scale, so a gradient summed over the ranks rather than
+# averaged would leave the losses within it.
+MESH_HELD_KEYS = MESH_LOSS_KEYS + ("health/grad_norm",)
 
 
 def flash_limit(torch, want):
@@ -6241,12 +6245,12 @@ def mesh_rank(rank: int, seed: int) -> dict:
 
 
 def _relative_diffs(got: list, want: list) -> dict:
-  """Each loss key's largest |got - want| / (atol + rtol |want|) over the
+  """Each held key's largest |got - want| / (atol + rtol |want|) over the
   dispatches (at most 1 within the bound)."""
   return {key: max(abs(g[key] - w[key])
                    / (MESH_LOSS_ATOL + MESH_LOSS_RTOL * abs(w[key]))
                    for g, w in zip(got, want))
-          for key in MESH_LOSS_KEYS}
+          for key in MESH_HELD_KEYS}
 
 
 def run_mesh_cli(seed: int, root: str) -> dict:
@@ -6346,11 +6350,13 @@ def run_qtopt_mesh(torch, dev, seed: int, root: str, smi: str) -> dict:
       raise AssertionError(f"{name} at dp={MESH_RANKS}: {diffs} of the "
                            f"bound; {[r[name] for r in ranks]} against "
                            f"{want}")
+    if not all(m["health/grad_norm"] > 0 for m in want):
+      raise AssertionError(f"{name}: one rank's gradient norms {want}")
     report[name] = {
         "bound_share_by_rank": diffs,
-        "metrics_one_rank": [{k: m[k] for k in MESH_LOSS_KEYS}
+        "metrics_one_rank": [{k: m[k] for k in MESH_HELD_KEYS}
                              for m in want],
-        "metrics_rank0": [{k: m[k] for k in MESH_LOSS_KEYS}
+        "metrics_rank0": [{k: m[k] for k in MESH_HELD_KEYS}
                           for m in ranks[0][name]]}
   report["trained"]["dispatch_s_one_rank"] = [
       m["seconds"] for m in one["trained"]]

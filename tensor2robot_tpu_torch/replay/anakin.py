@@ -116,7 +116,6 @@ from tensor2robot_tpu_torch.replay.device_buffer import (
     make_learn_iteration_fn,
     mesh_hooks,
     sample_draws,
-    target_sharding,
 )
 from tensor2robot_tpu_torch.research.qtopt import cem
 from tensor2robot_tpu_torch.research.qtopt.device_grasping import (
@@ -273,8 +272,7 @@ class AnakinLoop(TargetNetwork):
     # Placement follows the whole mesh, not its data axis: a dp=1, tp>1
     # mesh still runs every rank's collectives and holds the target whole.
     self._sharded = mesh_lib.is_distributed(self.mesh)
-    super().__init__(polyak_tau=polyak_tau, device=trainer.device,
-                     sharding=target_sharding(trainer))
+    super().__init__(polyak_tau=polyak_tau, device=trainer.device)
     self.precision = cem.validate_precision(precision)
     self.dtype = str(cem.scoring_dtype(precision)).replace("torch.", "")
     self._model = model

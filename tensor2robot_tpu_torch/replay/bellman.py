@@ -37,11 +37,11 @@ as ``td_error`` at "f32", each with the FLOPs its first call counted
 (``FlopCounterMode``), and every call records its host seconds through its
 numpy readback, the wait the call already has.
 
-Over a mesh of ranks, ``TargetNetwork(sharding=)`` places the target
-where the sharding says (``parallel.distributed.global_put``): the fused
-learners pass the mesh's replicated sharding, so every rank labels with
-the whole target; a refresh takes the whole online variables (the loop
-gathers a tensor-parallel state's blocks first, ``full_variables``).
+Over a mesh of ranks the fused learners keep the whole target on every
+rank, so every rank labels with it; a refresh takes the whole online
+variables (the loop gathers a tensor-parallel state's blocks first,
+``full_variables``). ``TargetNetwork(sharding=)`` instead keeps each
+rank's block of the target where a sharding's spec says.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from tensor2robot_tpu_torch import Device, resolve_device
-from tensor2robot_tpu_torch.parallel import distributed
+from tensor2robot_tpu_torch.parallel import mesh as mesh_lib
 from tensor2robot_tpu_torch.research.qtopt import cem
 
 
@@ -153,8 +153,8 @@ class TargetNetwork:
       (1 - tau) * target per refresh.
     sharding: a ``parallel.mesh.NamedSharding``: each rank keeps the
       part of every target tensor its spec gives it (the whole tensor
-      under the replicated sharding the fused learners pass). The
-      variables handed in are whole on every rank. None copies them.
+      under a replicated sharding). The variables handed in are whole on
+      every rank. None keeps them whole.
     device: where the target lives; the GPU unless 'cpu' is asked for.
   """
 
@@ -168,15 +168,18 @@ class TargetNetwork:
     self._refresh_count = 0
     self.last_refresh_step = 0
 
+  def _local(self, value) -> torch.Tensor:
+    """This rank's part of one whole variable (a view, no copy)."""
+    value = torch.as_tensor(value).detach()
+    if self._sharding is None:
+      return value
+    return mesh_lib.local_block(value, self._sharding.mesh,
+                                self._sharding.spec)
+
   def _copy(self, variables) -> Dict[str, torch.Tensor]:
-    """Copies of `variables` on the target's device: this rank's parts of
-    them under a sharding."""
-    if self._sharding is not None:
-      return distributed.global_put(
-          {key: torch.as_tensor(value).detach()
-           for key, value in variables.items()},
-          self._sharding, device=self.device)
-    return {key: torch.as_tensor(value).detach().to(self.device, copy=True)
+    """Copies of `variables` (this rank's parts of them under a sharding)
+    on the target's device."""
+    return {key: self._local(value).to(self.device, copy=True)
             for key, value in variables.items()}
 
   def _assign(self, variables, polyak: bool) -> None:
@@ -186,11 +189,9 @@ class TargetNetwork:
       self._target_variables = self._copy(variables)
       return
     tau = self._polyak_tau
-    if self._sharding is not None:
-      variables = self._copy(variables)
     with torch.no_grad():
       for key, target in self._target_variables.items():
-        value = torch.as_tensor(variables[key]).to(self.device)
+        value = self._local(variables[key]).to(self.device)
         if polyak and tau is not None and value.is_floating_point():
           value = tau * value + (1.0 - tau) * target
         target.copy_(value)

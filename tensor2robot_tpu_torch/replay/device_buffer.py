@@ -327,15 +327,12 @@ class DeviceReplayBuffer:
     return self._state
 
   def state_shardings(self) -> Dict[str, mesh_lib.NamedSharding]:
-    """{``DeviceReplayState.arrays`` key: sharding}: the storage and
-    ``written_at`` split over the data axis (``ring_sharding``) when the
-    capacity is, the scalars and the tree whole on every rank (the tree's
-    heap layout has no capacity-aligned axis to split)."""
-    mesh = self.mesh or mesh_lib.create_mesh({self.data_axis: 1},
-                                             devices=[0])
-    whole = mesh_lib.replicated_sharding(mesh)
-    rows = (mesh_lib.ring_sharding(mesh, self.data_axis)
-            if self.shard_capacity else whole)
+    """{``DeviceReplayState.arrays`` key: sharding} of a capacity-sharded
+    ring: the storage and ``written_at`` split over the data axis
+    (``ring_sharding``), the scalars and the tree whole on every rank (the
+    tree's heap layout has no capacity-aligned axis to split)."""
+    whole = mesh_lib.replicated_sharding(self.mesh)
+    rows = mesh_lib.ring_sharding(self.mesh, self.data_axis)
     out = {f"storage/{key}": rows for key in self._spec}
     out["written_at"] = rows
     out.update({name: whole for name in ("tree",) + _SCALARS})
@@ -353,10 +350,12 @@ class DeviceReplayBuffer:
       if self._pending_count:
         raise RuntimeError(
             f"load_state with {self._pending_count} host rows staged")
-      placed = distributed.global_put(flat, self.state_shardings(),
+      if self.shard_capacity:
+        flat = distributed.global_put(flat, self.state_shardings(),
                                       device=self.device)
       ours = self._state
-      for key, value in placed.items():
+      for key, value in flat.items():
+        value = torch.as_tensor(value)
         if key.startswith("storage/"):
           ours.storage[key[len("storage/"):]].copy_(value)
         else:
@@ -875,14 +874,6 @@ def mesh_hooks(trainer) -> Dict[str, Callable]:
           "gather_rows": trainer.gather_batch}
 
 
-def target_sharding(trainer):
-  """The lagged target's placement: whole on every rank of the trainer's
-  mesh (None on one rank)."""
-  if not mesh_lib.is_distributed(trainer.mesh):
-    return None
-  return mesh_lib.replicated_sharding(trainer.mesh)
-
-
 def check_ring_mesh(trainer, buffer) -> None:
   """A ring split over ranks must lie on the trainer's own mesh: its
   sample is a collective of the ranks that learn from it."""
@@ -956,9 +947,8 @@ class MegastepLearner(TargetNetwork):
           "draw buffer and must be exact")
     check_ring_mesh(trainer, buffer)
     # A cold target: the first refresh() is a hard copy. Over a mesh every
-    # rank holds it whole.
-    super().__init__(polyak_tau=polyak_tau, device=trainer.device,
-                     sharding=target_sharding(trainer))
+    # rank holds it whole (the full variables every rank gathers).
+    super().__init__(polyak_tau=polyak_tau, device=trainer.device)
     self.precision = cem.validate_precision(precision)
     self._model = model
     self._trainer = trainer

@@ -850,26 +850,61 @@ class ReplayTrainLoop:
                                     time.perf_counter() - start)
     return summary
 
+  def _collector_error(self) -> Optional[BaseException]:
+    for collector in self._collectors:
+      if collector.errors:
+        return collector.errors[0]
+    return None
+
   def _wait_for_min_fill(self) -> None:
     """Gates the first optimizer step on the ring's min_fill, polling
     with the jittered backoff; a timeout names the gate and the fill it
-    reached."""
+    reached. Over a mesh the primary decides for every rank: each poll
+    broadcasts its drained batch, a collector's death and whether its
+    deadline passed, so all ranks leave the poll, or raise, at the same
+    attempt."""
+    c = self.config
+    description = (f"replay buffer min_fill={c.min_fill} under "
+                   f"{self.logdir}")
 
     def ready():
       self._drain()
       self._feeder_hb.beat()
-      for collector in self._collectors:
-        if collector.errors:
-          raise RuntimeError("collector died during warm-up") from (
-              collector.errors[0])
+      error = self._collector_error()
+      if error is not None:
+        raise RuntimeError("collector died during warm-up") from error
       return self.feeder.ready()
+
+    started, attempts = time.monotonic(), 0
+
+    def mesh_ready():
+      nonlocal attempts
+      attempts += 1
+      self._feeder_hb.beat()
+      verdict = None
+      if self._primary:
+        error = self._collector_error()
+        verdict = (self.feeder.take(),
+                   None if error is None else repr(error),
+                   time.monotonic() - started >= c.min_fill_timeout_s)
+      taken, error, expired = collectives.broadcast_object(verdict)
+      self.feeder.put(*taken)
+      if error is not None:
+        raise RuntimeError(
+            f"collector died during warm-up (on the primary rank): {error}"
+        ) from self._collector_error()
+      if self.feeder.ready():
+        return True
+      if expired:
+        raise backoff.PollTimeout(description, time.monotonic() - started,
+                                  attempts)
+      return False
 
     try:
       backoff.poll_with_backoff(
-          ready, self.config.min_fill_timeout_s,
-          initial_s=0.02, max_s=0.25, seed=self.config.seed,
-          description=(f"replay buffer min_fill="
-                       f"{self.config.min_fill} under {self.logdir}"),
+          mesh_ready if self._mesh_feed else ready,
+          float("inf") if self._mesh_feed else c.min_fill_timeout_s,
+          initial_s=0.02, max_s=0.25, seed=c.seed, description=description,
           raise_on_timeout=True)
     except backoff.PollTimeout as e:
       raise backoff.PollTimeout(

@@ -226,13 +226,9 @@ def measure_tpquant(
     grasp_radius: float = 0.4,
     seed: int = 0,
     device: Device = None,
-    tp_ladder: Sequence[int] = (),
-    tp_steps: int = 8,
-    tp_image_size: int = 64,
 ) -> Dict:
-  """The JAX protocol: the int8 agreement, its tier ledger and bytes, and
-  with `tp_ladder` (say ``R17_TP_LADDER``) the tensor-parallel ladder
-  under ``tp``. Raises if a bar fails."""
+  """The JAX protocol's int8 half: the agreement, its tier ledger and
+  bytes (the ladder is ``_measure_tp_ladder``). Raises if a bar fails."""
   from tensor2robot_tpu_torch.obs.ledger import ExecutableLedger
 
   device = resolve_device(device)
@@ -259,11 +255,6 @@ def measure_tpquant(
       "int8_q_agreement": agreement["overall_rate"],
       "int8_param_bytes_reduction": bytes_reduction["flagship"],
   }
-  if tp_ladder:
-    result["tp"] = _measure_tp_ladder(tp_ladder, tp_steps, seed,
-                                      tp_image_size, device)
-    result["colocated_ranks"] = True
-    result["tp_scaling_efficiency"] = None
   failures = []
   if agreement["overall_rate"] < R17_INT8_AGREEMENT_BAR:
     failures.append(f"int8 agreement {agreement['overall_rate']} < "
@@ -275,18 +266,6 @@ def measure_tpquant(
   if not tier_ledger["per_tier_exactly_once"]:
     failures.append(
         f"tier ledger not exactly-once: {tier_ledger['compile_counts']}")
-  if tp_ladder:
-    tp = result["tp"]
-    if not tp["tp1_oracle"]["bitwise_equal"]:
-      failures.append("the tp=1 rung is not bitwise deterministic")
-    if tp["tp1_oracle"]["model_sharded_leaves"]:
-      failures.append("the tp=1 rung splits parameters")
-    for name, rung in tp["rungs"].items():
-      if rung["anakin_step_compiles"] != 1:
-        failures.append(f"rung {name}: {rung['anakin_step_compiles']} "
-                        "anakin_step builds")
-      if int(name) > 1 and not rung["param_sharding"]["model_sharded_leaves"]:
-        failures.append(f"rung {name}: no parameter split")
   if failures:
     raise AssertionError("tpquant bars failed: " + "; ".join(failures))
   return result

@@ -258,6 +258,19 @@ class TestTrainedDispatches:
     if case == "trained":
       assert all(m["trained_steps"] == 1 for m in want)
 
+  @pytest.mark.parametrize("case", ["trained", "megastep"])
+  def test_grad_norm_within_the_collective_tolerance(self, runs, case):
+    """Each learn's global gradient norm against one rank's: a gradient
+    summed over the ranks rather than averaged doubles it, which Adam's
+    scale-blind update hides from the losses."""
+    want = runs["one"][case]["metrics"]
+    for got in runs["mesh"]:
+      for mine, theirs in zip(got[case]["metrics"], want):
+        assert theirs["health/grad_norm"] > 0
+        np.testing.assert_allclose(
+            mine["health/grad_norm"], theirs["health/grad_norm"],
+            rtol=LOSS_RTOL, atol=LOSS_ATOL, err_msg=case)
+
   def test_first_update_gradients_in_float64(self, runs):
     want = runs["one"]["grads64"]["grads"]
     for got in runs["mesh"]:
@@ -401,6 +414,14 @@ class TestHostAndDeviceResidentPaths:
     assert set(first["compile_counts"].values()) == {1}
     if path == "device_resident":
       assert first["ring_rows"] == second["ring_rows"] == CAPACITY // 2
+
+  def test_the_primary_times_the_min_fill_gate(self, runs):
+    """The primary's deadline closes the warm-up gate for both ranks at
+    the same poll: each raises the gate's timeout, none waits on the
+    other's broadcast."""
+    for got in runs["mesh"]:
+      assert got["gate"]["attempts"] == 1
+      assert f"min_fill={CAPACITY} " in got["gate"]["message"]
 
 
 # --- the CLI -------------------------------------------------------------------

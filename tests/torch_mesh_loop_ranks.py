@@ -19,7 +19,7 @@ from tensor2robot_tpu_torch.parallel import create_mesh, distributed
 from tensor2robot_tpu_torch.replay import anakin, device_buffer, loop, smoke
 from tensor2robot_tpu_torch.research.qtopt import device_grasping as dg
 from tensor2robot_tpu_torch.train.trainer import Trainer
-from tensor2robot_tpu_torch.utils import optimizers
+from tensor2robot_tpu_torch.utils import backoff, optimizers
 
 IMG = 12
 N_ENVS, BATCH, CAPACITY = 4, 8, 64
@@ -234,6 +234,22 @@ CEM_CONFIG = dict(cem_num_samples=CEM["num_samples"],
                   cem_iterations=CEM["iterations"])
 
 
+def min_fill_gate(logdir) -> dict:
+  """The host path over the mesh with a gate that cannot open in time (the
+  whole ring to fill, no time to wait): the primary's deadline decides
+  for both ranks. Returns the timeout's message and attempts."""
+  config = loop.ReplayLoopConfig(
+      seed=0, image_size=IMG, batch_size=BATCH, capacity=CAPACITY,
+      min_fill=CAPACITY, min_fill_timeout_s=0.0, envs_per_collector=N_ENVS,
+      mesh_dp=2, num_buffer_shards=1, **CEM_CONFIG)
+  replay = loop.ReplayTrainLoop(config, logdir, model=tinyq(), device="cpu")
+  try:
+    replay.run(4)
+  except backoff.PollTimeout as e:
+    return {"message": str(e), "attempts": e.attempts}
+  return {"message": None, "attempts": None}
+
+
 def cases(rank: int, jax_draws, jax_initial, jax_target, tmp: str) -> dict:
   """Every two-rank case of the mesh tests, in one spawn."""
   del rank
@@ -265,4 +281,5 @@ def cases(rank: int, jax_draws, jax_initial, jax_target, tmp: str) -> dict:
   out["device_resident"] = run_loop("device_resident",
                                     os.path.join(tmp, "dr"), 8)
   out["host"] = run_loop("host", os.path.join(tmp, "host"), 4)
+  out["gate"] = min_fill_gate(os.path.join(tmp, "gate"))
   return out
